@@ -1,0 +1,228 @@
+"""K2 and K3: banded local-alignment score and traceback
+(AbismalAlign::align and build_traceback, AbismalAlign.hpp:320-440).
+
+K2, banded_score, replaces abismal_tpu/kernels/banded_align.py:_kernel_body
+(build_banded_scorer).  K3, banded_trace, replaces _tracer_body
+(build_banded_tracer) together with the arrow walk of
+abismal_tpu/map/pipeline.py:build_tb_block, fused into one kernel.  The
+CUDA versions live in csrc/banded_align.cu; the plain PyTorch versions
+below compute the same thing row by row over the whole batch, in the JAX
+package's row parametrization (see that module's docstring): the query
+sits at the fixed offset QOFF, and win[rr] is the genome nibble of row rr
+from win_start(pos, bw)."""
+
+from __future__ import annotations
+
+import torch
+
+from abismal_tpu.kernels.banded_align import (
+    ALN_INDEL, ALN_MATCH, ALN_MISMATCH, BAND, NEG, QOFF, win_start,
+)
+from abismal_tpu.map.pipeline import TB_NOPS
+
+from . import _build
+
+
+def walk_step_cap(lp: int) -> int:
+    """Walk steps the JAX traceback can take: its while_loop bound
+    (lp + QOFF) + 2 (QOFF + 1) + 4, checked every 4 unrolled steps."""
+    maxstep = lp + QOFF + 2 * (QOFF + 1) + 4
+    return -(-maxstep // 4) * 4
+
+
+def _dp_rows(q, win, bw, qsz):
+    """Yields (rr, stored, diag, x1, delv, app_d, valid) for every table
+    row of every job; all (J, BAND) int64 / bool."""
+    J, lq = q.shape
+    n_rows = lq + QOFF
+    dev = q.device
+    qt = torch.zeros((J, n_rows - 1 + BAND), dtype=torch.int64, device=dev)
+    qt[:, QOFF : QOFF + lq] = q.to(torch.int64)
+    wt = torch.zeros((J, n_rows), dtype=torch.int64, device=dev)
+    nw = min(win.shape[1], n_rows)
+    wt[:, :nw] = win[:, :nw].to(torch.int64)
+    cols = torch.arange(BAND, device=dev)[None, :]
+    bw = bw.reshape(J, 1).to(torch.int64)
+    qsz = qsz.reshape(J, 1).to(torch.int64)
+    prev = torch.zeros((J, BAND), dtype=torch.int64, device=dev)
+    zcol = torch.zeros((J, 1), dtype=torch.int64, device=dev)
+    for rr in range(n_rows):
+        left = max(QOFF - rr, 0)
+        right = torch.minimum(bw, qsz + (QOFF - rr))
+        valid = (cols >= left) & (cols < right)
+        sub = torch.where((qt[:, rr : rr + BAND] & wt[:, rr : rr + 1]) != 0,
+                          ALN_MATCH, ALN_MISMATCH)
+        diag = prev + sub
+        x1 = diag.clamp(min=0)
+        delv = torch.cat([prev[:, 1:], zcol], dim=1) + ALN_INDEL
+        app_d = cols < right - 1
+        x = torch.where(app_d, torch.maximum(x1, delv), x1)
+        m = torch.where(valid, x - ALN_INDEL * cols, NEG)
+        v = torch.cummax(m, dim=1).values + ALN_INDEL * cols
+        stored = torch.where(valid, v, 0)
+        yield rr, stored, diag, x1, delv, app_d, valid
+        prev = stored
+
+
+def banded_score_plain(q, win, bw, qsz):
+    """Plain PyTorch K2.  q (J, lp) u8 query nibbles at column 0; win
+    (J, >= lp + QOFF) u8 genome nibbles from win_start(pos, bw); bw, qsz
+    (J, 1) i32 with qsz <= lp.  Returns the best cell score (J, 1) i32."""
+    J = q.shape[0]
+    best = torch.zeros(J, dtype=torch.int64, device=q.device)
+    for _rr, stored, *_ in _dp_rows(q, win, bw, qsz):
+        best = torch.maximum(best, stored.max(dim=1).values)
+    return best.to(torch.int32)[:, None]
+
+
+def banded_score(q, win, bw, qsz):
+    """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (or an error).  Same arguments and result as
+    banded_score_plain."""
+    if q.device.type == "cpu":
+        return banded_score_plain(q, win, bw, qsz)
+    J = q.shape[0]
+    q = q.to(torch.uint8).contiguous()
+    win = win.to(torch.uint8).contiguous()
+    bw = bw.reshape(J).to(torch.int32).contiguous()
+    qsz = qsz.reshape(J).to(torch.int32).contiguous()
+    _build.require_device("banded_score", q, win, bw, qsz)
+    out = torch.empty(J, dtype=torch.int32, device=q.device)
+    if J:
+        lib = _build.load()
+        rc = lib.banded_score_launch(
+            q.data_ptr(), q.shape[1], win.data_ptr(), win.shape[1],
+            bw.data_ptr(), qsz.data_ptr(), out.data_ptr(), J,
+            _build.stream_of(q))
+        _build.check(rc, "banded_score")
+        banded_score.launches += 1
+    return out[:, None]
+
+
+banded_score.launches = 0
+
+
+def banded_trace_plain(q, win, bw, qsz, wpos, do_tb):
+    """Plain PyTorch K3 (tracer + arrow walk).  q, win, bw, qsz as for
+    banded_score (bw, qsz (J,)); wpos (J,) int64 u32 band positions;
+    do_tb (J,) bool.  Untraced lanes carry bw = 1, qsz = 0.  Returns
+      ops  (J, TB_NOPS) i32: run-length cigar ops (run << 4 | op) in walk
+           order, the caller reverses them and adds the soft clips;
+      meta (J, 4) i32: [n_ops (-1: not traced or buffer overflow),
+           soft_bottom, soft_top, new_pos (u32 bits)]."""
+    J, lq = q.shape
+    dev = q.device
+    n_rows = lq + QOFF
+    cols = torch.arange(BAND, device=dev)[None, :]
+    panel = torch.zeros((J, n_rows, BAND), dtype=torch.int64, device=dev)
+    best = torch.zeros(J, dtype=torch.int64, device=dev)
+    brr = torch.zeros_like(best)
+    bc = torch.zeros_like(best)
+    for rr, stored, diag, x1, delv, app_d, valid in _dp_rows(q, win, bw, qsz):
+        vleft = torch.cat([torch.zeros_like(stored[:, :1]), stored[:, :-1]],
+                          dim=1)
+        arrow = torch.where(diag >= 0, 0, 3)
+        arrow = torch.where(app_d & (delv >= x1), 2, arrow)
+        arrow = torch.where(stored == vleft + ALN_INDEL, 1, arrow)
+        positive = torch.where(stored > 0, 4, 0)
+        panel[:, rr] = torch.where(valid, arrow | positive, 0)
+        rmax = stored.max(dim=1).values
+        cstar = torch.where(stored == rmax[:, None], cols, BAND).min(
+            dim=1).values
+        upd = rmax > best
+        best = torch.where(upd, rmax, best)
+        brr = torch.where(upd, rr, brr)
+        bc = torch.where(upd, cstar, bc)
+
+    bw = bw.reshape(J).to(torch.int64)
+    qsz = qsz.reshape(J).to(torch.int64)
+    jid = torch.arange(J, device=dev)
+
+    def fetch(i, j):
+        rr = i - bw + QOFF
+        ok = (rr >= 0) & (rr < n_rows) & (j >= 0) & (j < BAND)
+        v = panel[jid, rr.clamp(0, n_rows - 1), j.clamp(0, BAND - 1)]
+        return torch.where(ok, v, 0)
+
+    i0 = brr - QOFF + bw
+    j0 = bc
+    started = do_tb.reshape(J).to(torch.bool) & (best > 0)
+    a0 = fetch(i0, j0) & 3
+    isI0 = (a0 == 1).to(torch.int64)
+    isD0 = (a0 == 2).to(torch.int64)
+    i = i0 - (1 - isI0)
+    j = j0 - isI0 + isD0
+    act = started.clone()
+    prv = a0
+    run = torch.ones_like(best)
+    cnt = torch.zeros_like(best)
+    ops = torch.zeros((J, TB_NOPS), dtype=torch.int64, device=dev)
+    over = torch.zeros_like(started)
+    kops = torch.arange(TB_NOPS, device=dev)[None, :]
+    for step in range(walk_step_cap(lq)):
+        # lanes that stopped are no-ops, so stopping when none is active
+        # leaves every lane where the JAX while_loop leaves it
+        if step % 8 == 0 and not bool(act.any()):
+            break
+        nib = fetch(i, j)
+        act = act & ((nib & 4) != 0)
+        arrow = nib & 3
+        emit = act & (arrow != prv)
+        val = (run << 4) | prv
+        slot = kops == cnt.clamp(max=TB_NOPS - 1)[:, None]
+        ops = torch.where(emit[:, None] & slot, val[:, None], ops)
+        over = over | (emit & (cnt >= TB_NOPS))
+        cnt = cnt + emit.to(torch.int64)
+        run = torch.where(emit, 1, run + act.to(torch.int64))
+        isI = act & (arrow == 1)
+        isD = act & (arrow == 2)
+        i = torch.where(act & ~isI, i - 1, i)
+        j = j - isI.to(torch.int64) + isD.to(torch.int64)
+        prv = torch.where(act, arrow, prv)
+    val = (run << 4) | prv
+    slot = kops == cnt.clamp(max=TB_NOPS - 1)[:, None]
+    ops = torch.where(started[:, None] & slot, val[:, None], ops)
+    over = over | (started & (cnt >= TB_NOPS)) | act
+    cnt = cnt + started.to(torch.int64)
+    soft_bottom = (qsz + bw - 1) - (i0 + j0)
+    soft_top = (i + j) - (bw - 1)
+    newpos = (wpos.reshape(J).to(torch.int64) - (bw - 1) // 2 + i) & 0xFFFFFFFF
+    newpos = torch.where(newpos >= 1 << 31, newpos - (1 << 32), newpos)
+    n_ops = torch.where(started & ~over, cnt, -1)
+    meta = torch.stack([n_ops, soft_bottom, soft_top, newpos], dim=1)
+    return ops.to(torch.int32), meta.to(torch.int32)
+
+
+def banded_trace(q, win, bw, qsz, wpos, do_tb):
+    """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (or an error).  Same arguments and results as
+    banded_trace_plain."""
+    if q.device.type == "cpu":
+        return banded_trace_plain(q, win, bw, qsz, wpos, do_tb)
+    J, lq = q.shape
+    q = q.to(torch.uint8).contiguous()
+    win = win.to(torch.uint8).contiguous()
+    bw = bw.reshape(J).to(torch.int32).contiguous()
+    qsz = qsz.reshape(J).to(torch.int32).contiguous()
+    wpos = wpos.reshape(J).to(torch.int64).contiguous()
+    do_tb = do_tb.reshape(J).to(torch.uint8).contiguous()
+    _build.require_device("banded_trace", q, win, bw, qsz, wpos, do_tb)
+    ops = torch.empty((J, TB_NOPS), dtype=torch.int32, device=q.device)
+    meta = torch.empty((J, 4), dtype=torch.int32, device=q.device)
+    if J:
+        panel_rows = -(-(lq + QOFF) // 8) * 8
+        # one job per warp; the panels stay within 48 KB of static-size
+        # shared memory per block
+        warps = max(1, min(4, (48 * 1024) // (panel_rows * 32)))
+        lib = _build.load()
+        rc = lib.banded_trace_launch(
+            q.data_ptr(), lq, win.data_ptr(), win.shape[1], bw.data_ptr(),
+            qsz.data_ptr(), wpos.data_ptr(), do_tb.data_ptr(),
+            ops.data_ptr(), meta.data_ptr(), J, panel_rows,
+            walk_step_cap(lq), warps, _build.stream_of(q))
+        _build.check(rc, "banded_trace")
+        banded_trace.launches += 1
+    return ops, meta
+
+
+banded_trace.launches = 0

@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Smoke test of abismal_tpu_torch, the PyTorch + CUDA port, on one GPU.
+
+Phases (each prints one JSON line; any failure exits non-zero):
+  1. probe    torch / CUDA / nvcc versions, the card's name and power limit;
+  2. build    nvcc-builds the port's kernels (csrc/*.cu) from the checkout;
+  3. kernels  each kernel (K1 popcount_compare, K2 banded_score, K3
+              banded_trace) against its plain PyTorch version on the card,
+              at main-path shapes, exact equality; both timed with CUDA
+              events in turns (plain, kernel, kernel, plain);
+  4. goldens  maps tests/golden small_1.fq (500 reads) and reads_1.fq (10k)
+              with the port engine on the card; the SAM and mstats must
+              equal the upstream goldens byte for byte, and every kernel's
+              launch counter must move during these runs;
+  5. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome,
+              20k simulated SE reads mapped by the port and by the native
+              engine: the SAM bytes must be equal.
+It imports only the port (abismal_tpu_torch), which brings the host side
+it reuses; nothing of JAX.
+The line before the last is the kernels' JSON summary, the last line
+{"ok": true, "device": {...}}.  Without a CUDA card, or outside a
+checkout of the repository, it fails before printing any result.
+
+Usage: python3 chip_smoke.py
+"""
+
+import gzip
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+TOL = 0  # integer kernels: exact equality
+SCALE_MB = 1000  # the hg38-size stand-in genome of the scale phase
+
+REPLACES = {
+    "popcount_compare": "abismal_tpu/kernels/popcount_compare.py:34",
+    "banded_score": "abismal_tpu/kernels/banded_align.py:44",
+    "banded_trace": "abismal_tpu/kernels/banded_align.py:99",
+}
+SOURCES = {
+    "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
+    "banded_score": "abismal_tpu_torch/csrc/banded_align.cu",
+    "banded_trace": "abismal_tpu_torch/csrc/banded_align.cu",
+}
+
+
+def emit(phase, **kv):
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn over reps launches (CUDA events), warmed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def in_turns(plain, kernel, reps_plain, reps_kernel):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, reps_plain)
+    k1 = cuda_ms(kernel, reps_kernel)
+    k2 = cuda_ms(kernel, reps_kernel)
+    p2 = cuda_ms(plain, reps_plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def max_abs_err(a, b):
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+# --- phase 3 inputs, made with numpy from fixed seeds -----------------------
+
+def k1_inputs(rng, dev, B=2048, cand=64, nw_words=16, n_gw=1 << 20):
+    import numpy as np
+    import torch
+
+    G = B * cand
+    genome32 = rng.integers(0, 1 << 32, n_gw, dtype=np.uint64).astype(
+        np.uint32)
+    pos = rng.integers(0, 8 * n_gw + 512, G).astype(np.int64)
+    pos[::5] &= ~7  # nibble shift 0
+    pos[::97] = (1 << 32) - rng.integers(1, 4096, pos[::97].shape[0])
+    pk = rng.integers(0, 1 << 32, (B, nw_words), dtype=np.uint64).astype(
+        np.uint32)
+    b_of = np.sort(rng.integers(0, B, G)).astype(np.int64)
+    nw_of = 2 * rng.integers(1, nw_words // 2 + 1, G).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(genome32.view(np.int32)), t(pos), t(pk.view(np.int32)),
+            t(b_of), t(nw_of))
+
+
+def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0):
+    """Banded-alignment jobs over a random one-hot genome with IUPAC
+    nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos)."""
+    import numpy as np
+
+    from abismal_tpu_torch.kernels.banded_align import QOFF, win_start
+
+    G = 400_000
+    genome = (1 << rng.integers(0, 4, G)).astype(np.uint8)
+    iup = rng.integers(0, G, G // 500)
+    genome[iup] = rng.integers(1, 16, iup.shape[0])
+    ww = lmax + QOFF
+    q = np.zeros((n, lmax), np.uint8)
+    win = np.zeros((n, ww), np.uint8)
+    bw = np.ones(n, np.int32)
+    qsz = np.zeros(n, np.int32)
+    pos = np.zeros(n, np.int64)
+    bws = np.array([1, 5, 61, 3, 9, 21, 41])
+    for i in range(n - n_pad):
+        L = int(rng.integers(36, lmax + 1))
+        p = int(rng.integers(200, G - 400))
+        r = genome[p : p + L].copy()
+        if i < overflow:  # an indel every 6 bases: > TB_NOPS cigar runs
+            rl, k = [], 0
+            while len(rl) < L:
+                rl.extend(genome[p + k : p + k + 5])
+                k += 5
+                if len(rl) % 2:
+                    rl.append(1 << int(rng.integers(0, 4)))
+                else:
+                    k += 1
+            r = np.array(rl[:L], np.uint8)
+            b = 61
+        else:
+            for _ in range(int(rng.integers(0, 8))):
+                r[int(rng.integers(0, L))] = 1 << int(rng.integers(0, 4))
+            rl = list(r)
+            if rng.random() < 0.5:
+                rl.insert(int(rng.integers(5, L - 5)),
+                          1 << int(rng.integers(0, 4)))
+            if rng.random() < 0.5:
+                del rl[int(rng.integers(5, len(rl) - 5))]
+            r = np.array(rl[:L], np.uint8)
+            b = int(bws[i % bws.shape[0]])
+        g0 = win_start(p, b)
+        q[i, : r.shape[0]] = r
+        win[i] = genome[g0 : g0 + ww]
+        bw[i], qsz[i], pos[i] = b, r.shape[0], p
+    return q, win, bw, qsz, pos
+
+
+def phase_kernels(dev):
+    import numpy as np
+    import torch
+
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+
+    rng = np.random.default_rng(7)
+    res = {"tolerance": TOL}
+
+    args = k1_inputs(rng, dev)
+    want = pc.popcount_compare_plain(*args)
+    got = pc.popcount_compare(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err <= TOL, "K1 differs")
+    ms, pms = in_turns(lambda: pc.popcount_compare_plain(*args),
+                       lambda: pc.popcount_compare(*args), 5, 50)
+    res["popcount_compare"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                   shape=f"G={args[1].shape[0]}")
+
+    q, win, bw, qsz, _ = align_jobs(rng, 8192, n_pad=512)
+    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw[:, None],
+                                                qsz[:, None])]
+    want = ba.banded_score_plain(*t)
+    got = ba.banded_score(*t)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err <= TOL, "K2 differs")
+    ms, pms = in_turns(lambda: ba.banded_score_plain(*t),
+                       lambda: ba.banded_score(*t), 3, 50)
+    res["banded_score"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                               shape="J=8192")
+
+    q, win, bw, qsz, pos = align_jobs(rng, 1024, n_pad=128, overflow=4)
+    do_tb = rng.random(1024) < 0.9
+    do_tb[:4] = True
+    bw[~do_tb], qsz[~do_tb] = 1, 0
+    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw, qsz, pos, do_tb)]
+    w_ops, w_meta = ba.banded_trace_plain(*t)
+    g_ops, g_meta = ba.banded_trace(*t)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g_ops, w_ops), max_abs_err(g_meta, w_meta))
+    check(err <= TOL, "K3 differs")
+    n_over = int((w_meta[:4, 0] == -1).sum())
+    check(n_over > 0, "K3 inputs lack a TB_NOPS overflow job")
+    ms, pms = in_turns(lambda: ba.banded_trace_plain(*t),
+                       lambda: ba.banded_trace(*t), 2, 50)
+    res["banded_trace"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                               shape="J2=1024", overflow_jobs=n_over,
+                               traced=int((w_meta[:, 0] >= 0).sum()))
+    return res
+
+
+# --- phase 4/5 helpers -------------------------------------------------------
+
+def gunzip_to(name, dst_dir):
+    out = os.path.join(dst_dir, name)
+    if not os.path.exists(out):
+        with gzip.open(os.path.join(GOLDEN, name + ".gz"), "rb") as f:
+            data = f.read()
+        with open(out + ".tmp", "wb") as g:
+            g.write(data)
+        os.replace(out + ".tmp", out)
+    return out
+
+
+def md5(path):
+    h = hashlib.md5()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def trex1_index(threads):
+    from abismal_tpu_torch.host import create_index, read_index, write_index
+
+    cached = os.path.join(WORK, "tRex1.idx")
+    want = open(os.path.join(GOLDEN, "tRex1.idx.md5")).read().strip()
+    if os.path.exists(cached) and md5(cached) == want:
+        return read_index(cached), "cached"
+    idx = create_index(os.path.join(ROOT, "tests", "data", "tRex1.fa"),
+                       n_threads=threads)
+    write_index(idx, cached)
+    check(md5(cached) == want, "tRex1 index not byte-identical")
+    return idx, "built"
+
+
+def chunk_device_ms(eng, first):
+    """Per-chunk device times (ms) between the program's phase marks."""
+    import numpy as np
+
+    rows = []
+    for marks in eng.chunk_marks[first:]:
+        ev = dict(marks)
+        rows.append([ev["start"].elapsed_time(ev["core"]),
+                     ev["core"].elapsed_time(ev["decide"]),
+                     ev["decide"].elapsed_time(ev["score"]),
+                     ev["score"].elapsed_time(ev["end"]),
+                     ev["start"].elapsed_time(ev["end"])])
+    if not rows:
+        return {}
+    m = np.mean(np.array(rows), axis=0)
+    return dict(core_ms=m[0], decide_ms=m[1], score_ms=m[2],
+                traceback_ms=m[3], total_ms=m[4], chunks=len(rows))
+
+
+def map_with(engine_factory, index, fq, sam, mstats, cl, threads):
+    from abismal_tpu_torch.host import run_map
+
+    t0 = time.perf_counter()
+    run_map(index, fq, None, sam, mstats, cl, engine_factory=engine_factory,
+            threads=threads)
+    return time.perf_counter() - t0
+
+
+def n_reads_of(fq):
+    with open(fq, "rb") as f:
+        return sum(1 for _ in f) // 4
+
+
+def port_map(factory, index, fq, sam, mstats, cl, threads):
+    """Maps fq with the port engine; returns (seconds, stats dict)."""
+    eng = factory(index, False, 0.1, 32, 3000)
+    u0, f0, c0 = eng.n_units, eng.n_fallback, len(eng.chunk_marks)
+    t0 = dict(eng.stage_time)
+    secs = map_with(factory, index, fq, sam, mstats, cl, threads)
+    n = n_reads_of(fq)
+    du = eng.n_units - u0
+    st = dict(reads=n, seconds=secs, reads_per_s=n / secs,
+              fallback_frac=(eng.n_fallback - f0) / max(1, du),
+              host_s={k: v - t0[k] for k, v in eng.stage_time.items()})
+    st.update(chunk_device_ms(eng, c0))
+    return st
+
+
+def phase_goldens(dev, threads):
+    import torch
+
+    from abismal_tpu_torch.host import make_native_engine_factory
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+
+    t0 = time.perf_counter()
+    index, how = trex1_index(threads)
+    t_index = time.perf_counter() - t0
+    factory = make_torch_native_engine_factory(dev, n_threads=threads)
+    eng = factory(index, False, 0.1, 32, 3000)
+    eng.profile = True
+    out = {"index": how, "index_s": t_index}
+    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace)
+    for k in kernels:
+        k.launches = 0
+    for prefix in ("small", "reads"):
+        fq = gunzip_to(f"{prefix}_1.fq", WORK)
+        sam = os.path.join(WORK, f"{prefix}.sam")
+        mst = os.path.join(WORK, f"{prefix}.mstats")
+        cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
+              f"-i tests/tRex1.idx tests/{prefix}_1.fq")
+        st = port_map(factory, index, fq, sam, mst, cl, threads)
+        with gzip.open(os.path.join(GOLDEN, prefix + ".sam.gz"), "rb") as f:
+            sam_ok = open(sam, "rb").read() == f.read()
+        with gzip.open(os.path.join(GOLDEN, prefix + ".mstats.gz"), "rb") as f:
+            mst_ok = open(mst, "rb").read() == f.read()
+        st.update(sam_identical=sam_ok, mstats_identical=mst_ok)
+        out[prefix] = st
+        check(sam_ok and mst_ok, f"{prefix}: output differs from the golden")
+    launches = {k.__name__: k.launches for k in kernels}
+    out["launches"] = launches
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the main path")
+    # the native engine on the same host, same reads, for scale
+    fq = os.path.join(WORK, "reads_1.fq")
+    secs = map_with(make_native_engine_factory(n_threads=threads), index, fq,
+                    os.path.join(WORK, "native.sam"), None, "native", threads)
+    out["native_reads_per_s"] = n_reads_of(fq) / secs
+    out["table_bytes"] = eng.dev.nbytes()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out, launches
+
+
+def gen_genome(path, total):
+    """tools/scale_test.py:gen_genome, loaded from its file so that tools/
+    does not go on sys.path."""
+    spec = importlib.util.spec_from_file_location(
+        "scale_test", os.path.join(ROOT, "tools", "scale_test.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.gen_genome(path, total)
+
+
+def phase_scale(dev, threads):
+    import torch
+
+    from abismal_tpu_torch.host import (
+        SimConfig, create_index, make_native_engine_factory, simulate_reads,
+    )
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+
+    size = SCALE_MB * 1_000_000
+    fa = os.path.join(WORK, f"scale_{size}.fa")
+    t0 = time.perf_counter()
+    if not os.path.exists(fa):
+        gen_genome(fa + ".tmp", size)
+        os.replace(fa + ".tmp", fa)
+    t1 = time.perf_counter()
+    index = create_index(fa, n_threads=threads)
+    t2 = time.perf_counter()
+    pre = os.path.join(WORK, f"scale_{size}_r")
+    simulate_reads(fa, SimConfig(output_prefix=pre, n_reads=20000,
+                                 mutation_rate=0.01, bs_conv=0.98, seed=1,
+                                 single_end=True))
+    fq = pre + "_1.fq"
+    t3 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    factory = make_torch_native_engine_factory(dev, n_threads=threads)
+    eng = factory(index, False, 0.1, 32, 3000)
+    eng.profile = True
+    sam_t = os.path.join(WORK, "scale_port.sam")
+    sam_n = os.path.join(WORK, "scale_native.sam")
+    st = port_map(factory, index, fq, sam_t, None, "scale", threads)
+    st_warm = port_map(factory, index, fq, sam_t, None, "scale", threads)
+    secs_n = map_with(make_native_engine_factory(n_threads=threads), index,
+                      fq, sam_n, None, "scale", threads)
+    same = open(sam_t, "rb").read() == open(sam_n, "rb").read()
+    check(same, "scale: port SAM differs from the native engine's")
+    return dict(genome_mb=SCALE_MB, gen_s=t1 - t0, index_s=t2 - t1,
+                sim_s=t3 - t2, first=st, warm=st_warm,
+                native_reads_per_s=20000 / secs_n, sam_identical=same,
+                cand_budget=eng.cand_budget,
+                ext_pool=eng._informed_ext_pool(),
+                table_bytes=eng.dev.nbytes(),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "abismal_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    os.makedirs(WORK, exist_ok=True)
+    threads = min(8, os.cpu_count() or 1)
+    dev = torch.device("cuda")
+    try:
+        from abismal_tpu_torch.device import card_info
+        from abismal_tpu_torch.kernels import _build
+
+        card = card_info()
+        nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                              capture_output=True, text=True).stdout
+        emit("probe", torch=torch.__version__, cuda=torch.version.cuda,
+             nvcc=nvcc.strip().splitlines()[-1], card=card,
+             device_name=torch.cuda.get_device_name(0),
+             device_count=torch.cuda.device_count(),
+             python=sys.version.split()[0])
+
+        t0 = time.perf_counter()
+        _build.load()
+        emit("build", seconds=time.perf_counter() - t0,
+             nvcc_seconds=_build.build_seconds, library=os.path.relpath(
+                 _build.library_path(), ROOT))
+
+        kres = phase_kernels(dev)
+        emit("kernels", **kres)
+
+        gres, launches = phase_goldens(dev, threads)
+        emit("goldens", **gres)
+
+        emit("scale", **phase_scale(dev, threads))
+        check("jax" not in sys.modules, "the port loaded jax")
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=SOURCES[name],
+             replaces=REPLACES[name], launches=launches[name],
+             max_abs_err=kres[name]["max_abs_err"], ms=kres[name]["ms"],
+             plain_ms=kres[name]["plain_ms"]) for name in REPLACES]}),
+        flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,186 @@
+"""End-to-end `map` through run_map with the port's engine factory on the
+CPU (plain kernel versions): byte-identical to the upstream goldens, and
+to the exact native engine on the modes and fallback routes the fused
+program must hand back to the host."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import GOLDEN, golden_path
+
+# test workers share the CPU: one torch thread each, not one per core
+torch.set_num_threads(1)
+
+
+def _golden(name):
+    import gzip
+    import os
+
+    with gzip.open(os.path.join(GOLDEN, name + ".gz"), "rt") as f:
+        return f.read()
+
+
+def _factory(**kw):
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+
+    kw.setdefault("unit_batch", 128)
+    kw.setdefault("n_threads", 2)
+    return make_torch_native_engine_factory("cpu", **kw)
+
+
+def _port_and_native(tmp_path, index, fq, cl, **run_kw):
+    """(port, native) outputs of run_map: (SAM text, mstats text)."""
+    from abismal_tpu.map.engine import run_map
+    from abismal_tpu.map.pipeline import make_native_engine_factory
+
+    outs = []
+    for i, fac in enumerate((_factory(),
+                             make_native_engine_factory(n_threads=2))):
+        sam, mst = tmp_path / f"o{i}.sam", tmp_path / f"o{i}.mstats"
+        run_map(index, fq, None, str(sam), str(mst), cl, engine_factory=fac,
+                threads=2, **run_kw)
+        outs.append((sam.read_text(), mst.read_text()))
+    return outs
+
+
+def test_golden_small_parity(tmp_path, trex1_index):
+    """The port's SE path gives the upstream small.sam / small.mstats."""
+    from abismal_tpu.map.engine import run_map
+
+    cl = ("map -s tests/small.mstats -o tests/small.sam -i tests/tRex1.idx "
+          "tests/small_1.fq")
+    sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
+    run_map(trex1_index, golden_path("small_1.fq"), None, str(sam), str(mst),
+            cl, engine_factory=_factory())
+    assert sam.read_text() == _golden("small.sam")
+    assert mst.read_text() == _golden("small.mstats")
+
+
+@pytest.mark.parametrize("a_rich,random_pbat", [(True, False), (False, True)])
+def test_se_modes_match_native(tmp_path, trex1_index, a_rich, random_pbat):
+    """A-rich and RPBAT SE (4 units per read) equal the native engine."""
+    port, native = _port_and_native(
+        tmp_path, trex1_index, golden_path("small_1.fq"), "cl",
+        a_rich=a_rich, random_pbat=random_pbat)
+    assert port == native
+
+
+def test_wide_band_fallback(tmp_path, trex1_index):
+    """-m 0.45 gives true bands of 2 int(0.45 len) + 1 > BW_MAX: those reads
+    fall back to the host (no clamping) and the output stays exact."""
+    port, native = _port_and_native(
+        tmp_path, trex1_index, golden_path("small_1.fq"),
+        "map -m 0.45 -o out.sam -i tests/tRex1.idx tests/small_1.fq",
+        valid_frac=0.45)
+    assert port == native
+
+
+@pytest.mark.parametrize("env", [
+    {"ABISMAL_TPU_JOBS_PER_READ": "0"},  # every aligned read re-mapped
+    {"ABISMAL_TPU_DEVTB": "0"},  # records only: winners traced on the host
+])
+def test_env_routes_match_native(tmp_path, trex1_index, monkeypatch, env):
+    """The JAX program's environment knobs, read by the port too, move
+    work between the device and the host; output is unchanged."""
+    from abismal_tpu_torch.map import pipeline
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    # a fresh engine: the memoized one built its program without the knob
+    monkeypatch.setattr(pipeline, "_engine_memo", {})
+    port, native = _port_and_native(
+        tmp_path, trex1_index, golden_path("small_1.fq"), "cl")
+    assert port == native
+    (eng,) = (e for _, e in pipeline._engine_memo.values())
+    if "ABISMAL_TPU_JOBS_PER_READ" in env:  # every aligned read fell back
+        assert eng.n_fallback > eng.n_units // 2
+    else:
+        assert not eng.device_tb
+
+
+def _write_fasta(path, name, seq):
+    with open(path, "w") as f:
+        f.write(f">{name}\n")
+        for i in range(0, len(seq), 70):
+            f.write(seq[i : i + 70] + "\n")
+
+
+def test_iupac_negative_diffs(tmp_path):
+    """Genome Y (C|T) codes drive T-rich popcount distances below zero;
+    those diffs ride the packed field +512-biased, stay on the device path
+    and give the native engine's output."""
+    from abismal_tpu.index.build import create_index
+    from abismal_tpu.map.native_engine import NativeMappingEngine
+    from abismal_tpu.map.stats import SEStats
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+
+    rng = np.random.default_rng(77)
+    n = 120000
+    seq = rng.choice(list("ACGT"), size=n)
+    yspots = rng.integers(200, n - 200, 400)
+    seq[yspots] = "Y"
+    _write_fasta(tmp_path / "negd.fa", "chrY", "".join(seq))
+    index = create_index(str(tmp_path / "negd.fa"))
+    reads = []
+    for i, p in enumerate(sorted(set(int(y) for y in yspots))[:48]):
+        s0 = max(0, min(p - 50, n - 100))
+        r = "".join(seq[s0 : s0 + 100]).replace("C", "T").replace("Y", "T")
+        reads.append((f"nd{i}", r.encode()))
+
+    port = TorchNativeEngine(index, unit_batch=128, n_threads=2,
+                             device="cpu")
+    out_p, st_p = io.StringIO(), SEStats()
+    port.map_se_reads(reads, False, False, st_p, out_p)
+    host = NativeMappingEngine(index, n_threads=2)
+    out_h, st_h = io.StringIO(), SEStats()
+    host.map_se_reads(reads, False, False, st_h, out_h)
+    assert out_p.getvalue() == out_h.getvalue()
+    assert st_p.__dict__ == st_h.__dict__
+    assert st_h.reads_mapped_unique > 0
+    assert port.n_fallback < port.n_units // 2
+
+
+def test_repeat_genome_sure_ambig(tmp_path):
+    """Tandem-repeat reads with many exact hits are decided on the device
+    by the sure-ambig heap-fill refinement, not sent to the host."""
+    from abismal_tpu.index.build import create_index
+    from abismal_tpu.io.fastq import ReadLoader
+    from abismal_tpu.map.native_engine import NativeMappingEngine
+    from abismal_tpu.map.stats import SEStats
+    from abismal_tpu.sim.simreads import SimConfig, simulate_reads
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+
+    rng = np.random.default_rng(77)
+    unit = "".join(rng.choice(list("ACGT"), size=131))
+    seq = ("".join(rng.choice(list("ACGT"), size=60_000)) + unit * 500
+           + "".join(rng.choice(list("ACGT"), size=60_000)))
+    fa = str(tmp_path / "rep.fa")
+    _write_fasta(fa, "chrR", seq)
+    index = create_index(fa)
+    simulate_reads(fa, SimConfig(
+        output_prefix=str(tmp_path / "r"), n_reads=400, mutation_rate=0.0,
+        bs_conv=0.98, seed=5, single_end=True))
+    batch = ReadLoader(str(tmp_path / "r_1.fq")).load_batch()
+
+    port = TorchNativeEngine(index, unit_batch=1024, n_threads=2,
+                             device="cpu")
+    out_p, st_p = io.StringIO(), SEStats()
+    port.map_se_reads(batch, False, False, st_p, out_p)
+    host = NativeMappingEngine(index, n_threads=2)
+    out_h, st_h = io.StringIO(), SEStats()
+    host.map_se_reads(batch, False, False, st_h, out_h)
+    assert out_p.getvalue() == out_h.getvalue()
+    assert st_p.__dict__ == st_h.__dict__
+    assert port.n_fallback / max(1, port.n_units) < 0.15
+    assert st_p.reads_mapped_ambiguous > 50
+
+
+def test_paired_end_not_ported(trex1_index):
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+
+    eng = TorchNativeEngine(trex1_index, unit_batch=128, device="cpu")
+    with pytest.raises(NotImplementedError, match="paired-end"):
+        eng.dispatch_pe([], [], False, False)
