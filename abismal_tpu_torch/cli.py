@@ -1,5 +1,6 @@
 """Command line of the port: `python -m abismal_tpu_torch map ...` maps
-single-end reads with the PyTorch engine on --device (default cuda).
+single-end reads, or read pairs given two FASTQs, with the PyTorch engine
+on --device (default cuda).
 `idx` and `sim` are host-only and run abismal_tpu's commands unchanged.
 The SAM @PG CL: header records argv as abismal_tpu's CLI does."""
 
@@ -19,6 +20,8 @@ def cmd_map(argv):
     p.add_argument("-s", "--stats", default="")
     p.add_argument("-j", "--json", action="store_true")
     p.add_argument("-c", "--max-candidates", type=int, default=0)
+    p.add_argument("-l", "--min-frag", type=int, default=32)
+    p.add_argument("-L", "--max-frag", type=int, default=3000)
     p.add_argument("-m", "--max-distance", type=float, default=0.1)
     p.add_argument("-a", "--ambig", action="store_true")
     p.add_argument("-P", "--pbat", action="store_true")
@@ -39,8 +42,9 @@ def cmd_map(argv):
         print("Select one of index file (-i) or genome file (-g)",
               file=sys.stderr)
         return 0
-    if len(a.reads_files) > 1:
-        raise NotImplementedError("paired-end is not ported yet; see ROADMAP")
+    if len(a.reads_files) > 2:
+        print("expected <reads-fq1> [<reads-fq2>]", file=sys.stderr)
+        return 0
     if a.lmax < 64:
         print("--lmax must be at least 64", file=sys.stderr)
         return 1
@@ -59,11 +63,13 @@ def cmd_map(argv):
     if a.max_candidates:
         index.max_candidates = a.max_candidates
 
+    reads2 = a.reads_files[1] if len(a.reads_files) == 2 else None
     run_map(
-        index, a.reads_files[0], None, a.outfile, a.stats or None,
+        index, a.reads_files[0], reads2, a.outfile, a.stats or None,
         "map " + " ".join(argv), a_rich=a.a_rich, pbat=a.pbat,
         random_pbat=a.random_pbat, allow_ambig=a.ambig, stats_json=a.json,
-        valid_frac=a.max_distance,
+        valid_frac=a.max_distance, pe_min_dist=a.min_frag,
+        pe_max_dist=a.max_frag,
         engine_factory=make_torch_native_engine_factory(
             a.device, lmax=a.lmax, n_threads=a.threads),
         threads=a.threads, bam=a.bam, verbose=a.verbose)
@@ -74,8 +80,10 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("Program: abismal-tpu-torch\nUsage: python -m abismal_tpu_torch "
-              "<command> [options]\nCommands:\n    map:    map single-end "
-              "FASTQ reads on a torch device (--device, default cuda)\n"
+              "<command> [options]\nCommands:\n    map:    map FASTQ reads, "
+              "or read pairs from two FASTQs (-l/-L: fragment\n"
+              "            length window), on a torch device (--device, "
+              "default cuda)\n"
               "    idx:    make an index for a FASTA reference genome\n"
               "    sim:    simulate WGBS reads for a FASTA reference genome")
         return 0

@@ -56,7 +56,8 @@ def unpack_nibbles(pnib: torch.Tensor) -> torch.Tensor:
     """(B, W) u8, two nibbles per byte (base i in nibble i & 1 of byte
     i >> 1) -> (B, 2W) int64 nibbles."""
     p = pnib.to(I64)
-    return torch.stack([p & 0xF, p >> 4], dim=2).reshape(p.shape[0], -1)
+    return torch.stack([p & 0xF, p >> 4], dim=2).reshape(p.shape[0],
+                                                          2 * p.shape[1])
 
 
 def window_nibbles(genome32, g0, width: int) -> torch.Tensor:
@@ -73,6 +74,28 @@ def _pad1(x, n: int, value):
         return x
     return torch.cat([x, torch.full((n,), value, dtype=x.dtype,
                                     device=x.device)])
+
+
+def _phase_marker(marks):
+    """mark(name): appends (name, a recorded CUDA event) to the list
+    marks, or does nothing when marks is None."""
+
+    def mark(name):
+        if marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+    return mark
+
+
+def _unit_base(start, value, n):
+    """(n,) per-candidate value of its unit: value[u] scattered at the
+    unit's first candidate start[u] (clamped to n), then carried forward
+    by a running max (unit values never decrease)."""
+    m = torch.zeros(n + 1, dtype=I64, device=start.device).scatter_reduce(
+        0, start, value, "amax")
+    return torch.cummax(m[:n], dim=0).values
 
 
 class DeviceIndex:
@@ -515,12 +538,7 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     def stage12(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
                 scode, max_diffs_r, marks=None):
         dev = pnib.device
-
-        def mark(name):
-            if marks is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((name, ev))
+        mark = _phase_marker(marks)
 
         def ar(n):
             return torch.arange(n, device=dev)
@@ -569,9 +587,7 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         total_ex = ex_at[rend] - ex_at[rst_c]
         # 49 non-exact inserts fill the 50-slot heap
         heap_would_fill = (n_gated - total_ex) > 48
-        marks0 = torch.zeros(ncand + 1, dtype=I64, device=dev).scatter_reduce(
-            0, rst_c, g_at[rst_c], "amax")
-        base_of = torch.cummax(marks0[:ncand], dim=0).values
+        base_of = _unit_base(rst_c, g_at[rst_c], ncand)
         wslot = g_exc - base_of  # per-read gated rank
         keepw = gate & (wslot < K2)
         dest = torch.where(keepw, r_of * K2 + wslot, R * K2)
@@ -702,12 +718,193 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     return stage12, o_spec
 
 
+def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
+                    n_index3: int, per: int = 4,
+                    cand_per_unit: int | None = None, k_slots: int = 32,
+                    jobs_per_unit: int = 8, ext_iters: int = 31,
+                    ext_pool: int | None = None):
+    """Fused stage-1+2 for paired-end mapping (↔ JAX build_stage12pe; the
+    exactness argument is in that docstring).  Returns (stage12pe,
+    o_spec); stage12pe(genome32, counter2, counter3, index_all, pnib,
+    lens, is_ga, max_diffs_u, pe_dist, marks=None) -> (B, 2K + 6) i32,
+    one packed row per unit [pos(K) | ds(K) | cnt | mate-slice(5)]:
+      pos   candidate positions (u32 bits), discovery order;
+      ds    (diffs << 16) | (score & 0xFFFF), i32 wrap;
+      cnt   accepted count, or -1 => native-seeding fallback;
+      mate  unit per r + u carries mate[r, 5u : 5u + 5] of the (B / per,
+            O 10) per-orientation mating sweep records.
+    pe_dist (2,) int = (pe_min, pe_max).  marks, a list, collects (name,
+    CUDA event) pairs at the program's phase boundaries."""
+    cand_per_unit = _resolve_cand_budget(cand_per_unit, n_index2, n_index3,
+                                         lmax)
+    jobs_per_unit = int(os.environ.get("ABISMAL_TPU_JOBS_PER_UNIT",
+                                       jobs_per_unit))
+    core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
+                              cand_per_unit, ext_iters=ext_iters,
+                              ext_pool=ext_pool)
+    K = k_slots
+    WW3 = lmax + QOFF
+
+    def stage12pe(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
+                  max_diffs_u, pe_dist, marks=None):
+        dev = pnib.device
+        mark = _phase_marker(marks)
+        mark("start")
+        B = pnib.shape[0]
+        J = ((jobs_per_unit * B + 127) // 128) * 128
+        lens = lens.to(I64)
+        # PE ends differ in length: every cutoff is per unit
+        uextra = torch.stack([lens // 10, (2 * lens) // 5,
+                              max_diffs_u.to(I64), lens], dim=1)
+        c = core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
+                 uextra)
+        mark("core")
+        pos, b_of = c["pos"], c["b_of"]
+        cell_of, valid = c["cell_of"], c["valid"]
+        d = c["d"].to(I64)
+        unit_start, unit_total = c["unit_start"], c["unit_total"]
+        overflow, extras = c["overflow"], c["extras"]
+        ncand = pos.shape[0]
+
+        # --- acceptance gates and per-unit slot ranks, discovery order
+        phase_sp = cell_of < 2 * o_spec
+        gate = valid & torch.where(phase_sp, d <= extras[:, 0],
+                                   d <= extras[:, 1])
+        acc = gate.to(I64)
+        c_inc = torch.cumsum(acc, dim=0)
+        c_exc = c_inc - acc
+        c_at = torch.cat([c_exc, c_inc[-1:]])
+        ust_c = unit_start.clamp(max=ncand)
+        uend_at = (unit_start + unit_total).clamp(max=ncand)
+        base = c_at[ust_c]
+        n_acc = c_at[uend_at] - base
+        heap_fb = n_acc > K - 1  # insert #32 fills the heap
+        base_of = _unit_base(ust_c, base, ncand)
+        keep = gate & (c_exc - base_of < K - 1)
+        mark("decide")
+
+        # --- job build and the banded scorer (K2).  Bands are not
+        # remapped: IUPAC diffs give negative bands, which score 0
+        bw_c = 2 * torch.minimum(d, extras[:, 2]) + 1
+        jm = keep.to(I64)
+        k_inc = torch.cumsum(jm, dim=0)
+        jexc = k_inc - jm
+        job_ok = keep & (jexc < J)
+        k_atx = torch.cat([torch.zeros(1, dtype=I64, device=dev), k_inc])
+        job_fb = k_atx[uend_at] > torch.clamp(k_atx[ust_c], min=J)
+        b_atx = torch.cat([torch.zeros(1, dtype=I64, device=dev),
+                           torch.cumsum((keep & (bw_c > BW_MAX)).to(I64),
+                                        dim=0)])
+        bw_fb = (b_atx[uend_at] - b_atx[ust_c]) > 0
+        jdest = torch.where(job_ok & (bw_c <= BW_MAX), jexc, J)
+        # d rides the high half of the qsz column, as in the JAX rows
+        jrows = torch.tensor([0, 32767, 1, 0], dtype=I64, device=dev).repeat(
+            J + 1, 1)
+        jrows[jdest] = torch.stack(
+            [b_of, pos, bw_c.clamp(max=BW_MAX), (d << 16) | extras[:, 3]],
+            dim=1)
+        junit, jpos, jbw, jqd = jrows[:J].unbind(dim=1)
+        q = unpack_nibbles(pnib[junit])[:, :lmax].to(torch.uint8)
+        win = window_nibbles(genome32, win_start(jpos, jbw) & M32, WW3)
+        scores_j = banded_score(q, win, jbw, jqd & 0xFFFF)[:, 0].to(I64)
+        mark("score")
+
+        # --- slot (u, k): the unit's k-th kept candidate, gathered from
+        # the job rows at rank kbase + k; dead slots read INF32.  Row J
+        # (a fill row, score 0) is read only when J is 0: then every
+        # unit with a kept candidate has fallen back (job_fb)
+        kidx = torch.arange(K, device=dev)[None, :]
+        live = kidx < torch.clamp(n_acc, max=K - 1)[:, None]
+        jrank = torch.clamp(k_atx[ust_c][:, None] + kidx, max=max(J - 1, 0))
+        scores_j = _pad1(scores_j, 1, 0)
+        scrK = torch.where(live, scores_j[jrank], 0)
+        fb = (overflow | heap_fb | bw_fb | job_fb
+              | ((lens > 0) & (lens < DEVICE_MIN_LEN)))
+        cnt = torch.where(fb, -1, n_acc)
+        posKm = torch.where(live, jrows[:, 1][jrank], INF32)
+        dKm = torch.where(live, jrows[:, 3][jrank] >> 16, INF32)
+        ds = (dKm << 16) | (scrK & 0xFFFF)  # wraps as i32 when packed
+
+        # --- mating sweep (best_pair, abismal.cpp:1722-1831): per pair
+        # and orientation, the local best over the K x K slot grid; the
+        # stable (pos, slot) order comes from pairwise ranks
+        Rp, O = B // per, per // 2
+        posM = torch.where(live, posKm, POS_EMPTY)
+        pi, pj = posM[:, :, None], posM[:, None, :]
+        jlt = kidx < kidx.reshape(K, 1)  # [i, j]: slot j before slot i
+        eqp = pi == pj
+        rank = ((pj < pi) | (eqp & jlt)).sum(dim=2)
+        vM = live & ~(eqp & jlt).any(dim=2)
+        posP, dP, sP = (x.reshape(Rp, per, K) for x in (posM, dKm, scrK))
+        vP, rP = vM.reshape(Rp, per, K), rank.reshape(Rp, per, K)
+        lensP = lens.reshape(Rp, per)
+        pe_dist = pe_dist.to(I64) & M32
+        mins, maxs = pe_dist[0], pe_dist[1]
+
+        def sel(a, rr, rw):
+            """The element of a whose rank is rw (no match selects 0)."""
+            return torch.where(rr == rw[:, None], a, 0).sum(dim=1)
+
+        def amax(x):
+            return x.amax(dim=(1, 2))
+
+        recs = []
+        for o in range(O):
+            p1, d1, s1, v1, r1 = (x[:, 2 * o] for x in (posP, dP, sP, vP, rP))
+            p2, d2, s2, v2, r2 = (x[:, 2 * o + 1]
+                                  for x in (posP, dP, sP, vP, rP))
+            # grid axes: i over end-1 slots (dim 1), j over end-2 (dim 2);
+            # the window test is u32 arithmetic, as on the TPU
+            limj = ((p2 + lensP[:, 2 * o + 1, None]) & M32)[:, None, :]
+            p1i = p1[:, :, None]
+            conc = (v1[:, :, None] & v2[:, None, :]
+                    & (((p1i + mins) & M32) <= limj)
+                    & (((p1i + maxs) & M32) >= limj))
+            scrP = s1[:, :, None] + s2[:, None, :]
+            sdP = d1[:, :, None] + d2[:, None, :]
+            # traversal order: end-2 rank outer, end-1 rank inner
+            ordg = r2[:, None, :] * K + r1[:, :, None]
+            M = amax(torch.where(conc, scrP, -1))
+            isM = conc & (scrP == M[:, None, None])
+            key2 = sdP * (K * K) + ordg
+            k2m = torch.where(isM, key2, 0x3FFFFFFF).amin(dim=(1, 2))
+            sd_w = torch.div(k2m, K * K, rounding_mode="floor")
+            ord_w = torch.remainder(k2m, K * K)
+            r1_w, r2_w = ord_w % K, ord_w // K
+            eq_after = (isM & (sdP == sd_w[:, None, None])
+                        & (ordg > ord_w[:, None, None])).any(dim=2).any(dim=1)
+            # stale end-1 score: the last computed one (first window of
+            # its end-1 slot, or a zero-score recompute) up to the winner
+            firstr2 = torch.where(conc, r2[:, None, :], K).amin(dim=2)
+            computed = conc & ((r2[:, None, :] == firstr2[:, :, None])
+                               | (s1[:, :, None] == 0))
+            cmax = amax(torch.where(
+                computed & (ordg <= ord_w[:, None, None]), ordg, -1))
+            r1_c = cmax.clamp(min=0) % K
+            # max-score ties with differing diff-sums: host replay
+            maxscr = 2 * (lensP[:, 2 * o] + lensP[:, 2 * o + 1])
+            fbm = (M == maxscr) & (isM & (sdP != sd_w[:, None, None])).any(
+                dim=2).any(dim=1)
+            recs.append(torch.stack([
+                (M >= 0).to(I64), M, sel(p1, r1, r1_w), sel(p2, r2, r2_w),
+                sel(d1, r1, r1_w), sel(d2, r2, r2_w), sel(s1, r1, r1_c),
+                sel(s2, r2, r2_w), eq_after.to(I64), fbm.to(I64)], dim=1))
+        mate = torch.cat(recs, dim=1)  # (Rp, O 10)
+        out = u32_to_i32(torch.cat([posKm, ds, cnt[:, None],
+                                    mate.reshape(B, 5)], dim=1))
+        mark("end")
+        return out
+
+    return stage12pe, o_spec
+
+
 class TorchNativeEngine:
-    """Single-end half of the JAX TpuNativeEngine on a torch device: the
-    fused stage-1+2 program (build_stage12) runs on the device and its
-    packed rows go to the native engine's finalize, which formats the SAM
-    and re-maps the REC_FALLBACK reads exactly.  Implements the
-    dispatch/finish pipeline interface of run_map_pipelined."""
+    """The JAX TpuNativeEngine's fused device path on a torch device: the
+    stage-1+2 programs (build_stage12 for single-end, build_stage12pe for
+    paired-end) run on the device and their packed rows go to the native
+    engine's finalize, which formats the SAM and re-maps the fallback
+    reads exactly.  Implements the dispatch/finish pipeline interface of
+    run_map_pipelined."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -718,6 +915,10 @@ class TorchNativeEngine:
                  device="cuda"):
         from abismal_tpu.map.native_engine import NativeMappingEngine
 
+        if index.genome_size > POS_EMPTY - 1:
+            # positions are u32 and POS_EMPTY marks a dead PE slot
+            raise ValueError(f"genome of {index.genome_size} bases exceeds "
+                             f"the device path's {POS_EMPTY - 1}")
         self.device = resolve_device(device)
         self.native = NativeMappingEngine(index, allow_ambig, valid_frac,
                                           pe_min_dist, pe_max_dist,
@@ -898,15 +1099,124 @@ class TorchNativeEngine:
         self.finish_se(self.dispatch_se(reads, a_rich_mode, random_pbat),
                        stats, out)
 
+    def _stage12pe_prog(self, per, cand_budget=None):
+        ext_pool = self._informed_ext_pool()
+        key = ("pe", per, cand_budget, ext_pool)
+        prog = self._stage12_progs.get(key)
+        if prog is None:
+            prog, _ = build_stage12pe(
+                self.lmax, self.dev.max_candidates, self.dev.n_index2,
+                self.dev.n_index3, per=per, cand_per_unit=cand_budget,
+                ext_iters=self.dev.ext_iters, ext_pool=ext_pool)
+            self._stage12_progs[key] = prog
+        return prog
+
+    def _pe_units_mat(self, reads1, reads2, a_rich_mode, random_pbat):
+        """(pnib, lens_u, per, oversized): every pair's `per` encoded units
+        in the JAX _pe_units_flat row order, whole-batch NumPy (↔ JAX
+        _pe_units_mat); pairs with an oversized end upload zero-length
+        rows and fall back."""
+        from abismal_tpu.utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
+
+        per = 8 if random_pbat else 4
+        R = len(reads1)
+        s1 = [s for _, s in reads1]
+        s2 = [s for _, s in reads2]
+        oversized = np.fromiter(
+            ((bool(a) and len(a) > self.lmax)
+             or (bool(b) and len(b) > self.lmax)
+             for a, b in zip(s1, s2)), dtype=bool, count=R)
+        if oversized.any():
+            s1 = [b"" if o else s for s, o in zip(s1, oversized)]
+            s2 = [b"" if o else s for s, o in zip(s2, oversized)]
+        A1, Arc1, L1 = TpuNativeEngine._ascii_matrices(s1, self.lmax)
+        A2, Arc2, L2 = TpuNativeEngine._ascii_matrices(s2, self.lmax)
+        U = np.zeros((per * max(R, 1), self.lmax + 32), np.uint8)
+        lens_u = np.zeros(per * max(R, 1), np.int32)
+        convs = [a_rich_mode] if not random_pbat else [False, True]
+        for ci, conv in enumerate(convs):
+            e1, e2 = ((ENCODE_A_RICH, ENCODE_T_RICH) if conv
+                      else (ENCODE_T_RICH, ENCODE_A_RICH))
+            o = 4 * ci
+            for u, (enc, A, L) in enumerate(((e1, A1, L1), (e1, Arc2, L2),
+                                             (e2, A2, L2), (e2, Arc1, L1))):
+                U[o + u :: per, : self.lmax] = enc[A]
+                lens_u[o + u :: per] = L
+        pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
+        return pnib, lens_u, per, oversized
+
+    @property
+    def n_device_mated(self):
+        """Orientations decided by the device mating sweep."""
+        return self.native.n_device_mated
+
     def dispatch_pe(self, reads1, reads2, a_rich_mode, random_pbat):
-        raise NotImplementedError("paired-end is not ported yet; see ROADMAP")
+        """Enqueues the PE device program for every chunk of the batch."""
+        t0 = time.perf_counter()
+        pnib_all, lens_all, per, oversized = self._pe_units_mat(
+            reads1, reads2, a_rich_mode, random_pbat)
+        is_ga_pat = TpuNativeEngine._pe_is_ga_pattern(a_rich_mode,
+                                                      random_pbat)
+        prog = self._stage12pe_prog(
+            per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
+        B = max(per, self.unit_batch - (self.unit_batch % per))
+        ppc = B // per  # pairs per chunk
+        pe_dist = self._put(np.array([self.native.pe_min_dist,
+                                      self.native.pe_max_dist], np.int32))
+        is_ga = self._put(np.tile(is_ga_pat, ppc))
+        tables = self.dev.tables()
+        pending = []
+        for start in range(0, len(reads1), ppc):
+            nu = min(ppc, len(reads1) - start) * per
+            preads = pnib_all[start * per : start * per + nu]
+            lens = lens_all[start * per : start * per + nu]
+            if B - nu:
+                preads = np.pad(preads, ((0, B - nu), (0, 0)))
+                lens = np.pad(lens, (0, B - nu))
+            # int(valid_frac * len) per unit (the ends differ in length)
+            max_diffs_u = (self.valid_frac
+                           * lens.astype(np.float64)).astype(np.int32)
+            marks = [] if self.profile else None
+            rows = prog(*tables, self._put(preads), self._put(lens), is_ga,
+                        self._put(max_diffs_u), pe_dist, marks=marks)
+            if marks is not None:
+                self.chunk_marks.append(marks)
+            pending.append((start, nu, rows))
+        self.stage_time["device dispatch"] += time.perf_counter() - t0
+        return (reads1, reads2, a_rich_mode, random_pbat, per, pending,
+                oversized)
 
     def finish_pe(self, handle, stats, out):
-        raise NotImplementedError("paired-end is not ported yet; see ROADMAP")
+        """Collects the chunks' packed slot rows (one copy each) and hands
+        them to the native PE finalize."""
+        reads1, reads2, arm, rp, per, pending, oversized = handle
+        t1 = time.perf_counter()
+        n_pairs = len(reads1)
+        n_units = per * n_pairs
+        K = 32
+        packed = np.zeros((max(n_units, 1), 2 * K + 6), dtype=np.int32)
+        packed[:, 2 * K] = -1  # cnt sentinel for rows without a chunk
+        for start, nu, rows in pending:
+            packed[start * per : start * per + nu] = rows.cpu().numpy()[:nu]
+        pos_all = np.ascontiguousarray(packed[:n_units, :K]).view(np.uint32)
+        ds_all = np.ascontiguousarray(packed[:n_units, K : 2 * K])
+        cnt_all = np.ascontiguousarray(packed[:n_units, 2 * K])
+        mate_all = np.ascontiguousarray(
+            packed[:n_units, 2 * K + 1 :].reshape(n_pairs, 5 * per))
+        cnt_all.reshape(n_pairs, per)[oversized] = -1
+        self.n_units += n_units
+        self.n_fallback += int((cnt_all < 0).sum())
+        t2 = time.perf_counter()
+        self.stage_time["device collect"] += t2 - t1
+        self.native._call_pe_slots(reads1, reads2, arm, rp, stats, out,
+                                   pos_all, ds_all, cnt_all, mate_all)
+        self.stage_time["native stage-2"] += time.perf_counter() - t2
+        return n_pairs
 
     def map_pe_reads(self, reads1, reads2, a_rich_mode, random_pbat, stats,
                      out):
-        raise NotImplementedError("paired-end is not ported yet; see ROADMAP")
+        self.finish_pe(self.dispatch_pe(reads1, reads2, a_rich_mode,
+                                        random_pbat), stats, out)
 
 
 _engine_memo = {}

@@ -6,15 +6,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. build    nvcc-builds the port's kernels (csrc/*.cu) from the checkout;
   3. kernels  each kernel (K1 popcount_compare, K2 banded_score, K3
               banded_trace) against its plain PyTorch version on the card,
-              at main-path shapes, exact equality; both timed with CUDA
-              events in turns (plain, kernel, kernel, plain);
+              at main-path shapes (K2 also at the paired-end program's
+              J = 16384, with negative bands and fill rows), exact
+              equality; both timed with CUDA events in turns (plain,
+              kernel, kernel, plain);
   4. goldens  maps tests/golden small_1.fq (500 reads) and reads_1.fq (10k)
               with the port engine on the card; the SAM and mstats must
               equal the upstream goldens byte for byte, and every kernel's
               launch counter must move during these runs;
-  5. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome,
-              20k simulated SE reads mapped by the port and by the native
-              engine: the SAM bytes must be equal.
+  5. goldens_pe  maps the six paired-end goldens (small_pe, small_pbat_pe,
+              small_rpbat_pe: 500 pairs; reads_pe, reads_pbat_pe,
+              reads_rpbat_pe: 10k) with the argv of tests/golden/MANIFEST.md;
+              SAM and mstats must equal the goldens byte for byte, and the
+              K1 and K2 counters must move during these runs; then
+              small_rpbat_pe under -a with random PBAT must equal the
+              native engine, with pairs mated on the device;
+  6. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome:
+              20k simulated SE reads, then 20k simulated pairs, each mapped
+              by the port and by the native engine: the SAM bytes must be
+              equal.
 It imports only the port (abismal_tpu_torch), which brings the host side
 it reuses; nothing of JAX.
 The line before the last is the kernels' JSON summary, the last line
@@ -199,6 +209,27 @@ def phase_kernels(dev):
     res["banded_score"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                shape="J=8192")
 
+    # the paired-end program's shape: 8 jobs x 2048 units, negative bands
+    # (IUPAC diffs are not remapped there) and fill rows (bw 1, qsz 0);
+    # a seed of its own leaves the K3 inputs below as they were
+    rng_pe = np.random.default_rng(17)
+    q, win, bw, qsz, _ = align_jobs(rng_pe, 16384, n_pad=1024)
+    bw[3::7] = -(2 * rng_pe.integers(0, 30, bw[3::7].shape[0]) + 1)
+    bw[5::11], qsz[5::11] = 1, 0
+    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw[:, None],
+                                                qsz[:, None])]
+    want = ba.banded_score_plain(*t)
+    got = ba.banded_score(*t)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err <= TOL, "K2 differs at the PE shape")
+    check(bool((want[t[2] < 0] == 0).all()), "negative bands must score 0")
+    ms, pms = in_turns(lambda: ba.banded_score_plain(*t),
+                       lambda: ba.banded_score(*t), 2, 50)
+    res["banded_score_pe"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                  shape="J=16384",
+                                  negative_bands=int((bw < 0).sum()))
+
     q, win, bw, qsz, pos = align_jobs(rng, 1024, n_pad=128, overflow=4)
     do_tb = rng.random(1024) < 0.9
     do_tb[:4] = True
@@ -232,6 +263,15 @@ def gunzip_to(name, dst_dir):
     return out
 
 
+def golden_identical(prefix, sam, mstats):
+    """(SAM identical, mstats identical) to tests/golden/<prefix>.*."""
+    same = []
+    for path, ext in ((sam, ".sam.gz"), (mstats, ".mstats.gz")):
+        with gzip.open(os.path.join(GOLDEN, prefix + ext), "rb") as f:
+            same.append(open(path, "rb").read() == f.read())
+    return same
+
+
 def md5(path):
     h = hashlib.md5()
     with open(path, "rb") as f:
@@ -254,8 +294,9 @@ def trex1_index(threads):
     return idx, "built"
 
 
-def chunk_device_ms(eng, first):
-    """Per-chunk device times (ms) between the program's phase marks."""
+def chunk_device_ms(eng, first, last="traceback_ms"):
+    """Per-chunk device times (ms) between the program's phase marks; the
+    last interval is the SE traceback or the PE mating sweep (mate_ms)."""
     import numpy as np
 
     rows = []
@@ -269,16 +310,17 @@ def chunk_device_ms(eng, first):
     if not rows:
         return {}
     m = np.mean(np.array(rows), axis=0)
-    return dict(core_ms=m[0], decide_ms=m[1], score_ms=m[2],
-                traceback_ms=m[3], total_ms=m[4], chunks=len(rows))
+    return {"core_ms": m[0], "decide_ms": m[1], "score_ms": m[2], last: m[3],
+            "total_ms": m[4], "chunks": len(rows)}
 
 
-def map_with(engine_factory, index, fq, sam, mstats, cl, threads):
+def map_with(engine_factory, index, fq, sam, mstats, cl, threads, fq2=None,
+             **kw):
     from abismal_tpu_torch.host import run_map
 
     t0 = time.perf_counter()
-    run_map(index, fq, None, sam, mstats, cl, engine_factory=engine_factory,
-            threads=threads)
+    run_map(index, fq, fq2, sam, mstats, cl, engine_factory=engine_factory,
+            threads=threads, **kw)
     return time.perf_counter() - t0
 
 
@@ -287,18 +329,22 @@ def n_reads_of(fq):
         return sum(1 for _ in f) // 4
 
 
-def port_map(factory, index, fq, sam, mstats, cl, threads):
-    """Maps fq with the port engine; returns (seconds, stats dict)."""
-    eng = factory(index, False, 0.1, 32, 3000)
+def port_map(factory, index, fq, sam, mstats, cl, threads, fq2=None, **kw):
+    """Maps fq (and, paired, fq2) with the port engine; returns a stats
+    dict (rates are reads/s, or pairs/s when paired; the fallback
+    fraction counts device units)."""
+    eng = factory(index, kw.get("allow_ambig", False), 0.1, 32, 3000)
+    eng.profile = True
     u0, f0, c0 = eng.n_units, eng.n_fallback, len(eng.chunk_marks)
     t0 = dict(eng.stage_time)
-    secs = map_with(factory, index, fq, sam, mstats, cl, threads)
+    secs = map_with(factory, index, fq, sam, mstats, cl, threads, fq2, **kw)
     n = n_reads_of(fq)
     du = eng.n_units - u0
-    st = dict(reads=n, seconds=secs, reads_per_s=n / secs,
-              fallback_frac=(eng.n_fallback - f0) / max(1, du),
-              host_s={k: v - t0[k] for k, v in eng.stage_time.items()})
-    st.update(chunk_device_ms(eng, c0))
+    unit = "pairs" if fq2 else "reads"
+    st = {unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
+          "fallback_frac": (eng.n_fallback - f0) / max(1, du),
+          "host_s": {k: v - t0[k] for k, v in eng.stage_time.items()}}
+    st.update(chunk_device_ms(eng, c0, "mate_ms" if fq2 else "traceback_ms"))
     return st
 
 
@@ -327,10 +373,7 @@ def phase_goldens(dev, threads):
         cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
               f"-i tests/tRex1.idx tests/{prefix}_1.fq")
         st = port_map(factory, index, fq, sam, mst, cl, threads)
-        with gzip.open(os.path.join(GOLDEN, prefix + ".sam.gz"), "rb") as f:
-            sam_ok = open(sam, "rb").read() == f.read()
-        with gzip.open(os.path.join(GOLDEN, prefix + ".mstats.gz"), "rb") as f:
-            mst_ok = open(mst, "rb").read() == f.read()
+        sam_ok, mst_ok = golden_identical(prefix, sam, mst)
         st.update(sam_identical=sam_ok, mstats_identical=mst_ok)
         out[prefix] = st
         check(sam_ok and mst_ok, f"{prefix}: output differs from the golden")
@@ -345,6 +388,67 @@ def phase_goldens(dev, threads):
     out["native_reads_per_s"] = n_reads_of(fq) / secs
     out["table_bytes"] = eng.dev.nbytes()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out, launches, index
+
+
+PE_GOLDENS = (("small_pe", False), ("small_pbat_pe", True),
+              ("small_rpbat_pe", True), ("reads_pe", False),
+              ("reads_pbat_pe", True), ("reads_rpbat_pe", True))
+
+
+def phase_goldens_pe(dev, threads, index):
+    """The paired-end goldens through the port (the rpbat goldens were
+    mapped with -P, tests/golden/MANIFEST.md), then -a with random PBAT
+    against the native engine."""
+    from abismal_tpu_torch.host import make_native_engine_factory
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+
+    factory = make_torch_native_engine_factory(dev, n_threads=threads)
+    native = make_native_engine_factory(n_threads=threads)
+    out = {}
+    kernels = (pc.popcount_compare, ba.banded_score)
+    for k in kernels:
+        k.launches = 0
+    for prefix, pbat in PE_GOLDENS:
+        fq1 = gunzip_to(f"{prefix}_1.fq", WORK)
+        fq2 = gunzip_to(f"{prefix}_2.fq", WORK)
+        sam = os.path.join(WORK, f"{prefix}.sam")
+        mst = os.path.join(WORK, f"{prefix}.mstats")
+        flag = "-P " if pbat else ""
+        cl = (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
+              f"-i tests/tRex1.idx tests/{prefix}_1.fq tests/{prefix}_2.fq")
+        st = port_map(factory, index, fq1, sam, mst, cl, threads, fq2,
+                      pbat=pbat)
+        sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+        st.update(sam_identical=sam_ok, mstats_identical=mst_ok)
+        check(sam_ok and mst_ok, f"{prefix}: output differs from the golden")
+        if prefix.startswith("reads"):
+            secs = map_with(native, index, fq1,
+                            os.path.join(WORK, "native_pe.sam"), None,
+                            "native", threads, fq2, pbat=pbat)
+            st["native_pairs_per_s"] = n_reads_of(fq1) / secs
+        out[prefix] = st
+    launches = {k.__name__: k.launches for k in kernels}
+    out["launches"] = launches
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the paired-end path")
+
+    # -a: ambiguous pairs are reported, and the device sweep decides them
+    fq1, fq2 = (os.path.join(WORK, f"small_rpbat_pe_{e}.fq") for e in (1, 2))
+    kw = dict(allow_ambig=True, random_pbat=True)
+    res = []
+    for i, fac in enumerate((factory, native)):
+        sam = os.path.join(WORK, f"ambig{i}.sam")
+        mst = os.path.join(WORK, f"ambig{i}.mstats")
+        map_with(fac, index, fq1, sam, mst, "map -a -R", threads, fq2, **kw)
+        res.append((open(sam, "rb").read(), open(mst, "rb").read()))
+    mated = factory(index, True, 0.1, 32, 3000).n_device_mated
+    out["ambig_rpbat"] = dict(identical_to_native=res[0] == res[1],
+                              n_device_mated=mated)
+    check(res[0] == res[1], "-a random PBAT: port differs from native")
+    check(mated > 0, "-a: no pair was mated on the device")
     return out, launches
 
 
@@ -393,9 +497,28 @@ def phase_scale(dev, threads):
                       fq, sam_n, None, "scale", threads)
     same = open(sam_t, "rb").read() == open(sam_n, "rb").read()
     check(same, "scale: port SAM differs from the native engine's")
+
+    # the same genome and index, 20k pairs at the goldens' parameters
+    t4 = time.perf_counter()
+    pre_pe = os.path.join(WORK, f"scale_{size}_pe")
+    simulate_reads(fa, SimConfig(output_prefix=pre_pe, n_reads=20000,
+                                 mutation_rate=0.01, bs_conv=0.98, seed=1,
+                                 single_end=False))
+    fq1, fq2 = pre_pe + "_1.fq", pre_pe + "_2.fq"
+    t5 = time.perf_counter()
+    pe = dict(sim_s=t5 - t4)
+    pe["first"] = port_map(factory, index, fq1, sam_t, None, "scale_pe",
+                           threads, fq2)
+    pe["warm"] = port_map(factory, index, fq1, sam_t, None, "scale_pe",
+                          threads, fq2)
+    secs_pe = map_with(make_native_engine_factory(n_threads=threads), index,
+                       fq1, sam_n, None, "scale_pe", threads, fq2)
+    pe["native_pairs_per_s"] = 20000 / secs_pe
+    pe["sam_identical"] = open(sam_t, "rb").read() == open(sam_n, "rb").read()
+    check(pe["sam_identical"], "scale PE: port SAM differs from native's")
     return dict(genome_mb=SCALE_MB, gen_s=t1 - t0, index_s=t2 - t1,
                 sim_s=t3 - t2, first=st, warm=st_warm,
-                native_reads_per_s=20000 / secs_n, sam_identical=same,
+                native_reads_per_s=20000 / secs_n, sam_identical=same, pe=pe,
                 cand_budget=eng.cand_budget,
                 ext_pool=eng._informed_ext_pool(),
                 table_bytes=eng.dev.nbytes(),
@@ -438,8 +561,12 @@ def main():
         kres = phase_kernels(dev)
         emit("kernels", **kres)
 
-        gres, launches = phase_goldens(dev, threads)
+        gres, launches, index = phase_goldens(dev, threads)
         emit("goldens", **gres)
+
+        pres, launches_pe = phase_goldens_pe(dev, threads, index)
+        emit("goldens_pe", **pres)
+        del index
 
         emit("scale", **phase_scale(dev, threads))
         check("jax" not in sys.modules, "the port loaded jax")
@@ -450,8 +577,10 @@ def main():
     print(card, flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name],
-             replaces=REPLACES[name], launches=launches[name],
-             max_abs_err=kres[name]["max_abs_err"], ms=kres[name]["ms"],
+             replaces=REPLACES[name],
+             launches=launches[name] + launches_pe.get(name, 0),
+             max_abs_err=max(kres[k]["max_abs_err"] for k in kres
+                             if k.startswith(name)), ms=kres[name]["ms"],
              plain_ms=kres[name]["plain_ms"]) for name in REPLACES]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

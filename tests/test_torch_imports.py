@@ -48,20 +48,39 @@ def test_chip_smoke_imports_only_the_port():
                 if m == "abismal_tpu" or m.startswith("abismal_tpu.")]
 
 
-def test_cli_map_never_loads_jax(tmp_path, trex1_index):
-    """`python -m abismal_tpu_torch map --device cpu` on small_1.fq: jax is
-    not in sys.modules at exit, and the SAM body is the golden's."""
-    import gzip
-
+@pytest.fixture(scope="module")
+def index_copy(tmp_path_factory, trex1_index):
+    """A private copy of the tRex1 index file (test workers share the
+    cache), written once for the module."""
     from abismal_tpu.index.serialize import write_index
 
-    idx = str(tmp_path / "tRex1.idx")  # a private copy: workers share CACHE
+    idx = str(tmp_path_factory.mktemp("idx") / "tRex1.idx")
     write_index(trex1_index, idx)
+    return idx
+
+
+def _sam_body(text):
+    return [ln for ln in text.splitlines() if not ln.startswith("@PG")]
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_cli_map_never_loads_jax(tmp_path, trex1_index, index_copy, paired):
+    """`python -m abismal_tpu_torch map --device cpu`: jax is not in
+    sys.modules at exit, and the SAM body is the golden's (small_1.fq) or,
+    for pairs with -l 40 -L 500, the native engine's on the same
+    concordance window (small_pe)."""
+    import gzip
+
     sam = tmp_path / "o.sam"
+    if paired:
+        args = ["-l", "40", "-L", "500", golden_path("small_pe_1.fq"),
+                golden_path("small_pe_2.fq")]
+    else:
+        args = [golden_path("small_1.fq")]
     code = (
         "import runpy, sys\n"
         "sys.argv = ['abismal_tpu_torch', 'map', '-o', sys.argv[1], '-i',"
-        " sys.argv[2], '--device', 'cpu', sys.argv[3]]\n"
+        " sys.argv[2], '--device', 'cpu'] + sys.argv[3:]\n"
         "try:\n"
         "    runpy.run_module('abismal_tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
@@ -71,17 +90,25 @@ def test_cli_map_never_loads_jax(tmp_path, trex1_index):
     # one torch thread: test workers share the CPU
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run(
-        [sys.executable, "-c", code, str(sam), idx,
-         golden_path("small_1.fq")], capture_output=True, text=True,
-        env=env, cwd=str(tmp_path), timeout=300)
+        [sys.executable, "-c", code, str(sam), index_copy, *args],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=300)
     assert res.returncode == 0, res.stderr
     assert "NO_JAX" in res.stdout
-    with gzip.open(os.path.join(ROOT, "tests", "golden", "small.sam.gz"),
-                   "rt") as f:
-        want = [ln for ln in f.read().splitlines() if not ln.startswith("@PG")]
-    got = [ln for ln in sam.read_text().splitlines()
-           if not ln.startswith("@PG")]
-    assert got == want
+    if paired:
+        from abismal_tpu.map.engine import run_map
+        from abismal_tpu.map.pipeline import make_native_engine_factory
+
+        nat = tmp_path / "native.sam"
+        run_map(trex1_index, args[-2], args[-1], str(nat), None, "native",
+                pe_min_dist=40, pe_max_dist=500,
+                engine_factory=make_native_engine_factory(n_threads=2))
+        want = _sam_body(nat.read_text())
+    else:
+        with gzip.open(os.path.join(ROOT, "tests", "golden", "small.sam.gz"),
+                       "rt") as f:
+            want = _sam_body(f.read())
+    assert _sam_body(sam.read_text()) == want
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -116,21 +116,44 @@ def test_popcount_compare_plain_matches_jax(seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("seed,iupac", [(5, 0), (6, 60)])
-def test_banded_score_plain_matches_jax(seed, iupac):
-    """K2 plain vs the Pallas scorer, bands 1..61 and padding lanes."""
+def _pe_score_arrays(seed, J, iupac=60):
+    """K2 inputs as build_stage12pe gives them: bands 1..61, negative
+    bands (IUPAC diffs below zero, never remapped) and fill rows (bw = 1,
+    qsz = 0) among the jobs, padding lanes at the end."""
+    rng, genome = _genome(seed, iupac=iupac)
+    jobs = _random_jobs(rng, genome, J - J // 16, bws=(1, 3, 5, 21, 41, 61))
+    q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, J)
+    bw[3::7] = -(2 * rng.integers(0, 30, bw[3::7].shape[0]) + 1)
+    bw[5::11], qsz[5::11] = 1, 0
+    return q, win, bw[:, None], qsz[:, None]
+
+
+@pytest.mark.parametrize("seed,iupac,pe", [
+    pytest.param(5, 0, False, id="5-0"),
+    pytest.param(6, 60, False, id="6-60"),
+    pytest.param(4, 60, True, id="pe-negative-bands"),
+])
+def test_banded_score_plain_matches_jax(seed, iupac, pe):
+    """K2 plain vs the Pallas scorer, bands 1..61 and padding lanes; the
+    PE case adds negative bands and fill rows, which score 0."""
     pytest.importorskip("jax")
     from abismal_tpu.kernels.banded_align import build_banded_scorer
     from abismal_tpu_torch.kernels.banded_align import banded_score_plain
 
-    rng, genome = _genome(seed, iupac=iupac)
-    jobs = _random_jobs(rng, genome, 110, bws=(1, 3, 5, 21, 41, 61))
-    q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, 128)
+    if pe:
+        q, win, bw, qsz = _pe_score_arrays(seed, 128, iupac)
+    else:
+        rng, genome = _genome(seed, iupac=iupac)
+        jobs = _random_jobs(rng, genome, 110, bws=(1, 3, 5, 21, 41, 61))
+        q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, 128)
+        bw, qsz = bw[:, None], qsz[:, None]
     want = np.asarray(build_banded_scorer(LMAX, interpret=True)(
-        q, win, bw[:, None], qsz[:, None]))
+        q, win, bw, qsz))
     got = banded_score_plain(*(torch.from_numpy(a) for a in (
-        q, win, bw[:, None], qsz[:, None])))
+        q, win, bw, qsz)))
     np.testing.assert_array_equal(got.numpy(), want)
+    if pe:
+        assert (want[bw < 0] == 0).all() and (want[bw > 1] > 0).sum() > 50
 
 
 @pytest.mark.parametrize("seed", [7, 8])
@@ -279,6 +302,20 @@ def test_banded_score_kernel_matches_plain(cuda_device):
     got = ba.banded_score(*t)
     torch.cuda.synchronize()
     assert torch.equal(got, ba.banded_score_plain(*t))
+
+
+@pytest.mark.cuda
+def test_banded_score_kernel_pe_shape_matches_plain(cuda_device):
+    """K2 at build_stage12pe's shape (J = 8 x 2048 units), with negative
+    bands and fill rows."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in _pe_score_arrays(12, 16384)]
+    got = ba.banded_score(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ba.banded_score_plain(*t))
+    assert bool((got[t[2] < 0] == 0).all())
 
 
 @pytest.mark.cuda

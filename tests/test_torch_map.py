@@ -31,7 +31,7 @@ def _factory(**kw):
     return make_torch_native_engine_factory("cpu", **kw)
 
 
-def _port_and_native(tmp_path, index, fq, cl, **run_kw):
+def _port_and_native(tmp_path, index, fq, cl, fq2=None, **run_kw):
     """(port, native) outputs of run_map: (SAM text, mstats text)."""
     from abismal_tpu.map.engine import run_map
     from abismal_tpu.map.pipeline import make_native_engine_factory
@@ -40,10 +40,15 @@ def _port_and_native(tmp_path, index, fq, cl, **run_kw):
     for i, fac in enumerate((_factory(),
                              make_native_engine_factory(n_threads=2))):
         sam, mst = tmp_path / f"o{i}.sam", tmp_path / f"o{i}.mstats"
-        run_map(index, fq, None, str(sam), str(mst), cl, engine_factory=fac,
+        run_map(index, fq, fq2, str(sam), str(mst), cl, engine_factory=fac,
                 threads=2, **run_kw)
         outs.append((sam.read_text(), mst.read_text()))
     return outs
+
+
+def _pe_port_and_native(tmp_path, index, prefix, cl, **run_kw):
+    return _port_and_native(tmp_path, index, golden_path(prefix + "_1.fq"),
+                            cl, fq2=golden_path(prefix + "_2.fq"), **run_kw)
 
 
 def test_golden_small_parity(tmp_path, trex1_index):
@@ -81,9 +86,10 @@ def test_wide_band_fallback(tmp_path, trex1_index):
 @pytest.mark.parametrize("env", [
     {"ABISMAL_TPU_JOBS_PER_READ": "0"},  # every aligned read re-mapped
     {"ABISMAL_TPU_DEVTB": "0"},  # records only: winners traced on the host
+    {"ABISMAL_TPU_JOBS_PER_UNIT": "0"},  # PE: every scored unit re-seeded
 ])
 def test_env_routes_match_native(tmp_path, trex1_index, monkeypatch, env):
-    """The JAX program's environment knobs, read by the port too, move
+    """The JAX programs' environment knobs, read by the port too, move
     work between the device and the host; output is unchanged."""
     from abismal_tpu_torch.map import pipeline
 
@@ -91,11 +97,17 @@ def test_env_routes_match_native(tmp_path, trex1_index, monkeypatch, env):
         monkeypatch.setenv(k, v)
     # a fresh engine: the memoized one built its program without the knob
     monkeypatch.setattr(pipeline, "_engine_memo", {})
-    port, native = _port_and_native(
-        tmp_path, trex1_index, golden_path("small_1.fq"), "cl")
+    if "ABISMAL_TPU_JOBS_PER_UNIT" in env:
+        port, native = _pe_port_and_native(tmp_path, trex1_index, "small_pe",
+                                           "cl")
+    else:
+        port, native = _port_and_native(
+            tmp_path, trex1_index, golden_path("small_1.fq"), "cl")
     assert port == native
     (eng,) = (e for _, e in pipeline._engine_memo.values())
     if "ABISMAL_TPU_JOBS_PER_READ" in env:  # every aligned read fell back
+        assert eng.n_fallback > eng.n_units // 2
+    elif "ABISMAL_TPU_JOBS_PER_UNIT" in env:  # units with a kept candidate
         assert eng.n_fallback > eng.n_units // 2
     else:
         assert not eng.device_tb
@@ -178,9 +190,70 @@ def test_repeat_genome_sure_ambig(tmp_path):
     assert st_p.reads_mapped_ambiguous > 50
 
 
-def test_paired_end_not_ported(trex1_index):
+@pytest.mark.parametrize("prefix,pbat", [
+    ("small_pe", False),
+    ("small_pbat_pe", True),
+    ("small_rpbat_pe", True),  # the golden was mapped with -P (MANIFEST)
+])
+def test_golden_pe_parity(tmp_path, trex1_index, prefix, pbat):
+    """The port's PE path gives the upstream SAM and mstats."""
+    from abismal_tpu.map.engine import run_map
+
+    flag = "-P " if pbat else ""
+    cl = (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
+          f"-i tests/tRex1.idx tests/{prefix}_1.fq tests/{prefix}_2.fq")
+    sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
+    # two threads, as every run of the memoized engine before this one:
+    # the native engine sums the stats of every worker it ever started,
+    # so fewer threads than a previous call count stale reads
+    run_map(trex1_index, golden_path(prefix + "_1.fq"),
+            golden_path(prefix + "_2.fq"), str(sam), str(mst), cl, pbat=pbat,
+            engine_factory=_factory(), threads=2)
+    assert sam.read_text() == _golden(prefix + ".sam")
+    assert mst.read_text() == _golden(prefix + ".mstats")
+
+
+@pytest.mark.parametrize("prefix,random_pbat", [
+    ("small_pe", False),
+    ("small_rpbat_pe", True),
+])
+def test_pe_allow_ambig_matches_native(tmp_path, trex1_index, prefix,
+                                       random_pbat):
+    """Under -a the device mating sweep decides pairs (n_device_mated > 0)
+    and the output equals the native engine's."""
+    port, native = _pe_port_and_native(
+        tmp_path, trex1_index, prefix, f"map -a -i tests/tRex1.idx {prefix}",
+        allow_ambig=True, random_pbat=random_pbat)
+    assert port == native
+    eng = _factory()(trex1_index, True, 0.1, 32, 3000)
+    assert eng.n_device_mated > 0
+
+
+def test_pe_wide_band_fallback(tmp_path, trex1_index):
+    """-m 0.45 PE: bands beyond BW_MAX flag their units (bw_fb) for native
+    seeding; the output equals the native engine's."""
+    port, native = _pe_port_and_native(
+        tmp_path, trex1_index, "small_pe", "map -m 0.45 small_pe",
+        valid_frac=0.45)
+    assert port == native
+    eng = _factory()(trex1_index, False, 0.45, 32, 3000)
+    assert eng.n_fallback > 0
+
+
+def test_pe_concordance_window_matches_native(tmp_path, trex1_index):
+    """-l 40 -L 500 reach the device mating sweep as pe_dist."""
+    port, native = _pe_port_and_native(
+        tmp_path, trex1_index, "small_pe", "map -l 40 -L 500 small_pe",
+        pe_min_dist=40, pe_max_dist=500)
+    assert port == native
+
+
+def test_genome_beyond_u32_positions_refused():
+    """A live position may not equal the dead-slot sentinel 0xFFFFFFFF."""
+    from types import SimpleNamespace
+
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
-    eng = TorchNativeEngine(trex1_index, unit_batch=128, device="cpu")
-    with pytest.raises(NotImplementedError, match="paired-end"):
-        eng.dispatch_pe([], [], False, False)
+    with pytest.raises(ValueError, match="exceeds"):
+        TorchNativeEngine(SimpleNamespace(genome_size=(1 << 32) - 1),
+                          device="cpu")
