@@ -1,6 +1,9 @@
 """Command line of the port: `python -m abismal_tpu_torch map ...` maps
 single-end reads, or read pairs given two FASTQs, with the PyTorch engine
-on --device (default cuda).
+on --device (default cuda), and scales out as abismal_tpu's CLI does:
+--mesh splits each chunk over several devices, --engine hybrid maps a
+share of the reads on the host cores at the same time, and --hosts /
+--shard map read ranges in separate processes or on separate machines.
 `idx` and `sim` are host-only and run abismal_tpu's commands unchanged.
 The SAM @PG CL: header records argv as abismal_tpu's CLI does."""
 
@@ -35,6 +38,32 @@ def cmd_map(argv):
     p.add_argument("--device", default="cuda",
                    help="torch device of the device pipeline (cuda, cuda:N "
                         "or cpu)")
+    p.add_argument("--engine", choices=["torch", "hybrid"], default="torch",
+                   help="torch (device stage-1+2 + native finalize, "
+                        "default) or hybrid (the native engine on the host "
+                        "cores AND the torch engine, on disjoint read "
+                        "shards at once; their rates add)")
+    p.add_argument("--device-share", dest="device_share", type=float,
+                   default=None,
+                   help="--engine hybrid: fraction of reads routed to the "
+                        "device (default $ABISMAL_DEVICE_SHARE or 0.15; "
+                        "pick ~= dev_rate / (dev_rate + host_rate))")
+    p.add_argument("--mesh", default=None,
+                   help="map over the first N local CUDA devices, or "
+                        "'all', each with its own copy of the index and "
+                        "2048 units per chunk (with --device cpu: N CPU "
+                        "slots)")
+    p.add_argument("--hosts", type=int, default=0,
+                   help="multi-host run: shard the FASTQ by read range over "
+                        "N processes (each loads its own index, shard i on "
+                        "cuda:i mod the card count) and gather the shard "
+                        "SAMs in rank order; output is byte-identical to a "
+                        "one-process run (requires -i)")
+    p.add_argument("--shard", default="",
+                   help="map only read-range shard I:N of the input (one "
+                        "host of a real multi-host run; shard 0 alone "
+                        "writes the header; concatenate the shard outputs "
+                        "in rank order to gather; requires -i)")
     p.add_argument("reads_files", nargs="+")
     a = p.parse_args(argv)
 
@@ -48,6 +77,40 @@ def cmd_map(argv):
     if a.lmax < 64:
         print("--lmax must be at least 64", file=sys.stderr)
         return 1
+    if a.mesh is not None and a.engine == "hybrid":
+        print("--mesh cannot be combined with --engine hybrid",
+              file=sys.stderr)
+        return 1
+
+    command_line = "map " + " ".join(argv)
+    reads2 = a.reads_files[1] if len(a.reads_files) == 2 else None
+    if a.hosts or a.shard:
+        # every shard process loads its own index replica, so the
+        # coordinator never loads one
+        if not a.index:
+            print("--hosts/--shard require a prebuilt index (-i)",
+                  file=sys.stderr)
+            return 0
+        if a.engine != "torch" or a.mesh is not None:
+            print("--hosts/--shard run the torch engine, one device per "
+                  "shard: not with --engine hybrid or --mesh",
+                  file=sys.stderr)
+            return 1
+        return _map_sharded(a, reads2, command_line)
+
+    mesh, unit_batch = None, 2048
+    if a.mesh is not None:
+        from .parallel.mesh import make_mesh
+
+        if a.device == "cpu":
+            if a.mesh == "all":
+                print("--mesh all needs CUDA devices", file=sys.stderr)
+                return 1
+            mesh = ["cpu"] * int(a.mesh)
+        else:
+            mesh = make_mesh(a.mesh if a.mesh == "all" else int(a.mesh))
+        # every slot maps the one-device chunk of 2048 units
+        unit_batch *= len(mesh)
 
     from .host import create_index, read_index, run_map
     from .map.pipeline import make_torch_native_engine_factory
@@ -63,16 +126,90 @@ def cmd_map(argv):
     if a.max_candidates:
         index.max_candidates = a.max_candidates
 
-    reads2 = a.reads_files[1] if len(a.reads_files) == 2 else None
+    factory = make_torch_native_engine_factory(
+        a.device, lmax=a.lmax, unit_batch=unit_batch, n_threads=a.threads,
+        mesh_devices=mesh)
+    if a.engine == "hybrid":
+        return _map_hybrid(a, index, reads2, command_line, factory)
     run_map(
         index, a.reads_files[0], reads2, a.outfile, a.stats or None,
-        "map " + " ".join(argv), a_rich=a.a_rich, pbat=a.pbat,
+        command_line, a_rich=a.a_rich, pbat=a.pbat,
         random_pbat=a.random_pbat, allow_ambig=a.ambig, stats_json=a.json,
         valid_frac=a.max_distance, pe_min_dist=a.min_frag,
-        pe_max_dist=a.max_frag,
-        engine_factory=make_torch_native_engine_factory(
-            a.device, lmax=a.lmax, n_threads=a.threads),
+        pe_max_dist=a.max_frag, engine_factory=factory,
         threads=a.threads, bam=a.bam, verbose=a.verbose)
+    return 0
+
+
+def _map_hybrid(a, index, reads2, command_line, factory):
+    """--engine hybrid: the native engine maps the first reads on the host
+    cores while the torch engine maps the rest; with -i the host shard
+    runs in its own process (NativeShardServer), as in abismal_tpu."""
+    from .host import NativeShardServer, run_map_hybrid_split, write_stats
+
+    threads = max(1, a.threads)
+    eng = factory(index, a.ambig, a.max_distance, a.min_frag, a.max_frag)
+    eng.n_threads = threads
+    server = None
+    if a.index:
+        server = NativeShardServer(a.index, a.ambig, a.max_distance,
+                                   a.min_frag, a.max_frag, threads=threads)
+    try:
+        stats = run_map_hybrid_split(
+            index, a.reads_files[0], reads2, a.outfile, command_line,
+            device_share=a.device_share, threads=threads, a_rich=a.a_rich,
+            pbat=a.pbat, random_pbat=a.random_pbat, allow_ambig=a.ambig,
+            valid_frac=a.max_distance, pe_min_dist=a.min_frag,
+            pe_max_dist=a.max_frag, lmax=a.lmax, bam=a.bam,
+            verbose=a.verbose, tpu_engine=eng, native_server=server)
+    finally:
+        if server is not None:
+            server.close()
+    write_stats(stats, a.stats or None, a.json, reads2 is not None, a.ambig)
+    return 0
+
+
+def _map_sharded(a, reads2, command_line):
+    """--hosts N (N spawned shard processes, gathered here) or --shard I:N
+    (this process maps shard I alone).  --device cuda puts shard i on
+    cuda:i mod the card count; any other device takes every shard."""
+    from .host import write_stats
+    from .parallel.multihost import (
+        _apply_stats, count_reads, map_shard, run_map_multihost,
+        shard_bounds,
+    )
+
+    device = None if a.device == "cuda" else a.device
+    kw = dict(a_rich=a.a_rich, pbat=a.pbat, random_pbat=a.random_pbat,
+              allow_ambig=a.ambig, valid_frac=a.max_distance,
+              pe_min_dist=a.min_frag, pe_max_dist=a.max_frag, bam=a.bam,
+              verbose=a.verbose, lmax=a.lmax, device=device)
+    paired = reads2 is not None
+    if a.hosts:
+        if a.hosts < 0:
+            print("--hosts must be positive", file=sys.stderr)
+            return 1
+        stats = run_map_multihost(
+            a.index, a.reads_files[0], reads2, a.outfile, command_line,
+            n_hosts=a.hosts, threads_per_host=max(1, a.threads), **kw)
+    else:
+        try:
+            si, sn = (int(x) for x in a.shard.split(":"))
+        except ValueError:
+            si, sn = -1, 0
+        if not 0 <= si < sn:
+            print(f"--shard must be I:N with 0 <= I < N, not {a.shard}",
+                  file=sys.stderr)
+            return 1
+        from abismal_tpu.map.stats import PEStats, SEStats
+
+        skip, cnt = shard_bounds(count_reads(a.reads_files[0]), sn)[si]
+        raw = map_shard(a.index, a.reads_files[0], reads2, a.outfile, si,
+                        sn, command_line, skip, cnt,
+                        threads=max(1, a.threads), **kw)
+        stats = PEStats() if paired else SEStats()
+        _apply_stats(raw, paired, stats)
+    write_stats(stats, a.stats or None, a.json, paired, a.ambig)
     return 0
 
 
@@ -83,7 +220,12 @@ def main(argv=None):
               "<command> [options]\nCommands:\n    map:    map FASTQ reads, "
               "or read pairs from two FASTQs (-l/-L: fragment\n"
               "            length window), on a torch device (--device, "
-              "default cuda)\n"
+              "default cuda);\n"
+              "            --mesh N|all: over N devices; --engine hybrid: "
+              "with the host\n"
+              "            cores (--device-share); --hosts N / --shard I:N: "
+              "in read-range\n"
+              "            shards\n"
               "    idx:    make an index for a FASTA reference genome\n"
               "    sim:    simulate WGBS reads for a FASTA reference genome")
         return 0

@@ -90,10 +90,12 @@ def banded_score(q, win, bw, qsz):
     out = torch.empty(J, dtype=torch.int32, device=q.device)
     if J:
         lib = _build.load()
-        rc = lib.banded_score_launch(
-            q.data_ptr(), q.shape[1], win.data_ptr(), win.shape[1],
-            bw.data_ptr(), qsz.data_ptr(), out.data_ptr(), J,
-            _build.stream_of(q))
+        # the runtime launches on the calling thread's current device
+        with torch.cuda.device(q.device):
+            rc = lib.banded_score_launch(
+                q.data_ptr(), q.shape[1], win.data_ptr(), win.shape[1],
+                bw.data_ptr(), qsz.data_ptr(), out.data_ptr(), J,
+                _build.stream_of(q))
         _build.check(rc, "banded_score")
         banded_score.launches += 1
     return out[:, None]
@@ -215,11 +217,12 @@ def banded_trace(q, win, bw, qsz, wpos, do_tb):
         # shared memory per block
         warps = max(1, min(4, (48 * 1024) // (panel_rows * 32)))
         lib = _build.load()
-        rc = lib.banded_trace_launch(
-            q.data_ptr(), lq, win.data_ptr(), win.shape[1], bw.data_ptr(),
-            qsz.data_ptr(), wpos.data_ptr(), do_tb.data_ptr(),
-            ops.data_ptr(), meta.data_ptr(), J, panel_rows,
-            walk_step_cap(lq), warps, _build.stream_of(q))
+        with torch.cuda.device(q.device):
+            rc = lib.banded_trace_launch(
+                q.data_ptr(), lq, win.data_ptr(), win.shape[1],
+                bw.data_ptr(), qsz.data_ptr(), wpos.data_ptr(),
+                do_tb.data_ptr(), ops.data_ptr(), meta.data_ptr(), J,
+                panel_rows, walk_step_cap(lq), warps, _build.stream_of(q))
         _build.check(rc, "banded_trace")
         banded_trace.launches += 1
     return ops, meta

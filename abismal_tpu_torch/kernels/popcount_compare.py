@@ -73,10 +73,12 @@ def popcount_compare(genome32, pos, pk_unit, b_of, nw_of):
     d = torch.empty(G, dtype=torch.int32, device=pos.device)
     if G:
         lib = _build.load()
-        rc = lib.popcount_compare_launch(
-            genome32.data_ptr(), genome32.shape[0], pos.data_ptr(),
-            pk_unit.data_ptr(), pk_unit.shape[1], b_of.data_ptr(),
-            nw_of.data_ptr(), d.data_ptr(), G, _build.stream_of(pos))
+        # the runtime launches on the calling thread's current device
+        with torch.cuda.device(pos.device):
+            rc = lib.popcount_compare_launch(
+                genome32.data_ptr(), genome32.shape[0], pos.data_ptr(),
+                pk_unit.data_ptr(), pk_unit.shape[1], b_of.data_ptr(),
+                nw_of.data_ptr(), d.data_ptr(), G, _build.stream_of(pos))
         _build.check(rc, "popcount_compare")
         popcount_compare.launches += 1
     return d

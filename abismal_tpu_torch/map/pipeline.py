@@ -39,6 +39,9 @@ from ..device import resolve_device
 from ..kernels.banded_align import banded_score, banded_trace, win_start
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
+from ..parallel.mesh import (
+    make_mesh, replicate_tables, shard_stage12, shard_stage12pe,
+)
 
 I64 = torch.int64
 INF32 = 0x7FFFFFFF
@@ -904,7 +907,14 @@ class TorchNativeEngine:
     paired-end) run on the device and their packed rows go to the native
     engine's finalize, which formats the SAM and re-maps the fallback
     reads exactly.  Implements the dispatch/finish pipeline interface of
-    run_map_pipelined."""
+    run_map_pipelined.
+
+    mesh_devices (an int, "all" or a list of devices: parallel.mesh.
+    make_mesh) splits every chunk over the mesh's slots, each with its
+    replica of the tables, in place of the one device; unit_batch must
+    divide by the mesh size.  With a mesh, device_decisions adds up the
+    SE decision counts [unmapped, exact, aligned, fallback] of every
+    read, and no phase marks are kept."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -912,14 +922,27 @@ class TorchNativeEngine:
     def __init__(self, index, allow_ambig=False, valid_frac=0.1,
                  pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
                  unit_batch: int = 2048, n_threads: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh_devices=None, index_shards=None):
         from abismal_tpu.map.native_engine import NativeMappingEngine
 
+        if index_shards:
+            raise NotImplementedError(
+                "index_shards: the key-range-sharded index is not ported "
+                "yet (ROADMAP.md item 8)")
         if index.genome_size > POS_EMPTY - 1:
             # positions are u32 and POS_EMPTY marks a dead PE slot
             raise ValueError(f"genome of {index.genome_size} bases exceeds "
                              f"the device path's {POS_EMPTY - 1}")
-        self.device = resolve_device(device)
+        self.mesh = None
+        self.n_shards = 1
+        if mesh_devices:
+            self.mesh = make_mesh(mesh_devices)
+            self.n_shards = len(self.mesh)
+            if unit_batch % self.n_shards:
+                raise ValueError("unit_batch must divide by mesh size")
+            self.device = self.mesh[0]
+        else:
+            self.device = resolve_device(device)
         self.native = NativeMappingEngine(index, allow_ambig, valid_frac,
                                           pe_min_dist, pe_max_dist,
                                           n_threads=n_threads)
@@ -927,7 +950,12 @@ class TorchNativeEngine:
         self.valid_frac = valid_frac
         self.unit_batch = unit_batch
         self.device_tb = os.environ.get("ABISMAL_TPU_DEVTB", "1") == "1"
-        self.dev = DeviceIndex.from_index(index, self.device)
+        if self.mesh is None:
+            self.dev = DeviceIndex.from_index(index, self.device)
+        else:
+            self.replicas = replicate_tables(index, self.mesh)
+            self.dev = self.replicas[0]
+        self.device_decisions = np.zeros(4, dtype=np.int64)
         self._host_counters = (index.counter, index.counter_t,
                                index.counter_a)
         self.cand_budget = None
@@ -989,6 +1017,8 @@ class TorchNativeEngine:
                 self.dev.n_index3, per, cand_per_unit=cand_budget,
                 ext_iters=self.dev.ext_iters, device_tb=self.device_tb,
                 ext_pool=ext_pool)
+            if self.mesh is not None:
+                prog = shard_stage12(prog, self.mesh)
             self._stage12_progs[key] = prog
         return prog
 
@@ -1036,10 +1066,11 @@ class TorchNativeEngine:
                              dtype=bool)
         prog = self._stage12_prog(
             per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
-        B = max(per, self.unit_batch - (self.unit_batch % per))
+        q = per * self.n_shards  # batch quantum (units/read x mesh slots)
+        B = max(q, self.unit_batch - (self.unit_batch % q))
         rpc = B // per  # reads per chunk
-        scode = self._put(scode_pat)
-        tables = self.dev.tables()
+        if self.mesh is None:
+            scode, tables = self._put(scode_pat), self.dev.tables()
         pending = []
         for start in range(0, len(reads), rpc):
             n = min(rpc, len(reads) - start)
@@ -1053,13 +1084,19 @@ class TorchNativeEngine:
             # int(valid_frac * len), truncated like the C cast
             max_diffs_r = (self.valid_frac
                            * lens_r.astype(np.float64)).astype(np.int32)
-            marks = [] if self.profile else None
-            rows = prog(*tables, self._put(preads), self._put(lens),
-                        self._put(np.tile(is_ga_pat, rpc)), scode,
-                        self._put(max_diffs_r), marks=marks)
-            if marks is not None:
-                self.chunk_marks.append(marks)
-            pending.append((start, n, rows))
+            is_ga = np.tile(is_ga_pat, rpc)
+            counts = None
+            if self.mesh is not None:
+                rows, counts = prog(self.replicas, preads, lens, is_ga,
+                                    scode_pat, max_diffs_r)
+            else:
+                marks = [] if self.profile else None
+                rows = prog(*tables, self._put(preads), self._put(lens),
+                            self._put(is_ga), scode, self._put(max_diffs_r),
+                            marks=marks)
+                if marks is not None:
+                    self.chunk_marks.append(marks)
+            pending.append((start, n, rows, counts))
         self.stage_time["device dispatch"] += time.perf_counter() - t0
         return (reads, a_rich_mode, random_pbat, per, pending, oversized)
 
@@ -1073,8 +1110,13 @@ class TorchNativeEngine:
         packed = np.zeros((max(R, 1), W), dtype=np.int32)
         if self.device_tb:
             packed[:, 4] = -1  # n_ops sentinel for rows without a chunk
-        for start, n, rows in pending:
+        for start, n, rows, counts in pending:
             packed[start : start + n] = rows.cpu().numpy()[:n]
+            if counts is not None:
+                # padded reads are unmapped (status 0): take them out
+                c = counts.numpy().astype(np.int64)
+                c[0] -= rows.shape[0] - n
+                self.device_decisions += c
         records = packed[:, :4]
         cig_ops = cig_meta = None
         if self.device_tb:
@@ -1108,6 +1150,8 @@ class TorchNativeEngine:
                 self.lmax, self.dev.max_candidates, self.dev.n_index2,
                 self.dev.n_index3, per=per, cand_per_unit=cand_budget,
                 ext_iters=self.dev.ext_iters, ext_pool=ext_pool)
+            if self.mesh is not None:
+                prog = shard_stage12pe(prog, self.mesh)
             self._stage12_progs[key] = prog
         return prog
 
@@ -1159,12 +1203,15 @@ class TorchNativeEngine:
                                                       random_pbat)
         prog = self._stage12pe_prog(
             per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
-        B = max(per, self.unit_batch - (self.unit_batch % per))
+        q = per * self.n_shards
+        B = max(q, self.unit_batch - (self.unit_batch % q))
         ppc = B // per  # pairs per chunk
-        pe_dist = self._put(np.array([self.native.pe_min_dist,
-                                      self.native.pe_max_dist], np.int32))
-        is_ga = self._put(np.tile(is_ga_pat, ppc))
-        tables = self.dev.tables()
+        pe_dist = np.array([self.native.pe_min_dist,
+                            self.native.pe_max_dist], np.int32)
+        is_ga = np.tile(is_ga_pat, ppc)
+        if self.mesh is None:
+            pe_dist_d, is_ga_d = self._put(pe_dist), self._put(is_ga)
+            tables = self.dev.tables()
         pending = []
         for start in range(0, len(reads1), ppc):
             nu = min(ppc, len(reads1) - start) * per
@@ -1176,11 +1223,16 @@ class TorchNativeEngine:
             # int(valid_frac * len) per unit (the ends differ in length)
             max_diffs_u = (self.valid_frac
                            * lens.astype(np.float64)).astype(np.int32)
-            marks = [] if self.profile else None
-            rows = prog(*tables, self._put(preads), self._put(lens), is_ga,
-                        self._put(max_diffs_u), pe_dist, marks=marks)
-            if marks is not None:
-                self.chunk_marks.append(marks)
+            if self.mesh is not None:
+                rows, _ = prog(self.replicas, preads, lens, is_ga,
+                               max_diffs_u, pe_dist)
+            else:
+                marks = [] if self.profile else None
+                rows = prog(*tables, self._put(preads), self._put(lens),
+                            is_ga_d, self._put(max_diffs_u), pe_dist_d,
+                            marks=marks)
+                if marks is not None:
+                    self.chunk_marks.append(marks)
             pending.append((start, nu, rows))
         self.stage_time["device dispatch"] += time.perf_counter() - t0
         return (reads1, reads2, a_rich_mode, random_pbat, per, pending,
@@ -1224,21 +1276,25 @@ _engine_memo = {}
 
 def make_torch_native_engine_factory(device, lmax: int = 128,
                                      unit_batch: int = 2048,
-                                     n_threads: int = 1):
-    """run_map engine factory for TorchNativeEngine on `device`, memoized
-    per index (the device tables are ~1 GB at any genome size)."""
+                                     n_threads: int = 1, mesh_devices=None):
+    """run_map engine factory for TorchNativeEngine on `device`, or over
+    the mesh mesh_devices, memoized per index (the device tables are ~1 GB
+    at any genome size)."""
+    mesh_key = (tuple(str(d) for d in mesh_devices)
+                if isinstance(mesh_devices, (list, tuple)) else mesh_devices)
 
     def factory(index, allow_ambig, valid_frac, pe_min_dist, pe_max_dist):
         key = ("torch-native", id(index), int(index.max_candidates),
                allow_ambig, valid_frac, pe_min_dist, pe_max_dist, lmax,
-               unit_batch, str(device))
+               unit_batch, str(device), mesh_key)
         hit = _engine_memo.get(key)
         if hit is not None and hit[0] is index:
             hit[1].n_threads = n_threads
             return hit[1]
         eng = TorchNativeEngine(index, allow_ambig, valid_frac, pe_min_dist,
                                 pe_max_dist, lmax=lmax, unit_batch=unit_batch,
-                                n_threads=n_threads, device=device)
+                                n_threads=n_threads, device=device,
+                                mesh_devices=mesh_devices)
         _engine_memo[key] = (index, eng)
         return eng
 

@@ -1,0 +1,109 @@
+"""Multi-host mapping with the port's engine (↔ abismal_tpu/parallel/
+multihost.py): the FASTQ splits into contiguous read-range shards, one
+process per shard loads its own index replica and maps its range with
+TorchNativeEngine, and the shard SAMs are concatenated in rank order, so
+the output equals a one-process run byte for byte.  count_reads,
+shard_bounds, gather and the statistics merge are the JAX package's,
+reused by import; map_shard and run_map_multihost are copied because the
+JAX ones build its own engine.
+
+The same code runs on separate machines: `map --shard I:N` on each host,
+then concatenate the shard outputs in rank order."""
+
+from __future__ import annotations
+
+import os
+
+from abismal_tpu.parallel.multihost import (
+    _SE_FIELDS, _apply_stats, count_reads, gather, shard_bounds,
+)
+
+__all__ = ["count_reads", "gather", "map_shard", "run_map_multihost",
+           "shard_bounds"]
+
+
+def map_shard(index_path: str, reads_file1: str, reads_file2,
+              out_shard: str, shard_i: int, n_shards: int,
+              command_line: str, skip: int, count: int, a_rich=False,
+              pbat=False, random_pbat=False, allow_ambig=False,
+              valid_frac=0.1, pe_min_dist=32, pe_max_dist=3000,
+              threads: int = 1, bam: bool = False, verbose: bool = False,
+              lmax: int = 128, device=None):
+    """One host's work (↔ the device branch of the JAX map_shard): load
+    the index, map reads [skip, skip + count) with TorchNativeEngine on
+    device, by default cuda:{shard_i % device_count}, and write the
+    records (shard 0 also writes the header).  Returns the shard's raw
+    stats counters (6 ints SE, 18 PE).  Without a card a CUDA device
+    raises; nothing falls back to the CPU."""
+    import torch
+
+    from abismal_tpu.index.serialize import read_index
+    from abismal_tpu.map.native_engine import run_map_pipelined
+    from abismal_tpu.map.stats import PEStats
+
+    from ..device import require_cuda
+    from ..map.pipeline import TorchNativeEngine
+
+    if device is None:
+        require_cuda()
+        device = f"cuda:{shard_i % torch.cuda.device_count()}"
+    index = read_index(index_path)
+    eng = TorchNativeEngine(index, allow_ambig, valid_frac, pe_min_dist,
+                            pe_max_dist, lmax=lmax, n_threads=threads,
+                            device=device)
+    stats = run_map_pipelined(
+        eng, index, reads_file1, reads_file2, out_shard, command_line,
+        a_rich=a_rich, pbat=pbat, random_pbat=random_pbat, bam=bam,
+        verbose=verbose, skip=skip, count=count,
+        write_header=(shard_i == 0))
+    if isinstance(stats, PEStats):
+        return [int(getattr(blk, f)) for blk in
+                (stats.read_pair_stats, stats.end1_stats, stats.end2_stats)
+                for f in _SE_FIELDS]
+    return [int(getattr(stats, f)) for f in _SE_FIELDS]
+
+
+def run_map_multihost(index_path: str, reads_file1: str, reads_file2,
+                      out_path: str, command_line: str, n_hosts: int,
+                      threads_per_host: int = 1, device=None, **map_kwargs):
+    """Coordinator (↔ the JAX run_map_multihost): shards the reads by
+    count, maps each shard in its own spawned process with map_shard on
+    device (by default shard i on cuda:{i % device_count}), gathers the
+    shard SAMs in rank order and returns the merged stats.  For CUDA the
+    kernel library is built here once, before the processes start."""
+    import multiprocessing as mp
+
+    import torch
+
+    from abismal_tpu.map.stats import PEStats, SEStats
+
+    from ..device import require_cuda
+    from ..kernels import _build
+
+    if device is None or torch.device(device).type == "cuda":
+        require_cuda()
+        _build.load()
+    paired = reads_file2 is not None
+    shards = shard_bounds(count_reads(reads_file1), n_hosts)
+    shard_paths = [f"{out_path}.shard{i}" for i in range(n_hosts)]
+    verbose = bool(map_kwargs.pop("verbose", False))
+    ctx = mp.get_context("spawn")
+    with ctx.Pool(n_hosts) as pool:
+        results = [
+            pool.apply_async(
+                map_shard,
+                (index_path, reads_file1, reads_file2, shard_paths[i], i,
+                 n_hosts, command_line, skip, cnt),
+                # progress from rank 0 only: the shards' stderr interleaves
+                dict(threads=threads_per_host, verbose=(verbose and i == 0),
+                     device=device, **map_kwargs))
+            for i, (skip, cnt) in enumerate(shards)
+        ]
+        raws = [r.get() for r in results]
+    stats = PEStats() if paired else SEStats()
+    for raw in raws:
+        _apply_stats(raw, paired, stats)
+    gather(shard_paths, out_path)
+    for p in shard_paths:
+        os.unlink(p)
+    return stats

@@ -24,7 +24,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
   6. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome:
               20k simulated SE reads, then 20k simulated pairs, each mapped
               by the port and by the native engine: the SAM bytes must be
-              equal.
+              equal;
+  7. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
+              mesh      two slots on cuda:0 (unit_batch 4096: each slot
+                        maps 2048 units, the one-card chunk): small, reads,
+                        small_pe, reads_pe give the goldens' SAM and mstats
+                        and SE decision counts cover every read; the 1 Gb
+                        SE and PE SAMs equal the native engine's; with two
+                        or more cards the 1 Gb runs go over every card too
+                        (2048 units per card);
+              hybrid    the in-process split on the 1 Gb sets, its share
+                        dev_rate / (dev_rate + host_rate) from this call's
+                        rates, equals the native SAM; the NativeShardServer
+                        split on reads and reads_pe gives the goldens;
+              multihost run_map_multihost with 2 shards on reads and
+                        reads_pe gives the goldens, and the two `map
+                        --shard I:2` processes on small, concatenated,
+                        give the golden but for the @PG line;
+              K1-K3 must launch during the mesh and the hybrid runs, and
+              every run prints its rate beside this call's port-only and
+              native-only rates.
 It imports only the port (abismal_tpu_torch), which brings the host side
 it reuses; nothing of JAX.
 The line before the last is the kernels' JSON summary, the last line
@@ -511,18 +530,283 @@ def phase_scale(dev, threads):
                            threads, fq2)
     pe["warm"] = port_map(factory, index, fq1, sam_t, None, "scale_pe",
                           threads, fq2)
+    sam_n_pe = os.path.join(WORK, "scale_native_pe.sam")
     secs_pe = map_with(make_native_engine_factory(n_threads=threads), index,
-                       fq1, sam_n, None, "scale_pe", threads, fq2)
+                       fq1, sam_n_pe, None, "scale_pe", threads, fq2)
     pe["native_pairs_per_s"] = 20000 / secs_pe
-    pe["sam_identical"] = open(sam_t, "rb").read() == open(sam_n, "rb").read()
+    pe["sam_identical"] = (open(sam_t, "rb").read()
+                           == open(sam_n_pe, "rb").read())
     check(pe["sam_identical"], "scale PE: port SAM differs from native's")
-    return dict(genome_mb=SCALE_MB, gen_s=t1 - t0, index_s=t2 - t1,
-                sim_s=t3 - t2, first=st, warm=st_warm,
-                native_reads_per_s=20000 / secs_n, sam_identical=same, pe=pe,
-                cand_budget=eng.cand_budget,
-                ext_pool=eng._informed_ext_pool(),
-                table_bytes=eng.dev.nbytes(),
-                max_memory_allocated=torch.cuda.max_memory_allocated())
+    res = dict(genome_mb=SCALE_MB, gen_s=t1 - t0, index_s=t2 - t1,
+               sim_s=t3 - t2, first=st, warm=st_warm,
+               native_reads_per_s=20000 / secs_n, sam_identical=same, pe=pe,
+               cand_budget=eng.cand_budget,
+               ext_pool=eng._informed_ext_pool(),
+               table_bytes=eng.dev.nbytes(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    # what the scaleout phase maps again: the sets, the native SAMs and
+    # this call's port-only and native-only rates
+    sets = dict(index=index, se=(fq, None, sam_n, "scale"),
+                pe=(fq1, fq2, sam_n_pe, "scale_pe"),
+                rates={"se": (st_warm["reads_per_s"], 20000 / secs_n),
+                       "pe": (pe["warm"]["pairs_per_s"],
+                              pe["native_pairs_per_s"])})
+    return res, sets
+
+
+# --- phase 7 -------------------------------------------------------------------
+
+MESH_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
+SPLIT_GOLDENS = ("reads", "reads_pe")  # the server split and multihost
+SHARD_CLI_GOLDEN = "small"
+
+
+def golden_fastqs(prefix):
+    fq1 = gunzip_to(f"{prefix}_1.fq", WORK)
+    fq2 = gunzip_to(f"{prefix}_2.fq", WORK) if prefix.endswith("_pe") else None
+    return fq1, fq2
+
+
+def golden_cl(prefix):
+    """The argv the (non-PBAT) golden was mapped with, MANIFEST.md."""
+    tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq"
+            if prefix.endswith("_pe") else f"tests/{prefix}_1.fq")
+    return (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
+            f"-i tests/tRex1.idx {tail}")
+
+
+def launches_moved(kernels, what):
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched during the {what} runs")
+    return launches
+
+
+def hybrid_map(eng, index, fq1, fq2, sam, cl, share, threads, mstats=None,
+               native_server=None):
+    """One run_map_hybrid_split with the port engine eng as the device
+    side; returns its stats dict.  device_side_s runs from the start to
+    the engine's last finish; native_side_s (in-process split only) to
+    the end of the native thread."""
+    import threading
+
+    from abismal_tpu_torch.host import run_map_hybrid_split, write_stats
+
+    eng.n_threads = threads
+    u0, f0 = eng.n_units, eng.n_fallback
+    ends = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            r = fn(*a, **k)
+            ends["device"] = time.perf_counter()
+            return r
+        setattr(eng, name, call)
+
+    def watch_native():
+        while not done.is_set():
+            for t in threading.enumerate():
+                if t.name == "native-shard" and t.is_alive():
+                    t.join()
+                    ends["native"] = time.perf_counter()
+                    return
+            time.sleep(0.001)
+
+    for name in ("finish_se", "finish_pe"):
+        timed(name, getattr(eng, name))
+    done = threading.Event()
+    watcher = threading.Thread(target=watch_native)
+    info = {}
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        stats = run_map_hybrid_split(
+            index, fq1, fq2, sam, cl, device_share=share, threads=threads,
+            tpu_engine=eng, native_server=native_server, stats_out=info)
+    finally:
+        secs = time.perf_counter() - t0
+        done.set()
+        watcher.join()
+        del eng.finish_se, eng.finish_pe
+    write_stats(stats, mstats, False, fq2 is not None, False)
+    check(info["n_device"] > 0, "hybrid: no read went to the device")
+    unit = "pairs" if fq2 else "reads"
+    n = n_reads_of(fq1)
+    return {unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
+            "device_share": share, "n_native": info["n_native"],
+            "n_device": info["n_device"],
+            "fallback_frac": (eng.n_fallback - f0) / max(1, eng.n_units - u0),
+            **{f"{k}_side_s": v - t0 for k, v in ends.items()}}
+
+
+def phase_scaleout(dev, threads, card, trex, sets, rates):
+    """Phase 7: the mesh, the hybrid split and multi-host sharding.  trex
+    is the tRex1 index of the goldens phases (its port engine is warm),
+    rates this call's (port-only, native-only) rates by set."""
+    import torch
+
+    from abismal_tpu_torch.host import NativeShardServer, write_stats
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+    from abismal_tpu_torch.parallel.multihost import run_map_multihost
+
+    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace)
+    rates = {**rates, **sets["rates"]}
+    big = sets["index"]
+    n_cards = torch.cuda.device_count()
+    out = {"card": card, "real_multi_card": n_cards >= 2}
+    launches = {}
+
+    def rated(st, key):
+        st["port_only_per_s"], st["native_only_per_s"] = rates[key]
+        return st
+
+    # --- mesh: two slots on one card; given two cards, every card too
+    for k in kernels:
+        k.launches = 0
+    # every slot maps the one-card chunk of 2048 units
+    facs = {"slots2": make_torch_native_engine_factory(
+        dev, unit_batch=4096, n_threads=threads, mesh_devices=[dev, dev])}
+    if n_cards >= 2:
+        facs["all"] = make_torch_native_engine_factory(
+            dev, unit_batch=2048 * n_cards, n_threads=threads,
+            mesh_devices="all")
+    mesh = {}
+    for prefix in MESH_GOLDENS:
+        fq1, fq2 = golden_fastqs(prefix)
+        sam = os.path.join(WORK, f"mesh_{prefix}.sam")
+        mst = os.path.join(WORK, f"mesh_{prefix}.mstats")
+        eng = facs["slots2"](trex, False, 0.1, 32, 3000)
+        d0 = int(eng.device_decisions.sum())
+        st = port_map(facs["slots2"], trex, fq1, sam, mst, golden_cl(prefix),
+                      threads, fq2)
+        sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+        st.update(sam_identical=sam_ok, mstats_identical=mst_ok)
+        check(sam_ok and mst_ok, f"mesh {prefix}: output differs from the "
+              "golden")
+        if fq2 is None:
+            st["decisions"] = int(eng.device_decisions.sum()) - d0
+            check(st["decisions"] == n_reads_of(fq1),
+                  f"mesh {prefix}: decision counts do not cover the reads")
+        mesh[prefix] = rated(st, prefix) if prefix in rates else st
+    for name, fac in facs.items():
+        eng = fac(big, False, 0.1, 32, 3000)
+        for kind in ("se", "pe"):
+            fq1, fq2, sam_native, cl = sets[kind]
+            sam = os.path.join(WORK, f"mesh_scale_{kind}.sam")
+            st = {}
+            for run in ("first", "warm"):
+                d0 = int(eng.device_decisions.sum())
+                st[run] = port_map(fac, big, fq1, sam, None, cl, threads, fq2)
+                same = open(sam, "rb").read() == open(sam_native, "rb").read()
+                check(same, f"mesh {name} 1 Gb {kind} ({run}): SAM differs "
+                      "from the native engine's")
+                if kind == "se":
+                    st[run]["decisions"] = int(eng.device_decisions.sum()) - d0
+                    check(st[run]["decisions"] == n_reads_of(fq1),
+                          f"mesh {name} 1 Gb: decision counts do not cover "
+                          "the reads")
+            st["sam_identical"] = True
+            mesh[f"scale_{kind}_{name}"] = rated(st, kind)
+    out["mesh"] = mesh
+    launches["mesh"] = launches_moved(kernels, "mesh")
+
+    # --- hybrid: in-process on the 1 Gb sets, NativeShardServer on tRex1
+    for k in kernels:
+        k.launches = 0
+    port = make_torch_native_engine_factory(dev, n_threads=threads)
+    hybrid = {}
+    eng = port(big, False, 0.1, 32, 3000)  # the scale phase's engine
+    for kind in ("se", "pe"):
+        fq1, fq2, sam_native, cl = sets[kind]
+        dev_rate, host_rate = rates[kind]
+        sam = os.path.join(WORK, f"hybrid_scale_{kind}.sam")
+        st = hybrid_map(eng, big, fq1, fq2, sam, cl,
+                        dev_rate / (dev_rate + host_rate), threads)
+        st["sam_identical"] = (open(sam, "rb").read()
+                               == open(sam_native, "rb").read())
+        check(st["sam_identical"], f"hybrid 1 Gb {kind}: SAM differs from "
+              "the native engine's")
+        hybrid[f"scale_{kind}"] = rated(st, kind)
+    eng = port(trex, False, 0.1, 32, 3000)  # the goldens phase's engine
+    server = NativeShardServer(os.path.join(WORK, "tRex1.idx"),
+                               threads=threads)
+    try:
+        for prefix in SPLIT_GOLDENS:
+            fq1, fq2 = golden_fastqs(prefix)
+            sam = os.path.join(WORK, f"hybrid_{prefix}.sam")
+            mst = os.path.join(WORK, f"hybrid_{prefix}.mstats")
+            dev_rate, host_rate = rates[prefix]
+            st = hybrid_map(eng, trex, fq1, fq2, sam, golden_cl(prefix),
+                            dev_rate / (dev_rate + host_rate), threads,
+                            mstats=mst, native_server=server)
+            sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+            st.update(sam_identical=sam_ok, mstats_identical=mst_ok)
+            check(sam_ok and mst_ok, f"hybrid server {prefix}: output "
+                  "differs from the golden")
+            hybrid[f"server_{prefix}"] = rated(st, prefix)
+    finally:
+        server.close()
+    out["hybrid"] = hybrid
+    launches["hybrid"] = launches_moved(kernels, "hybrid")
+
+    # --- multihost: 2 shard processes (shard i on cuda:i mod the cards)
+    shard_dev = None if dev.type == "cuda" else str(dev)
+    idx = os.path.join(WORK, "tRex1.idx")
+    per_host = max(1, threads // 2)
+    mh = {}
+    for prefix in SPLIT_GOLDENS:
+        fq1, fq2 = golden_fastqs(prefix)
+        sam = os.path.join(WORK, f"multihost_{prefix}.sam")
+        mst = os.path.join(WORK, f"multihost_{prefix}.mstats")
+        t0 = time.perf_counter()
+        stats = run_map_multihost(idx, fq1, fq2, sam, golden_cl(prefix), 2,
+                                  threads_per_host=per_host, device=shard_dev)
+        secs = time.perf_counter() - t0
+        write_stats(stats, mst, False, fq2 is not None, False)
+        sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+        check(sam_ok and mst_ok, f"multihost {prefix}: output differs from "
+              "the golden")
+        unit = "pairs" if fq2 else "reads"
+        n = n_reads_of(fq1)
+        mh[prefix] = rated({unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
+                            "sam_identical": sam_ok,
+                            "mstats_identical": mst_ok}, prefix)
+    # `map --shard I:2`, one process per shard, both at once
+    fq1, _ = golden_fastqs(SHARD_CLI_GOLDEN)
+    parts = [os.path.join(WORK, f"shard{i}.sam") for i in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "abismal_tpu_torch", "map", "--shard",
+         f"{i}:2", "--device", str(dev), "-t", str(per_host), "-o", part,
+         "-i", idx, fq1], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE) for i, part in enumerate(parts)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        check(p.returncode == 0, f"map --shard: {err.decode()[-2000:]}")
+    secs = time.perf_counter() - t0
+    gathered = b"".join(open(part, "rb").read() for part in parts)
+    with gzip.open(os.path.join(GOLDEN, SHARD_CLI_GOLDEN + ".sam.gz"),
+                   "rb") as f:
+        golden = f.read()
+
+    def body(sam):
+        return [ln for ln in sam.split(b"\n") if not ln.startswith(b"@PG")]
+
+    same = body(gathered) == body(golden)
+    check(same, "map --shard: the gathered shards differ from the golden")
+    mh["shard_cli_" + SHARD_CLI_GOLDEN] = dict(
+        seconds=secs, sam_identical_but_pg=same)
+    out["multihost"] = mh
+    return out, {name: sum(ls[name] for ls in launches.values())
+                 for name in launches["mesh"]}
 
 
 def main():
@@ -566,9 +850,17 @@ def main():
 
         pres, launches_pe = phase_goldens_pe(dev, threads, index)
         emit("goldens_pe", **pres)
-        del index
 
-        emit("scale", **phase_scale(dev, threads))
+        sres, sets = phase_scale(dev, threads)
+        emit("scale", **sres)
+
+        rates = {"reads": (gres["reads"]["reads_per_s"],
+                           gres["native_reads_per_s"]),
+                 "reads_pe": (pres["reads_pe"]["pairs_per_s"],
+                              pres["reads_pe"]["native_pairs_per_s"])}
+        ores, launches_out = phase_scaleout(dev, threads, card, index, sets,
+                                            rates)
+        emit("scaleout", **ores)
         check("jax" not in sys.modules, "the port loaded jax")
     except Exception:
         traceback.print_exc()
@@ -578,7 +870,8 @@ def main():
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name],
-             launches=launches[name] + launches_pe.get(name, 0),
+             launches=(launches[name] + launches_pe.get(name, 0)
+                       + launches_out[name]),
              max_abs_err=max(kres[k]["max_abs_err"] for k in kres
                              if k.startswith(name)), ms=kres[name]["ms"],
              plain_ms=kres[name]["plain_ms"]) for name in REPLACES]}),

@@ -1,7 +1,8 @@
 """The port stands apart from JAX: no module of abismal_tpu_torch (nor
-chip_smoke.py) imports jax, chip_smoke.py imports only the port, a whole
-`map` run through the port's CLI never loads jax, and chip_smoke.py
-refuses to run without a card."""
+chip_smoke.py) imports jax, importing every module of the port loads no
+jax, chip_smoke.py imports only the port, a whole `map` run through the
+port's CLI (also over a mesh and as a hybrid split) never loads jax, and
+chip_smoke.py refuses to run without a card."""
 
 import ast
 import os
@@ -39,6 +40,26 @@ def test_no_jax_import(path):
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
 
 
+def test_port_modules_import_without_jax():
+    """Every module of the port, the scale-out ones included, imports in a
+    fresh interpreter without loading jax."""
+    mods = []
+    for path in _port_files():
+        parts = os.path.relpath(path, ROOT)[:-3].split(os.sep)
+        if parts[0] == "abismal_tpu_torch" and parts[-1] != "__main__":
+            mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                                 else parts))
+    assert "abismal_tpu_torch.parallel.multihost" in mods
+    code = ("import importlib, sys\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n")
+    res = subprocess.run([sys.executable, "-c", code, *mods],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert res.returncode == 0, res.stderr
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the host side through abismal_tpu_torch.host,
     never through the JAX package itself."""
@@ -63,12 +84,19 @@ def _sam_body(text):
     return [ln for ln in text.splitlines() if not ln.startswith("@PG")]
 
 
-@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
-def test_cli_map_never_loads_jax(tmp_path, trex1_index, index_copy, paired):
+@pytest.mark.parametrize("paired,extra", [
+    (False, []), (True, []),
+    (False, ["--engine", "hybrid", "--device-share", "0.4"]),
+    (True, ["--mesh", "2"]),
+], ids=["se", "pe", "se-hybrid", "pe-mesh"])
+def test_cli_map_never_loads_jax(tmp_path, trex1_index, index_copy, paired,
+                                 extra):
     """`python -m abismal_tpu_torch map --device cpu`: jax is not in
     sys.modules at exit, and the SAM body is the golden's (small_1.fq) or,
     for pairs with -l 40 -L 500, the native engine's on the same
-    concordance window (small_pe)."""
+    concordance window (small_pe); so too with --engine hybrid (its host
+    shard in a process of its own, as -i is given) and over a 2-slot CPU
+    mesh."""
     import gzip
 
     sam = tmp_path / "o.sam"
@@ -77,6 +105,7 @@ def test_cli_map_never_loads_jax(tmp_path, trex1_index, index_copy, paired):
                 golden_path("small_pe_2.fq")]
     else:
         args = [golden_path("small_1.fq")]
+    args = extra + args
     code = (
         "import runpy, sys\n"
         "sys.argv = ['abismal_tpu_torch', 'map', '-o', sys.argv[1], '-i',"

@@ -333,3 +333,38 @@ def test_banded_trace_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     want = ba.banded_trace_plain(*t)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.fixture
+def other_card():
+    """The last card, when it is not cuda:0."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(other_card):
+    """K1, K2 and K3 on the last card while cuda:0 is current: each wrapper
+    makes its tensors' device current around the launch, and each result
+    equals its plain version."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+
+    rng, genome = _genome(11, iupac=50)
+    q, win, bw, qsz, pos, do_tb = _job_arrays(
+        genome, _random_jobs(rng, genome, 500), 512)
+    k1 = _k1_torch(*_k1_arrays(4, G=1 << 14, B=256), device=other_card)
+    k2 = [torch.from_numpy(a).to(other_card) for a in (q, win, bw[:, None],
+                                                        qsz[:, None])]
+    k3 = [torch.from_numpy(a).to(other_card)
+          for a in (q, win, bw, qsz, pos.astype(np.int64), do_tb)]
+    with torch.cuda.device(0):
+        got = (pc.popcount_compare(*k1), ba.banded_score(*k2),
+               *ba.banded_trace(*k3))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other_card)
+    want = (pc.popcount_compare_plain(*k1), ba.banded_score_plain(*k2),
+            *ba.banded_trace_plain(*k3))
+    for g, w in zip(got, want):
+        assert g.device == other_card and torch.equal(g, w)
