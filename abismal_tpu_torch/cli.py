@@ -4,14 +4,116 @@ on --device (default cuda), and scales out as abismal_tpu's CLI does:
 --mesh splits each chunk over several devices, --engine hybrid maps a
 share of the reads on the host cores at the same time, and --hosts /
 --shard map read ranges in separate processes or on separate machines.
-`idx` and `sim` are host-only and run abismal_tpu's commands unchanged.
-The SAM @PG CL: header records argv as abismal_tpu's CLI does."""
+`idx` and `sim` are host-only.  Options accept single- or double-dash
+long names and the reference's short names, and the SAM @PG CL: header
+records argv exactly as the reference does (the subcommand plus its
+arguments)."""
 
 from __future__ import annotations
 
+import argparse
 import sys
+import time
 
-from abismal_tpu.cli import _DashArgumentParser, _log, cmd_idx, cmd_sim
+
+class _DashArgumentParser(argparse.ArgumentParser):
+    """Accepts reference-style single-dash long options (-seed, -single)."""
+
+    def _get_option_tuples(self, option_string):
+        if option_string.startswith("-") and not option_string.startswith("--"):
+            alt = "--" + option_string[1:]
+            if alt in self._option_string_actions:
+                action = self._option_string_actions[alt]
+                return [(action, alt, None, None)]
+        return super()._get_option_tuples(option_string)
+
+    def parse_known_args(self, args=None, namespace=None):
+        if args is None:
+            args = sys.argv[1:]
+        args = [
+            ("--" + a[1:]) if (
+                len(a) > 2 and a.startswith("-") and not a.startswith("--")
+                and ("--" + a[1:]) in self._option_string_actions
+            ) else a
+            for a in args
+        ]
+        return super().parse_known_args(args, namespace)
+
+
+def _log(msg: str) -> None:
+    print(f"[{time.asctime()}] {msg}", file=sys.stderr)
+
+
+def cmd_idx(argv):
+    p = _DashArgumentParser(prog="abismal-tpu-torch idx")
+    p.add_argument("-A", "--targets", default="")
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("genome_fasta")
+    p.add_argument("index_file")
+    a = p.parse_args(argv)
+
+    from .index.build import create_index, create_index_targets
+    from .index.serialize import write_index
+
+    if a.targets:
+        idx = create_index_targets(a.targets, a.genome_fasta,
+                                   verbose=a.verbose, n_threads=a.threads)
+    else:
+        idx = create_index(a.genome_fasta, verbose=a.verbose,
+                           n_threads=a.threads)
+    write_index(idx, a.index_file)
+    return 0
+
+
+def cmd_sim(argv):
+    p = _DashArgumentParser(prog="abismal-tpu-torch sim")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--single", action="store_true")
+    p.add_argument("--loc", default="")
+    p.add_argument("-l", "--read-len", type=int, default=100)
+    p.add_argument("--min-fraglen", type=int, default=100)
+    p.add_argument("--max-fraglen", type=int, default=250)
+    p.add_argument("-n", "--n-reads", type=int, default=100)
+    p.add_argument("-m", "--mut", type=float, default=0.0)
+    p.add_argument("-b", "--bis", type=float, default=1.0)
+    p.add_argument("-c", "--changes", default="")
+    p.add_argument("-M", "--max-mut", type=int, default=None,
+                   help="accepted for compatibility; unused upstream too")
+    p.add_argument("-a", "--pbat", action="store_true")
+    p.add_argument("-R", "--random-pbat", action="store_true")
+    p.add_argument("-s", "--strand", default="b")
+    p.add_argument("--show-matches", dest="show_matches",
+                   action="store_false", default=True,
+                   help="toggle match symbols in loc cigars off (the "
+                        "reference's bool options toggle their default)")
+    p.add_argument("--require-valid", action="store_true",
+                   help="resample fragments per the reference's "
+                        "require-valid loop (RNG-consumption compatible)")
+    p.add_argument("--fasta", action="store_true")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("genome_fasta")
+    a = p.parse_args(argv)
+
+    from .sim.simreads import SimConfig, simulate_reads
+
+    sub, ins, dele = 1.0, 1.0, 1.0
+    if a.changes:
+        parts = a.changes.split(",")
+        sub, ins, dele = (float(parts[0]), float(parts[1]), float(parts[2]))
+    seed = a.seed if a.seed is not None else int(time.time())
+    cfg = SimConfig(
+        output_prefix=a.out, n_reads=a.n_reads, read_length=a.read_len,
+        min_frag_len=a.min_fraglen, max_frag_len=a.max_fraglen,
+        mutation_rate=a.mut, substitution_rate=sub, insertion_rate=ins,
+        deletion_rate=dele, bs_conv=a.bis, strand=a.strand, pbat=a.pbat,
+        random_pbat=a.random_pbat, single_end=a.single, fasta_format=a.fasta,
+        show_cigar_matches=a.show_matches, require_valid=a.require_valid,
+        locations_file=a.loc, seed=seed,
+    )
+    simulate_reads(a.genome_fasta, cfg)
+    return 0
 
 
 def cmd_map(argv):
@@ -112,7 +214,9 @@ def cmd_map(argv):
         # every slot maps the one-device chunk of 2048 units
         unit_batch *= len(mesh)
 
-    from .host import create_index, read_index, run_map
+    from .index.build import create_index
+    from .index.serialize import read_index
+    from .map.engine import run_map
     from .map.pipeline import make_torch_native_engine_factory
 
     if a.index:
@@ -145,7 +249,8 @@ def _map_hybrid(a, index, reads2, command_line, factory):
     """--engine hybrid: the native engine maps the first reads on the host
     cores while the torch engine maps the rest; with -i the host shard
     runs in its own process (NativeShardServer), as in abismal_tpu."""
-    from .host import NativeShardServer, run_map_hybrid_split, write_stats
+    from .map.engine import _write_stats as write_stats
+    from .map.hybrid_split import NativeShardServer, run_map_hybrid_split
 
     threads = max(1, a.threads)
     eng = factory(index, a.ambig, a.max_distance, a.min_frag, a.max_frag)
@@ -173,7 +278,8 @@ def _map_sharded(a, reads2, command_line):
     """--hosts N (N spawned shard processes, gathered here) or --shard I:N
     (this process maps shard I alone).  --device cuda puts shard i on
     cuda:i mod the card count; any other device takes every shard."""
-    from .host import write_stats
+    from .map.engine import _write_stats as write_stats
+    from .map.stats import PEStats, SEStats
     from .parallel.multihost import (
         _apply_stats, count_reads, map_shard, run_map_multihost,
         shard_bounds,
@@ -201,8 +307,6 @@ def _map_sharded(a, reads2, command_line):
             print(f"--shard must be I:N with 0 <= I < N, not {a.shard}",
                   file=sys.stderr)
             return 1
-        from abismal_tpu.map.stats import PEStats, SEStats
-
         skip, cnt = shard_bounds(count_reads(a.reads_files[0]), sn)[si]
         raw = map_shard(a.index, a.reads_files[0], reads2, a.outfile, si,
                         sn, command_line, skip, cnt,

@@ -1,50 +1,59 @@
-"""Builds the port's hand-written CUDA kernels (csrc/*.cu) with nvcc into
-one shared library with a plain C interface, and loads it with ctypes.
+"""Builds the port's hand-written CUDA kernels (csrc/*.cu) with nvcc, one
+shared library with a plain C interface per source file, all compiled at
+once, and loads them with ctypes.
 
-The library lands in build/abismal_tpu_torch/ at the repository root,
-named by a hash of the sources and flags, so a source edit rebuilds it and
-a stale binary is never loaded.  Every C entry point launches on the
-stream it is given and returns cudaGetLastError(); check() raises on a
-non-zero code.  Nothing here runs at import time: the CPU tests import
-every module of the port on machines without nvcc."""
+A library lands in build/abismal_tpu_torch/ at the repository root, named
+by a hash of its source and the flags, so a source edit rebuilds it and a
+stale binary is never loaded.  Every C entry point launches on the stream
+it is given and returns cudaGetLastError(); check() raises on a non-zero
+code.  Nothing here runs at import time: the CPU tests import every
+module of the port on machines without nvcc."""
 
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "abismal_tpu_torch")
+# -Xptxas -v: registers, shared memory and spills of every kernel go to
+# build_log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# C entry points: name -> argtypes (all return int, the launch's error code)
+# source stem -> C entry points: name -> argtypes (all return int, the
+# launch's error code)
 SIGNATURES = {
-    # genome32, n_gw, pos, pk, nw_words, b_of, nw_of, d, G, stream
-    "popcount_compare_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _L, _P],
-    # q, lq, win, lw, bw, qsz, out, J, stream
-    "banded_score_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
-    # q, lq, win, lw, bw, qsz, wpos, do_tb, ops, meta, J, panel_rows,
-    # max_step, warps_per_block, stream
-    "banded_trace_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _P],
+    "popcount_compare": {
+        # genome32, n_gw, pos, pk, nw_words, b_of, nw_of, d, G, stream
+        "popcount_compare_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _L, _P],
+    },
+    "banded_align": {
+        # q, lq, win, lw, bw, qsz, out, J, stream
+        "banded_score_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
+        # q, lq, win, lw, bw, qsz, wpos, do_tb, ops, meta, J, panel_rows,
+        # max_step, warps_per_block, stream
+        "banded_trace_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the nvcc run, None when loaded cached
+build_seconds = None  # wall time of the nvcc runs, None when loaded cached
+build_log = ""  # what nvcc and ptxas printed, by source
 
 
-def sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def source_path(stem: str) -> str:
+    return os.path.join(CSRC, stem + ".cu")
 
 
 def nvcc_path() -> str:
@@ -55,40 +64,52 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
+def library_path(stem: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f"libabismal_kernels-{h.hexdigest()[:16]}.so")
+    with open(source_path(stem), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def load() -> ctypes.CDLL:
-    """Builds (on first use) and loads the kernel library."""
-    global _lib, build_seconds
+def load():
+    """Builds (on first use) and loads the kernel libraries; returns a
+    namespace with every C entry point of SIGNATURES."""
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}")
+        paths = {stem: library_path(stem) for stem in SIGNATURES}
+        jobs = []
+        t0 = time.perf_counter()
+        for stem, so in paths.items():
+            if not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.tmp{os.getpid()}"
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(stem)]
+                jobs.append((stem, so, tmp, cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        failed = []
+        for stem, so, tmp, cmd, proc in jobs:
+            text, _ = proc.communicate()
+            build_log += f"--- {stem}\n{text}"
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        if jobs:
             build_seconds = time.perf_counter() - t0
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        lib = types.SimpleNamespace()
+        for stem, fns in SIGNATURES.items():
+            cdll = ctypes.CDLL(paths[stem])
+            for name, argtypes in fns.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(lib, name, fn)
         _lib = lib
         return lib
 
@@ -103,6 +124,12 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t, nbytes: int):
+    """t itself when its data starts on an nbytes boundary, else a copy (a
+    fresh allocation does): the kernels read rows as 4- or 16-byte words."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def require_device(name: str, *tensors) -> None:

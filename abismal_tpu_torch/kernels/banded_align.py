@@ -5,7 +5,9 @@ K2, banded_score, replaces abismal_tpu/kernels/banded_align.py:_kernel_body
 (build_banded_scorer).  K3, banded_trace, replaces _tracer_body
 (build_banded_tracer) together with the arrow walk of
 abismal_tpu/map/pipeline.py:build_tb_block, fused into one kernel.  The
-CUDA versions live in csrc/banded_align.cu; the plain PyTorch versions
+CUDA versions live in csrc/banded_align.cu (K2: a warp takes four jobs,
+lane groups sized to the band, rows staged in shared memory; K3: a warp
+per job, its arrow panel in shared memory); the plain PyTorch versions
 below compute the same thing row by row over the whole batch, in the JAX
 package's row parametrization (see that module's docstring): the query
 sits at the fixed offset QOFF, and win[rr] is the genome nibble of row rr
@@ -15,12 +17,23 @@ from __future__ import annotations
 
 import torch
 
-from abismal_tpu.kernels.banded_align import (
-    ALN_INDEL, ALN_MATCH, ALN_MISMATCH, BAND, NEG, QOFF, win_start,
-)
-from abismal_tpu.map.pipeline import TB_NOPS
-
+from ..map.host_units import TB_NOPS
 from . import _build
+
+ALN_MATCH = 2
+ALN_MISMATCH = -3
+ALN_INDEL = -4
+BW_MAX = 61  # widest band a job may carry
+BAND = 64  # band columns of one table row (>= BW_MAX)
+QOFF = BW_MAX - 1  # fixed query offset of the row parametrization
+NEG = -(1 << 14)
+
+
+def win_start(pos, bw):
+    """Genome nibble index of a job's window row 0: the band placement
+    t_beg = pos - (bw-1)/2 plus the row reparametrization's shift collapse
+    to pos + (bw-1)/2 - QOFF."""
+    return pos + (bw - 1) // 2 - QOFF
 
 
 def walk_step_cap(lp: int) -> int:
@@ -82,8 +95,8 @@ def banded_score(q, win, bw, qsz):
     if q.device.type == "cpu":
         return banded_score_plain(q, win, bw, qsz)
     J = q.shape[0]
-    q = q.to(torch.uint8).contiguous()
-    win = win.to(torch.uint8).contiguous()
+    q = _build.aligned(q.to(torch.uint8).contiguous(), 4)
+    win = _build.aligned(win.to(torch.uint8).contiguous(), 4)
     bw = bw.reshape(J).to(torch.int32).contiguous()
     qsz = qsz.reshape(J).to(torch.int32).contiguous()
     _build.require_device("banded_score", q, win, bw, qsz)

@@ -7,9 +7,10 @@ candidate g of the global candidate list,
 
 where win[g, j] is the genome word run at word pos[g] >> 3 funnel-shifted
 right by 4 * (pos[g] & 7) bits.  The CUDA kernel (csrc/popcount_compare.cu)
-reads genome32 and the unit's packed read words directly; the TPU version's
-overlapped genome rows, per-candidate megarow copy and word-alignment
-log-roll are not needed on the GPU.  d is signed: an IUPAC genome nibble
+puts four lanes on a candidate and reads genome32 and the unit's packed
+read words directly as aligned 128-bit loads; the TPU version's overlapped
+genome rows, per-candidate megarow copy and word-alignment log-roll are
+not needed on the GPU.  d is signed: an IUPAC genome nibble
 ANDed with a read nibble can leave several bits set, so a word's popcount
 can exceed 8 and d can go below zero (pipeline.py:1324-1329)."""
 
@@ -62,9 +63,9 @@ def popcount_compare(genome32, pos, pk_unit, b_of, nw_of):
     popcount_compare_plain."""
     if pos.device.type == "cpu":
         return popcount_compare_plain(genome32, pos, pk_unit, b_of, nw_of)
-    genome32 = genome32.to(torch.int32).contiguous()
+    genome32 = _build.aligned(genome32.to(torch.int32).contiguous(), 16)
     pos = pos.to(torch.int64).contiguous()
-    pk_unit = pk_unit.to(torch.int32).contiguous()
+    pk_unit = _build.aligned(pk_unit.to(torch.int32).contiguous(), 16)
     b_of = b_of.to(torch.int64).contiguous()
     nw_of = nw_of.to(torch.int32).contiguous()
     _build.require_device("popcount_compare", genome32, pos, pk_unit, b_of,

@@ -4,9 +4,10 @@ stage-1+2 program with on-device traceback (build_stage12, build_tb_block),
 the engine half that feeds the native finalize (TorchNativeEngine) and its
 factory.  Names follow the JAX module so each counterpart is easy to find.
 
-The JAX module's NumPy helpers (budgets, genome packing, constants) and
-its host side -- the C++ native engine, run_map, I/O -- are reused by
-import; nothing here reaches its lazily loaded JAX (_jm()).
+The NumPy helpers (budgets, genome packing, unit patterns, constants) are
+in host_units.py beside this module, and the host side -- the C++ native
+engine, run_map, I/O -- is the port's own (map/native_engine.py,
+map/engine.py, io/).
 
 Integer conventions: genome positions, bucket offsets and index entries
 are int64 tensors carrying u32 values, so the TPU layout's i32 modular
@@ -23,25 +24,27 @@ import time
 import numpy as np
 import torch
 
-from abismal_tpu.constants import (
+from ..constants import (
     KEY_WEIGHT, KEY_WEIGHT_THREE, MIN_FOLD_SIZE, N_SORTING_POSITIONS,
     WINDOW_SIZE,
 )
-from abismal_tpu.kernels.banded_align import BW_MAX, QOFF
-from abismal_tpu.map.pipeline import (
-    DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, TpuNativeEngine,
-    _resolve_cand_budget, estimate_cand_budget, ext_iters_for, o_spec_for,
-    pack_genome_u32,
-)
-from abismal_tpu.map.seeds import get_conv_is_ga
-
 from ..device import resolve_device
-from ..kernels.banded_align import banded_score, banded_trace, win_start
+from ..kernels.banded_align import (
+    BW_MAX, QOFF, banded_score, banded_trace, win_start,
+)
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
 from ..parallel.mesh import (
     make_mesh, replicate_tables, shard_stage12, shard_stage12pe,
 )
+from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
+from .host_units import (
+    DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, _ascii_matrices,
+    _pe_is_ga_pattern, _resolve_cand_budget, _se_scode_pattern,
+    estimate_cand_budget, ext_iters_for, get_conv_is_ga, o_spec_for,
+    pack_genome_u32,
+)
+from .native_engine import NativeMappingEngine
 
 I64 = torch.int64
 INF32 = 0x7FFFFFFF
@@ -923,8 +926,6 @@ class TorchNativeEngine:
                  pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
                  unit_batch: int = 2048, n_threads: int = 1,
                  device="cuda", mesh_devices=None, index_shards=None):
-        from abismal_tpu.map.native_engine import NativeMappingEngine
-
         if index_shards:
             raise NotImplementedError(
                 "index_shards: the key-range-sharded index is not ported "
@@ -1026,8 +1027,6 @@ class TorchNativeEngine:
         """(pnib, lens_u, per, oversized): every read's `per` encoded units
         as packed nibble rows, in whole-batch NumPy (↔ JAX _se_units_mat);
         oversized reads upload zero-length rows and fall back."""
-        from abismal_tpu.utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
-
         per = 4 if random_pbat else 2
         R = len(reads)
         seqs = [s for _, s in reads]
@@ -1036,7 +1035,7 @@ class TorchNativeEngine:
             count=R)
         if oversized.any():
             seqs = [b"" if o else s for s, o in zip(seqs, oversized)]
-        A, Arc, L = TpuNativeEngine._ascii_matrices(seqs, self.lmax)
+        A, Arc, L = _ascii_matrices(seqs, self.lmax)
         U = np.zeros((per * max(R, 1), self.lmax + 32), np.uint8)
         if not random_pbat:
             ef, er = ((ENCODE_A_RICH, ENCODE_T_RICH) if a_rich_mode
@@ -1060,7 +1059,7 @@ class TorchNativeEngine:
         t0 = time.perf_counter()
         pnib_all, lens_all, per, oversized = self._se_units_mat(
             reads, a_rich_mode, random_pbat)
-        scode_pat = TpuNativeEngine._se_scode_pattern(a_rich_mode,
+        scode_pat = _se_scode_pattern(a_rich_mode,
                                                       random_pbat)
         is_ga_pat = np.array([get_conv_is_ga(int(c)) for c in scode_pat],
                              dtype=bool)
@@ -1160,8 +1159,6 @@ class TorchNativeEngine:
         in the JAX _pe_units_flat row order, whole-batch NumPy (↔ JAX
         _pe_units_mat); pairs with an oversized end upload zero-length
         rows and fall back."""
-        from abismal_tpu.utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
-
         per = 8 if random_pbat else 4
         R = len(reads1)
         s1 = [s for _, s in reads1]
@@ -1173,8 +1170,8 @@ class TorchNativeEngine:
         if oversized.any():
             s1 = [b"" if o else s for s, o in zip(s1, oversized)]
             s2 = [b"" if o else s for s, o in zip(s2, oversized)]
-        A1, Arc1, L1 = TpuNativeEngine._ascii_matrices(s1, self.lmax)
-        A2, Arc2, L2 = TpuNativeEngine._ascii_matrices(s2, self.lmax)
+        A1, Arc1, L1 = _ascii_matrices(s1, self.lmax)
+        A2, Arc2, L2 = _ascii_matrices(s2, self.lmax)
         U = np.zeros((per * max(R, 1), self.lmax + 32), np.uint8)
         lens_u = np.zeros(per * max(R, 1), np.int32)
         convs = [a_rich_mode] if not random_pbat else [False, True]
@@ -1199,7 +1196,7 @@ class TorchNativeEngine:
         t0 = time.perf_counter()
         pnib_all, lens_all, per, oversized = self._pe_units_mat(
             reads1, reads2, a_rich_mode, random_pbat)
-        is_ga_pat = TpuNativeEngine._pe_is_ga_pattern(a_rich_mode,
+        is_ga_pat = _pe_is_ga_pattern(a_rich_mode,
                                                       random_pbat)
         prog = self._stage12pe_prog(
             per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))

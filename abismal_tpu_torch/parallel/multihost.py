@@ -2,10 +2,7 @@
 multihost.py): the FASTQ splits into contiguous read-range shards, one
 process per shard loads its own index replica and maps its range with
 TorchNativeEngine, and the shard SAMs are concatenated in rank order, so
-the output equals a one-process run byte for byte.  count_reads,
-shard_bounds, gather and the statistics merge are the JAX package's,
-reused by import; map_shard and run_map_multihost are copied because the
-JAX ones build its own engine.
+the output equals a one-process run byte for byte.
 
 The same code runs on separate machines: `map --shard I:N` on each host,
 then concatenate the shard outputs in rank order."""
@@ -13,13 +10,55 @@ then concatenate the shard outputs in rank order."""
 from __future__ import annotations
 
 import os
+import shutil
 
-from abismal_tpu.parallel.multihost import (
-    _SE_FIELDS, _apply_stats, count_reads, gather, shard_bounds,
-)
+from ..io.genome import open_maybe_gzip
 
-__all__ = ["count_reads", "gather", "map_shard", "run_map_multihost",
-           "shard_bounds"]
+_SE_FIELDS = ("total_reads", "reads_mapped_unique", "reads_mapped_ambiguous",
+              "reads_skipped", "edit_distance", "total_bases")
+
+
+def count_reads(fastq_path: str) -> int:
+    """Number of FASTQ records (lines / 4), gz-aware.  A final line with
+    no trailing newline still counts (the native parser accepts it)."""
+    n = 0
+    last = b"\n"
+    with open_maybe_gzip(fastq_path) as f:
+        while True:
+            chunk = f.read(1 << 24)
+            if not chunk:
+                break
+            n += chunk.count(b"\n")
+            last = chunk[-1:]
+    if last != b"\n":
+        n += 1
+    return n // 4
+
+
+def shard_bounds(total_reads: int, n_shards: int):
+    """[(skip, count)] per shard; counts differ by at most one."""
+    bounds = [(i * total_reads) // n_shards for i in range(n_shards + 1)]
+    return [(bounds[i], bounds[i + 1] - bounds[i]) for i in range(n_shards)]
+
+
+def gather(shard_paths, out_path: str):
+    """Concatenates shard SAM files in rank order."""
+    with open(out_path, "wb") as out:
+        for p in shard_paths:
+            with open(p, "rb") as f:
+                shutil.copyfileobj(f, out, 1 << 22)
+
+
+def _apply_stats(raw, paired, stats):
+    """Adds a shard's raw counters (6 ints SE, 18 PE) into stats."""
+    if not paired:
+        for i, f in enumerate(_SE_FIELDS):
+            setattr(stats, f, getattr(stats, f) + int(raw[i]))
+    else:
+        for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
+                                   stats.end2_stats)):
+            for i, f in enumerate(_SE_FIELDS):
+                setattr(dst, f, getattr(dst, f) + int(raw[6 * blk + i]))
 
 
 def map_shard(index_path: str, reads_file1: str, reads_file2,
@@ -37,12 +76,11 @@ def map_shard(index_path: str, reads_file1: str, reads_file2,
     raises; nothing falls back to the CPU."""
     import torch
 
-    from abismal_tpu.index.serialize import read_index
-    from abismal_tpu.map.native_engine import run_map_pipelined
-    from abismal_tpu.map.stats import PEStats
-
     from ..device import require_cuda
+    from ..index.serialize import read_index
+    from ..map.native_engine import run_map_pipelined
     from ..map.pipeline import TorchNativeEngine
+    from ..map.stats import PEStats
 
     if device is None:
         require_cuda()
@@ -75,10 +113,9 @@ def run_map_multihost(index_path: str, reads_file1: str, reads_file2,
 
     import torch
 
-    from abismal_tpu.map.stats import PEStats, SEStats
-
     from ..device import require_cuda
     from ..kernels import _build
+    from ..map.stats import PEStats, SEStats
 
     if device is None or torch.device(device).type == "cuda":
         require_cuda()

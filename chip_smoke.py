@@ -3,17 +3,27 @@
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. probe    torch / CUDA / nvcc versions, the card's name and power limit;
-  2. build    nvcc-builds the port's kernels (csrc/*.cu) from the checkout;
+  2. build    nvcc-builds the port's kernels (csrc/*.cu) from the checkout,
+              one nvcc per source at once, and prints what ptxas says of
+              their registers and spills;
   3. kernels  each kernel (K1 popcount_compare, K2 banded_score, K3
               banded_trace) against its plain PyTorch version on the card,
               at main-path shapes (K2 also at the paired-end program's
-              J = 16384, with negative bands and fill rows), exact
+              J = 16384, with negative bands and fill rows, and at
+              J = 8192 with the narrow bands of the default -m 0.1), exact
               equality; both timed with CUDA events in turns (plain,
-              kernel, kernel, plain);
+              kernel, kernel, plain), the kernel also as a CUDA graph of
+              its launches, which leaves the host out (K1 also over 16
+              input sets in turn, which L2 cannot hold); for each case the
+              bytes and operations counted from its inputs, the bound
+              they give on this card, and the kernel's share of it;
   4. goldens  maps tests/golden small_1.fq (500 reads) and reads_1.fq (10k)
               with the port engine on the card; the SAM and mstats must
               equal the upstream goldens byte for byte, and every kernel's
-              launch counter must move during these runs;
+              launch counter must move during these runs; the bands K2
+              gets on the 10k reads (and, in phase 5, on the 10k pairs)
+              are counted in one more run, not timed, and printed as a
+              histogram;
   5. goldens_pe  maps the six paired-end goldens (small_pe, small_pbat_pe,
               small_rpbat_pe: 500 pairs; reads_pe, reads_pbat_pe,
               reads_rpbat_pe: 10k) with the argv of tests/golden/MANIFEST.md;
@@ -44,8 +54,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
               K1-K3 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
               native-only rates.
-It imports only the port (abismal_tpu_torch), which brings the host side
-it reuses; nothing of JAX.
+It imports only the port (abismal_tpu_torch), which has its own host
+side; nothing of JAX and nothing of the JAX package (checked at the end).
 The line before the last is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}.  Without a CUDA card, or outside a
 checkout of the repository, it fails before printing any result.
@@ -74,6 +84,20 @@ REPLACES = {
     "banded_score": "abismal_tpu/kernels/banded_align.py:44",
     "banded_trace": "abismal_tpu/kernels/banded_align.py:99",
 }
+# Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
+# 67 TFLOP/s of fp32 outside the tensor cores, which counts an FMA as two
+# on 128 lanes per SM.  int32 has 64 lanes per SM and one op per lane and
+# clock: a quarter of that figure.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 4
+# integer ops per table cell: and, select, add, max (diagonal), add, max
+# (deletion), max, add (insertion); the tracer adds 3 compares and 3
+# selects for the arrow
+OPS_PER_CELL_SCORE = 8
+OPS_PER_CELL_TRACE = 14
+OPS_PER_WORD_COMPARE = 4  # funnel shift, and, popc, accumulate
+NARROW_BANDS = (1, 3, 5, 9, 13, 21)  # 2 d + 1 for d <= 10: -m 0.1 at 100 b
+
 SOURCES = {
     "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
     "banded_score": "abismal_tpu_torch/csrc/banded_align.cu",
@@ -115,11 +139,52 @@ def in_turns(plain, kernel, reps_plain, reps_kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def graph_ms(fn, launches=20, reps=10):
+    """Device time of one fn() (ms): `launches` calls captured into a CUDA
+    graph and replayed, so no host time sits between the kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(g.replay, reps) / launches
+
+
+def bound(nbytes, ops):
+    """The least time (ms) the card could take, and which limit gives it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return dict(bytes=int(nbytes), ops=int(ops),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_cells(lq, bw, qsz):
+    """Cells of the banded tables that hold a value: per row rr of job j,
+    max(0, min(bw, qsz + QOFF - rr) - max(QOFF - rr, 0))."""
+    import torch
+
+    from abismal_tpu_torch.kernels.banded_align import QOFF
+
+    rr = torch.arange(lq + QOFF, device=bw.device)[None, :]
+    left = (QOFF - rr).clamp(min=0)
+    right = torch.minimum(bw.reshape(-1, 1).long(),
+                          qsz.reshape(-1, 1).long() + QOFF - rr)
+    return int((right - left).clamp(min=0).sum().item())
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-# --- phase 3 inputs, made with numpy from fixed seeds -----------------------
+# --- phase 3 -------------------------------------------------------------------
 
 def k1_inputs(rng, dev, B=2048, cand=64, nw_words=16, n_gw=1 << 20):
     import numpy as np
@@ -143,9 +208,11 @@ def k1_inputs(rng, dev, B=2048, cand=64, nw_words=16, n_gw=1 << 20):
             t(b_of), t(nw_of))
 
 
-def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0):
+def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0,
+               bands=(1, 5, 61, 3, 9, 21, 41)):
     """Banded-alignment jobs over a random one-hot genome with IUPAC
-    nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos)."""
+    nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos); job
+    i takes band bands[i mod len(bands)]."""
     import numpy as np
 
     from abismal_tpu_torch.kernels.banded_align import QOFF, win_start
@@ -160,7 +227,7 @@ def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0):
     bw = np.ones(n, np.int32)
     qsz = np.zeros(n, np.int32)
     pos = np.zeros(n, np.int64)
-    bws = np.array([1, 5, 61, 3, 9, 21, 41])
+    bws = np.array(bands)
     for i in range(n - n_pad):
         L = int(rng.integers(36, lmax + 1))
         p = int(rng.integers(200, G - 400))
@@ -194,39 +261,62 @@ def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0):
     return q, win, bw, qsz, pos
 
 
-def phase_kernels(dev):
+def k1_bound(genome32, pos, pk, b_of, nw_of):
+    """K1's bytes and operations for these inputs: the distinct genome
+    words the windows touch (inside the genome), the index and result
+    arrays once, the read words of the units named, 4 ops per word."""
+    import torch
+
+    n_gw, nw_words = genome32.shape[0], pk.shape[1]
+    w = ((pos & 0xFFFFFFFF) >> 3)[:, None] + torch.arange(
+        nw_words + 1, device=pos.device)[None, :]
+    # the last word of a window matters only under a nibble shift
+    need = nw_of.long() + ((pos & 7) != 0).long()
+    used = torch.arange(nw_words + 1, device=pos.device)[None, :] \
+        < need[:, None]
+    touched = torch.zeros(n_gw + 1, dtype=torch.bool, device=pos.device)
+    touched[torch.where(used & (w < n_gw), w, n_gw)] = True
+    n_words = int(touched[:n_gw].sum().item())
+    n_units = int(torch.unique(b_of).numel())
+    G = pos.shape[0]
+    nbytes = 4 * n_words + nbytes_of(pos, b_of, nw_of) + 4 * G \
+        + 4 * nw_words * n_units
+    return bound(nbytes, OPS_PER_WORD_COMPARE * int(nw_of.sum().item()))
+
+
+def kernel_cases(dev):
+    """The kernels phase's cases, inputs made with numpy from fixed seeds:
+    dicts of name, plain, kernel, args (tensors on dev), reps_plain, bound
+    and extra facts for the report."""
     import numpy as np
     import torch
 
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
 
-    rng = np.random.default_rng(7)
-    res = {"tolerance": TOL}
+    def on_card(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
 
+    def score_case(name, q, win, bw, qsz, reps_plain, **extra):
+        t = on_card(q, win, bw[:, None], qsz[:, None])
+        return dict(
+            name=name, plain=ba.banded_score_plain, kernel=ba.banded_score,
+            args=t, reps_plain=reps_plain,
+            bound=bound(nbytes_of(*t) + 4 * q.shape[0], OPS_PER_CELL_SCORE
+                        * live_cells(q.shape[1], t[2], t[3])),
+            extra=dict(shape=f"J={q.shape[0]}",
+                       mean_band=float(bw[bw > 0].mean()), **extra))
+
+    rng = np.random.default_rng(7)
+    cases = []
     args = k1_inputs(rng, dev)
-    want = pc.popcount_compare_plain(*args)
-    got = pc.popcount_compare(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err <= TOL, "K1 differs")
-    ms, pms = in_turns(lambda: pc.popcount_compare_plain(*args),
-                       lambda: pc.popcount_compare(*args), 5, 50)
-    res["popcount_compare"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                   shape=f"G={args[1].shape[0]}")
+    cases.append(dict(
+        name="popcount_compare", plain=pc.popcount_compare_plain,
+        kernel=pc.popcount_compare, args=list(args), reps_plain=5,
+        bound=k1_bound(*args), extra=dict(shape=f"G={args[1].shape[0]}")))
 
     q, win, bw, qsz, _ = align_jobs(rng, 8192, n_pad=512)
-    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw[:, None],
-                                                qsz[:, None])]
-    want = ba.banded_score_plain(*t)
-    got = ba.banded_score(*t)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err <= TOL, "K2 differs")
-    ms, pms = in_turns(lambda: ba.banded_score_plain(*t),
-                       lambda: ba.banded_score(*t), 3, 50)
-    res["banded_score"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                               shape="J=8192")
+    cases.append(score_case("banded_score", q, win, bw, qsz, 3))
 
     # the paired-end program's shape: 8 jobs x 2048 units, negative bands
     # (IUPAC diffs are not remapped there) and fill rows (bw 1, qsz 0);
@@ -235,37 +325,86 @@ def phase_kernels(dev):
     q, win, bw, qsz, _ = align_jobs(rng_pe, 16384, n_pad=1024)
     bw[3::7] = -(2 * rng_pe.integers(0, 30, bw[3::7].shape[0]) + 1)
     bw[5::11], qsz[5::11] = 1, 0
-    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw[:, None],
-                                                qsz[:, None])]
-    want = ba.banded_score_plain(*t)
-    got = ba.banded_score(*t)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err <= TOL, "K2 differs at the PE shape")
-    check(bool((want[t[2] < 0] == 0).all()), "negative bands must score 0")
-    ms, pms = in_turns(lambda: ba.banded_score_plain(*t),
-                       lambda: ba.banded_score(*t), 2, 50)
-    res["banded_score_pe"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                  shape="J=16384",
-                                  negative_bands=int((bw < 0).sum()))
+    cases.append(score_case("banded_score_pe", q, win, bw, qsz, 2,
+                            negative_bands=int((bw < 0).sum())))
+
+    # the bands real reads give at the default -m 0.1 (seed of its own)
+    q, win, bw, qsz, _ = align_jobs(np.random.default_rng(27), 8192,
+                                    n_pad=512, bands=NARROW_BANDS)
+    cases.append(score_case("banded_score_narrow", q, win, bw, qsz, 3))
 
     q, win, bw, qsz, pos = align_jobs(rng, 1024, n_pad=128, overflow=4)
     do_tb = rng.random(1024) < 0.9
     do_tb[:4] = True
     bw[~do_tb], qsz[~do_tb] = 1, 0
-    t = [torch.from_numpy(a).to(dev) for a in (q, win, bw, qsz, pos, do_tb)]
-    w_ops, w_meta = ba.banded_trace_plain(*t)
-    g_ops, g_meta = ba.banded_trace(*t)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(g_ops, w_ops), max_abs_err(g_meta, w_meta))
-    check(err <= TOL, "K3 differs")
-    n_over = int((w_meta[:4, 0] == -1).sum())
-    check(n_over > 0, "K3 inputs lack a TB_NOPS overflow job")
-    ms, pms = in_turns(lambda: ba.banded_trace_plain(*t),
-                       lambda: ba.banded_trace(*t), 2, 50)
-    res["banded_trace"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                               shape="J2=1024", overflow_jobs=n_over,
-                               traced=int((w_meta[:, 0] >= 0).sum()))
+    t = on_card(q, win, bw, qsz, pos, do_tb)
+    J2 = q.shape[0]
+    cases.append(dict(
+        name="banded_trace", plain=ba.banded_trace_plain,
+        kernel=ba.banded_trace, args=t, reps_plain=2,
+        bound=bound(nbytes_of(*t) + 4 * J2 * (ba.TB_NOPS + 4),
+                    OPS_PER_CELL_TRACE
+                    * live_cells(q.shape[1], t[2], t[3])),
+        extra=dict(shape=f"J2={J2}")))
+    return cases
+
+
+def k1_rotating_ms(dev, kernel, n_sets=16):
+    """K1's device time per launch (ms) over n_sets input sets of the
+    kernels phase's shape taken in turn (~7 MB each, together beyond the
+    card's 50 MB of L2), so that every launch reads from device memory as
+    the main path's gathers from a large genome do.  The plain graph time
+    replays one set, which stays in L2."""
+    import numpy as np
+
+    sets = [k1_inputs(np.random.default_rng(100 + i), dev)
+            for i in range(n_sets)]
+    turn = iter(range(1 << 30))
+    return graph_ms(lambda: kernel(*sets[next(turn) % n_sets]),
+                    launches=2 * n_sets)
+
+
+def outputs_equal(got, want):
+    """Largest absolute difference over a kernel's outputs."""
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    return max(max_abs_err(g, w) for g, w in pairs)
+
+
+def phase_kernels(dev):
+    """Holds every kernel against its plain version exactly, times both,
+    and reads the kernel's device time against its bound."""
+    import torch
+
+    res = {"tolerance": TOL, "peak_bytes_per_s": PEAK_BYTES_PER_S,
+           "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S}
+    for case in kernel_cases(dev):
+        name, plain, kernel, args = (case[k] for k in ("name", "plain",
+                                                       "kernel", "args"))
+        want = plain(*args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        err = outputs_equal(got, want)
+        check(err <= TOL, f"{name} differs from its plain version")
+        host_ms, pms = in_turns(lambda: plain(*args), lambda: kernel(*args),
+                                case["reps_plain"], 50)
+        ms = graph_ms(lambda: kernel(*args))
+        share = case["bound"]["bound_ms"] / ms
+        check(share <= 1.05, f"{name}: share of bound {share:.2f} > 1.05, "
+              "the bound is miscounted")
+        res[name] = dict(max_abs_err=err, ms=ms, host_loop_ms=host_ms,
+                         plain_ms=pms, share=share, **case["bound"],
+                         **case["extra"])
+        if name == "popcount_compare":
+            res[name]["ms_rotating"] = k1_rotating_ms(dev, kernel)
+        if name == "banded_score_pe":
+            check(bool((want[args[2] < 0] == 0).all()),
+                  "negative bands must score 0")
+        if name == "banded_trace":
+            w_meta = want[1]
+            n_over = int((w_meta[:4, 0] == -1).sum())
+            check(n_over > 0, "K3 inputs lack a TB_NOPS overflow job")
+            res[name].update(overflow_jobs=n_over,
+                             traced=int((w_meta[:, 0] >= 0).sum()))
     return res
 
 
@@ -367,12 +506,55 @@ def port_map(factory, index, fq, sam, mstats, cl, threads, fq2=None, **kw):
     return st
 
 
+class BandRecorder:
+    """Stands in for the pipeline's banded_score while a run is mapped and
+    counts the bands of its live jobs (qsz > 0); bands below 0 count at
+    -1.  The kernel's wrapper runs as ever."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.inner = pipeline.banded_score
+        self.hist = None  # on the device, added to without a sync
+
+    def __call__(self, q, win, bw, qsz):
+        import torch
+
+        if self.hist is None:
+            self.hist = torch.zeros(66, dtype=torch.int64, device=bw.device)
+        self.hist.scatter_add_(0, bw.reshape(-1).long().clamp(-1, 64) + 1,
+                               (qsz.reshape(-1) > 0).long())
+        return self.inner(q, win, bw, qsz)
+
+    def __enter__(self):
+        self.pipeline.banded_score = self
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.banded_score = self.inner
+
+    def summary(self):
+        import numpy as np
+
+        check(self.hist is not None, "K2 was not called")
+        h = self.hist.cpu().numpy()
+        bands = np.repeat(np.arange(-1, 65), h)
+        check(bands.size > 0, "no live K2 job was recorded")
+        return dict(jobs=int(bands.size),
+                    hist={int(b): int(n) for b, n in zip(range(-1, 65), h)
+                          if n},
+                    quartiles=[int(x) for x in np.percentile(
+                        bands, [0, 25, 50, 75, 100])],
+                    share_at_most_16=float((bands <= 16).mean()),
+                    share_at_most_32=float((bands <= 32).mean()))
+
+
 def phase_goldens(dev, threads):
     import torch
 
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     t0 = time.perf_counter()
@@ -400,8 +582,14 @@ def phase_goldens(dev, threads):
     out["launches"] = launches
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    # the native engine on the same host, same reads, for scale
+    # the bands K2 gets on `reads`, from a run of its own: the recorder
+    # adds a scatter per chunk, which the timed runs above do not carry
     fq = os.path.join(WORK, "reads_1.fq")
+    with BandRecorder(pipeline) as rec:
+        map_with(factory, index, fq, os.path.join(WORK, "bands.sam"), None,
+                 "bands", threads)
+    out["k2_bands_reads"] = rec.summary()
+    # the native engine on the same host, same reads, for scale
     secs = map_with(make_native_engine_factory(n_threads=threads), index, fq,
                     os.path.join(WORK, "native.sam"), None, "native", threads)
     out["native_reads_per_s"] = n_reads_of(fq) / secs
@@ -422,6 +610,7 @@ def phase_goldens_pe(dev, threads, index):
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
@@ -453,6 +642,12 @@ def phase_goldens_pe(dev, threads, index):
     out["launches"] = launches
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the paired-end path")
+    # the bands of `reads_pe`, recorded outside the timed runs
+    fq1, fq2 = (os.path.join(WORK, f"reads_pe_{e}.fq") for e in (1, 2))
+    with BandRecorder(pipeline) as rec:
+        map_with(factory, index, fq1, os.path.join(WORK, "bands_pe.sam"),
+                 None, "bands", threads, fq2)
+    out["k2_bands_reads_pe"] = rec.summary()
 
     # -a: ambiguous pairs are reported, and the device sweep decides them
     fq1, fq2 = (os.path.join(WORK, f"small_rpbat_pe_{e}.fq") for e in (1, 2))
@@ -839,8 +1034,12 @@ def main():
         t0 = time.perf_counter()
         _build.load()
         emit("build", seconds=time.perf_counter() - t0,
-             nvcc_seconds=_build.build_seconds, library=os.path.relpath(
-                 _build.library_path(), ROOT))
+             nvcc_seconds=_build.build_seconds,
+             libraries=[os.path.relpath(_build.library_path(stem), ROOT)
+                        for stem in _build.SIGNATURES],
+             ptxas=[ln.strip() for ln in _build.build_log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln])
 
         kres = phase_kernels(dev)
         emit("kernels", **kres)
@@ -862,6 +1061,9 @@ def main():
                                             rates)
         emit("scaleout", **ores)
         check("jax" not in sys.modules, "the port loaded jax")
+        check(not [m for m in sys.modules
+                   if m == "abismal_tpu" or m.startswith("abismal_tpu.")],
+              "the port loaded the JAX package abismal_tpu")
     except Exception:
         traceback.print_exc()
         return 1
@@ -874,7 +1076,11 @@ def main():
                        + launches_out[name]),
              max_abs_err=max(kres[k]["max_abs_err"] for k in kres
                              if k.startswith(name)), ms=kres[name]["ms"],
-             plain_ms=kres[name]["plain_ms"]) for name in REPLACES]}),
+             plain_ms=kres[name]["plain_ms"],
+             bound_ms=kres[name]["bound_ms"],
+             bound_by=kres[name]["bound_by"],
+             # no single PyTorch call computes any of the three functions
+             library_ms=None) for name in REPLACES]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

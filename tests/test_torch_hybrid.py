@@ -9,7 +9,9 @@ import os
 import pytest
 import torch
 
-from tests.conftest import CACHE, GOLDEN, golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    GOLDEN, PORT_IDX, golden_file, port_index, release_engines,
+)
 
 # test workers share the CPU: one torch thread each, not one per core
 torch.set_num_threads(1)
@@ -41,8 +43,8 @@ def _split(tmp_path, index, share, paired=False, **kw):
     from abismal_tpu_torch.host import run_map_hybrid_split, write_stats
 
     prefix = "small_pe" if paired else "small"
-    fq1 = golden_path(prefix + "_1.fq")
-    fq2 = golden_path(prefix + "_2.fq") if paired else None
+    fq1 = golden_file(prefix + "_1.fq")
+    fq2 = golden_file(prefix + "_2.fq") if paired else None
     sam, mst = tmp_path / f"hs{share}.sam", tmp_path / f"hs{share}.mstats"
     eng = _engine(index)
     u0 = eng.n_units
@@ -58,22 +60,22 @@ def _split(tmp_path, index, share, paired=False, **kw):
 
 
 @pytest.mark.parametrize("share", [0.37, 0.2])
-def test_hybrid_split_se_parity(tmp_path, trex1_index, share):
+def test_hybrid_split_se_parity(tmp_path, port_index, share):
     """SE: SAM and merged mstats equal the golden at two shares."""
-    sam, mst = _split(tmp_path, trex1_index, share)
+    sam, mst = _split(tmp_path, port_index, share)
     assert sam == _golden("small.sam")
     assert mst == _golden("small.mstats")
 
 
-def test_hybrid_split_server_parity(tmp_path, trex1_index):
+def test_hybrid_split_server_parity(tmp_path, port_index):
     """The host shard in its own process (NativeShardServer, as the CLI
     runs it with -i): byte-identical across repeated requests."""
     from abismal_tpu_torch.host import NativeShardServer
 
-    srv = NativeShardServer(os.path.join(CACHE, "tRex1.idx"), threads=2)
+    srv = NativeShardServer(PORT_IDX, threads=2)
     try:
         for share in (0.25, 0.5):
-            sam, mst = _split(tmp_path, trex1_index, share,
+            sam, mst = _split(tmp_path, port_index, share,
                               native_server=srv)
             assert sam == _golden("small.sam")
             assert mst == _golden("small.mstats")
@@ -81,7 +83,7 @@ def test_hybrid_split_server_parity(tmp_path, trex1_index):
         srv.close()
 
 
-def test_hybrid_split_pe_parity(tmp_path, trex1_index):
-    sam, mst = _split(tmp_path, trex1_index, 0.31, paired=True)
+def test_hybrid_split_pe_parity(tmp_path, port_index):
+    sam, mst = _split(tmp_path, port_index, 0.31, paired=True)
     assert sam == _golden("small_pe.sam")
     assert mst == _golden("small_pe.mstats")

@@ -1,8 +1,10 @@
-"""The port stands apart from JAX: no module of abismal_tpu_torch (nor
-chip_smoke.py) imports jax, importing every module of the port loads no
-jax, chip_smoke.py imports only the port, a whole `map` run through the
-port's CLI (also over a mesh and as a hybrid split) never loads jax, and
-chip_smoke.py refuses to run without a card."""
+"""The port stands alone: no module of abismal_tpu_torch (nor
+chip_smoke.py, nor the two timing scripts beside it) imports jax or
+anything of the JAX package abismal_tpu, importing every module of the port loads neither, chip_smoke.py imports
+only the port, whole `map`, `idx` and `sim` runs through the port's CLI
+(map also over a mesh and as a hybrid split) work while `import
+abismal_tpu` is made to fail, and chip_smoke.py refuses to run without a
+card."""
 
 import ast
 import os
@@ -11,14 +13,18 @@ import sys
 
 import pytest
 
-from tests.conftest import golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    PORT_IDX, TREX1_FA, golden_file, md5_file, port_index, ref_index,
+    release_engines,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "abismal_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in (
+        "chip_smoke.py", "kernel_times.py", "path_rates.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -36,8 +42,11 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
+    """No import of jax, nor of abismal_tpu, at any depth of the file."""
     mods = list(_imported_modules(path))
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in mods
+                if m == "abismal_tpu" or m.startswith("abismal_tpu.")]
 
 
 def test_port_modules_import_without_jax():
@@ -51,6 +60,7 @@ def test_port_modules_import_without_jax():
                                  else parts))
     assert "abismal_tpu_torch.parallel.multihost" in mods
     code = ("import importlib, sys\n"
+            "sys.modules['abismal_tpu'] = None\n"
             "for m in sys.argv[1:]:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n")
@@ -61,23 +71,44 @@ def test_port_modules_import_without_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the host side through abismal_tpu_torch.host,
-    never through the JAX package itself."""
+    """chip_smoke.py reaches the host side through the port's own
+    modules, never through the JAX package."""
     mods = list(_imported_modules(os.path.join(ROOT, "chip_smoke.py")))
     assert any(m.startswith("abismal_tpu_torch") for m in mods)
     assert not [m for m in mods
                 if m == "abismal_tpu" or m.startswith("abismal_tpu.")]
 
 
-@pytest.fixture(scope="module")
-def index_copy(tmp_path_factory, trex1_index):
-    """A private copy of the tRex1 index file (test workers share the
-    cache), written once for the module."""
-    from abismal_tpu.index.serialize import write_index
+# runs `python -m abismal_tpu_torch <argv>` with `import abismal_tpu` made
+# to fail (a None entry in sys.modules raises ImportError)
+ALONE = (
+    "import runpy, sys\n"
+    "sys.modules['abismal_tpu'] = None\n"
+    "sys.argv = ['abismal_tpu_torch'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('abismal_tpu_torch', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert not e.code, e.code\n"
+    "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    "print('NO_JAX')\n")
 
-    idx = str(tmp_path_factory.mktemp("idx") / "tRex1.idx")
-    write_index(trex1_index, idx)
-    return idx
+
+def _run_alone(argv, cwd):
+    # one torch thread: test workers share the CPU
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", ALONE, *argv],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(cwd), timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "NO_JAX" in res.stdout
+
+
+def _golden_text(name):
+    import gzip
+
+    with gzip.open(os.path.join(ROOT, "tests", "golden", name + ".gz"),
+                   "rt") as f:
+        return f.read()
 
 
 def _sam_body(text):
@@ -89,55 +120,67 @@ def _sam_body(text):
     (False, ["--engine", "hybrid", "--device-share", "0.4"]),
     (True, ["--mesh", "2"]),
 ], ids=["se", "pe", "se-hybrid", "pe-mesh"])
-def test_cli_map_never_loads_jax(tmp_path, trex1_index, index_copy, paired,
+def test_cli_map_never_loads_jax(tmp_path, port_index, ref_index, paired,
                                  extra):
-    """`python -m abismal_tpu_torch map --device cpu`: jax is not in
-    sys.modules at exit, and the SAM body is the golden's (small_1.fq) or,
-    for pairs with -l 40 -L 500, the native engine's on the same
-    concordance window (small_pe); so too with --engine hybrid (its host
-    shard in a process of its own, as -i is given) and over a 2-slot CPU
-    mesh."""
-    import gzip
-
+    """`python -m abismal_tpu_torch map --device cpu` with abismal_tpu
+    unimportable: jax is not in sys.modules at exit, and the SAM body is
+    the golden's (small_1.fq) or, for pairs with -l 40 -L 500, the JAX
+    package's native engine's on the same concordance window (small_pe);
+    so too with --engine hybrid (its host shard in a process of its own, as -i is
+    given) and over a 2-slot CPU mesh."""
     sam = tmp_path / "o.sam"
     if paired:
-        args = ["-l", "40", "-L", "500", golden_path("small_pe_1.fq"),
-                golden_path("small_pe_2.fq")]
+        args = ["-l", "40", "-L", "500", golden_file("small_pe_1.fq"),
+                golden_file("small_pe_2.fq")]
     else:
-        args = [golden_path("small_1.fq")]
-    args = extra + args
-    code = (
-        "import runpy, sys\n"
-        "sys.argv = ['abismal_tpu_torch', 'map', '-o', sys.argv[1], '-i',"
-        " sys.argv[2], '--device', 'cpu'] + sys.argv[3:]\n"
-        "try:\n"
-        "    runpy.run_module('abismal_tpu_torch', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert not e.code, e.code\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "print('NO_JAX')\n")
-    # one torch thread: test workers share the CPU
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    res = subprocess.run(
-        [sys.executable, "-c", code, str(sam), index_copy, *args],
-        capture_output=True, text=True, env=env, cwd=str(tmp_path),
-        timeout=300)
-    assert res.returncode == 0, res.stderr
-    assert "NO_JAX" in res.stdout
+        args = [golden_file("small_1.fq")]
+    _run_alone(["map", "-o", str(sam), "-i", PORT_IDX, "--device", "cpu",
+                *extra, *args], tmp_path)
     if paired:
         from abismal_tpu.map.engine import run_map
         from abismal_tpu.map.pipeline import make_native_engine_factory
 
         nat = tmp_path / "native.sam"
-        run_map(trex1_index, args[-2], args[-1], str(nat), None, "native",
+        run_map(ref_index, args[-2], args[-1], str(nat), None, "native",
                 pe_min_dist=40, pe_max_dist=500,
                 engine_factory=make_native_engine_factory(n_threads=2))
         want = _sam_body(nat.read_text())
     else:
-        with gzip.open(os.path.join(ROOT, "tests", "golden", "small.sam.gz"),
-                       "rt") as f:
-            want = _sam_body(f.read())
+        want = _sam_body(_golden_text("small.sam"))
     assert _sam_body(sam.read_text()) == want
+
+
+@pytest.mark.parametrize("prefix", ["small", "small_pe"])
+def test_cli_map_alone_gives_the_golden(tmp_path, port_index, prefix):
+    """The port's CLI alone, at the goldens' own options: the golden SAM
+    (but for the @PG line, which records this run's argv) and mstats."""
+    sam, mst = tmp_path / "o.sam", tmp_path / "o.mstats"
+    fqs = [golden_file(f"{prefix}_1.fq")]
+    if prefix.endswith("_pe"):
+        fqs.append(golden_file(f"{prefix}_2.fq"))
+    _run_alone(["map", "--device", "cpu", "-t", "2", "-s", str(mst), "-o",
+                str(sam), "-i", PORT_IDX, *fqs], tmp_path)
+    assert _sam_body(sam.read_text()) == _sam_body(
+        _golden_text(prefix + ".sam"))
+    assert mst.read_text() == _golden_text(prefix + ".mstats")
+
+
+def test_cli_idx_alone_gives_the_golden_md5(tmp_path):
+    """`python -m abismal_tpu_torch idx` alone writes the golden index."""
+    out = tmp_path / "tRex1.idx"
+    _run_alone(["idx", TREX1_FA, str(out)], tmp_path)
+    with open(os.path.join(ROOT, "tests", "golden", "tRex1.idx.md5")) as f:
+        assert md5_file(str(out)) == f.read().strip()
+
+
+def test_cli_sim_alone_gives_the_golden(tmp_path):
+    """`python -m abismal_tpu_torch sim` alone, at the options of the
+    reads_pe golden (MANIFEST.md): the golden FASTQs."""
+    _run_alone(["sim", "-seed", "1", "-n", "10000", "-m", "0.01", "-b",
+                "0.98", "-o", str(tmp_path / "reads_pe"), TREX1_FA], tmp_path)
+    for end in ("_1.fq", "_2.fq"):
+        assert md5_file(str(tmp_path / ("reads_pe" + end))) == md5_file(
+            golden_file("reads_pe" + end))
 
 
 @pytest.mark.parametrize("alone", [False, True])

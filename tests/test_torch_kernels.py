@@ -319,6 +319,70 @@ def test_banded_score_kernel_pe_shape_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow", "mid", "bw61", "negative-fill",
+                                  "ragged", "byte-rows"])
+def test_banded_score_kernel_cases(cuda_device, case):
+    """K2 where its lane groups change: the narrow bands of -m 0.1 (8 lanes,
+    2 or 3 columns each), bands of 25-32 (4 columns), bw = 61 alone (the
+    whole warp), negative bands and fill rows, J not a multiple of the
+    jobs per warp or block, and rows that are not whole words."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    rng, genome = _genome(14, iupac=50)
+    bws = {"narrow": (1, 3, 5, 9, 13, 21), "mid": (17, 24, 25, 29, 32, 33),
+           "bw61": (61,)}.get(case, (1, 3, 5, 21, 41, 61))
+    if case == "negative-fill":
+        arrs = _pe_score_arrays(13, 1024)
+    else:
+        J = 1003 if case == "ragged" else 1024
+        jobs = _random_jobs(rng, genome, J - 24, bws=bws)
+        q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, J)
+        arrs = (q, win, bw[:, None], qsz[:, None])
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    if case == "byte-rows":  # lq = 126, lw = 187: neither a multiple of 4
+        t[0] = t[0][:, : LMAX - 2].contiguous()
+        t[1] = t[1][:, : LMAX + 59].contiguous()
+    n0 = ba.banded_score.launches
+    got = ba.banded_score(*t)
+    torch.cuda.synchronize()
+    assert ba.banded_score.launches == n0 + 1
+    assert torch.equal(got, ba.banded_score_plain(*t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shift0", "past-end", "nw2", "nw16",
+                                  "ragged-genome", "nw-words-18",
+                                  "nw-words-32"])
+def test_popcount_compare_kernel_cases(cuda_device, case):
+    """K1 at the edges of its loads: every position on a word (pos & 7 ==
+    0), positions past the end of the genome, the shortest and the longest
+    word counts, a genome that does not end on a quad of words, and read
+    units that are not 16 words (18: no 128-bit rows; 32: two turns)."""
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+
+    kw = dict(G=4099, B=64)
+    if case == "ragged-genome":
+        kw["n_gw"] = 4093
+    if case.startswith("nw-words"):
+        kw["nw_words"] = int(case.rsplit("-", 1)[1])
+    genome32, pos, pk, b_of, nw_of = _k1_arrays(21, **kw)
+    if case == "shift0":
+        pos &= ~7
+    elif case == "past-end":
+        pos[:] = 8 * genome32.shape[0] - np.arange(pos.shape[0]) % 160
+        pos[::3] += 4096
+    elif case == "nw2":
+        nw_of[:] = 2
+    elif case == "nw16":
+        nw_of[:] = 16
+    args = _k1_torch(genome32, pos, pk, np.sort(b_of), nw_of,
+                     device=cuda_device)
+    got = pc.popcount_compare(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pc.popcount_compare_plain(*args))
+
+
+@pytest.mark.cuda
 def test_banded_trace_kernel_matches_plain(cuda_device):
     from abismal_tpu_torch.kernels import banded_align as ba
 

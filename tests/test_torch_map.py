@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import GOLDEN, golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    GOLDEN, golden_file, port_index, ref_index, release_engines,
+)
 
 # test workers share the CPU: one torch thread each, not one per core
 torch.set_num_threads(1)
@@ -23,6 +25,12 @@ def _golden(name):
         return f.read()
 
 
+@pytest.fixture(scope="module")
+def indexes(port_index, ref_index):
+    """(the port's index, the JAX package's), read from one file."""
+    return port_index, ref_index
+
+
 def _factory(**kw):
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
@@ -31,53 +39,57 @@ def _factory(**kw):
     return make_torch_native_engine_factory("cpu", **kw)
 
 
-def _port_and_native(tmp_path, index, fq, cl, fq2=None, **run_kw):
-    """(port, native) outputs of run_map: (SAM text, mstats text)."""
-    from abismal_tpu.map.engine import run_map
+def _port_and_native(tmp_path, indexes, fq, cl, fq2=None, **run_kw):
+    """(port, native) outputs of run_map, each (SAM text, mstats text):
+    the port's run_map with the port's engine on its index, and the JAX
+    package's run_map with the JAX package's native engine on its own."""
+    from abismal_tpu.map import engine as ref_engine
     from abismal_tpu.map.pipeline import make_native_engine_factory
+    from abismal_tpu_torch.map import engine as port_engine
 
     outs = []
-    for i, fac in enumerate((_factory(),
-                             make_native_engine_factory(n_threads=2))):
+    for i, (mod, fac) in enumerate((
+            (port_engine, _factory()),
+            (ref_engine, make_native_engine_factory(n_threads=2)))):
         sam, mst = tmp_path / f"o{i}.sam", tmp_path / f"o{i}.mstats"
-        run_map(index, fq, fq2, str(sam), str(mst), cl, engine_factory=fac,
-                threads=2, **run_kw)
+        mod.run_map(indexes[i], fq, fq2, str(sam), str(mst), cl,
+                    engine_factory=fac, threads=2, **run_kw)
         outs.append((sam.read_text(), mst.read_text()))
     return outs
 
 
-def _pe_port_and_native(tmp_path, index, prefix, cl, **run_kw):
-    return _port_and_native(tmp_path, index, golden_path(prefix + "_1.fq"),
-                            cl, fq2=golden_path(prefix + "_2.fq"), **run_kw)
+def _pe_port_and_native(tmp_path, indexes, prefix, cl, **run_kw):
+    return _port_and_native(tmp_path, indexes, golden_file(prefix + "_1.fq"),
+                            cl, fq2=golden_file(prefix + "_2.fq"), **run_kw)
 
 
-def test_golden_small_parity(tmp_path, trex1_index):
+def test_golden_small_parity(tmp_path, port_index):
     """The port's SE path gives the upstream small.sam / small.mstats."""
-    from abismal_tpu.map.engine import run_map
+    from abismal_tpu_torch.map.engine import run_map
 
     cl = ("map -s tests/small.mstats -o tests/small.sam -i tests/tRex1.idx "
           "tests/small_1.fq")
     sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
-    run_map(trex1_index, golden_path("small_1.fq"), None, str(sam), str(mst),
+    run_map(port_index, golden_file("small_1.fq"), None, str(sam), str(mst),
             cl, engine_factory=_factory())
     assert sam.read_text() == _golden("small.sam")
     assert mst.read_text() == _golden("small.mstats")
 
 
 @pytest.mark.parametrize("a_rich,random_pbat", [(True, False), (False, True)])
-def test_se_modes_match_native(tmp_path, trex1_index, a_rich, random_pbat):
+def test_se_modes_match_native(tmp_path, indexes, a_rich, random_pbat):
     """A-rich and RPBAT SE (4 units per read) equal the native engine."""
     port, native = _port_and_native(
-        tmp_path, trex1_index, golden_path("small_1.fq"), "cl",
+        tmp_path, indexes, golden_file("small_1.fq"), "cl",
         a_rich=a_rich, random_pbat=random_pbat)
     assert port == native
 
 
-def test_wide_band_fallback(tmp_path, trex1_index):
+def test_wide_band_fallback(tmp_path, indexes):
     """-m 0.45 gives true bands of 2 int(0.45 len) + 1 > BW_MAX: those reads
     fall back to the host (no clamping) and the output stays exact."""
     port, native = _port_and_native(
-        tmp_path, trex1_index, golden_path("small_1.fq"),
+        tmp_path, indexes, golden_file("small_1.fq"),
         "map -m 0.45 -o out.sam -i tests/tRex1.idx tests/small_1.fq",
         valid_frac=0.45)
     assert port == native
@@ -88,7 +100,7 @@ def test_wide_band_fallback(tmp_path, trex1_index):
     {"ABISMAL_TPU_DEVTB": "0"},  # records only: winners traced on the host
     {"ABISMAL_TPU_JOBS_PER_UNIT": "0"},  # PE: every scored unit re-seeded
 ])
-def test_env_routes_match_native(tmp_path, trex1_index, monkeypatch, env):
+def test_env_routes_match_native(tmp_path, indexes, monkeypatch, env):
     """The JAX programs' environment knobs, read by the port too, move
     work between the device and the host; output is unchanged."""
     from abismal_tpu_torch.map import pipeline
@@ -98,11 +110,11 @@ def test_env_routes_match_native(tmp_path, trex1_index, monkeypatch, env):
     # a fresh engine: the memoized one built its program without the knob
     monkeypatch.setattr(pipeline, "_engine_memo", {})
     if "ABISMAL_TPU_JOBS_PER_UNIT" in env:
-        port, native = _pe_port_and_native(tmp_path, trex1_index, "small_pe",
+        port, native = _pe_port_and_native(tmp_path, indexes, "small_pe",
                                            "cl")
     else:
         port, native = _port_and_native(
-            tmp_path, trex1_index, golden_path("small_1.fq"), "cl")
+            tmp_path, indexes, golden_file("small_1.fq"), "cl")
     assert port == native
     (eng,) = (e for _, e in pipeline._engine_memo.values())
     if "ABISMAL_TPU_JOBS_PER_READ" in env:  # every aligned read fell back
@@ -124,9 +136,9 @@ def test_iupac_negative_diffs(tmp_path):
     """Genome Y (C|T) codes drive T-rich popcount distances below zero;
     those diffs ride the packed field +512-biased, stay on the device path
     and give the native engine's output."""
-    from abismal_tpu.index.build import create_index
-    from abismal_tpu.map.native_engine import NativeMappingEngine
-    from abismal_tpu.map.stats import SEStats
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.stats import SEStats
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
     rng = np.random.default_rng(77)
@@ -158,11 +170,11 @@ def test_iupac_negative_diffs(tmp_path):
 def test_repeat_genome_sure_ambig(tmp_path):
     """Tandem-repeat reads with many exact hits are decided on the device
     by the sure-ambig heap-fill refinement, not sent to the host."""
-    from abismal_tpu.index.build import create_index
-    from abismal_tpu.io.fastq import ReadLoader
-    from abismal_tpu.map.native_engine import NativeMappingEngine
-    from abismal_tpu.map.stats import SEStats
-    from abismal_tpu.sim.simreads import SimConfig, simulate_reads
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.io.fastq import ReadLoader
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.stats import SEStats
+    from abismal_tpu_torch.sim.simreads import SimConfig, simulate_reads
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
     rng = np.random.default_rng(77)
@@ -195,9 +207,9 @@ def test_repeat_genome_sure_ambig(tmp_path):
     ("small_pbat_pe", True),
     ("small_rpbat_pe", True),  # the golden was mapped with -P (MANIFEST)
 ])
-def test_golden_pe_parity(tmp_path, trex1_index, prefix, pbat):
+def test_golden_pe_parity(tmp_path, port_index, prefix, pbat):
     """The port's PE path gives the upstream SAM and mstats."""
-    from abismal_tpu.map.engine import run_map
+    from abismal_tpu_torch.map.engine import run_map
 
     flag = "-P " if pbat else ""
     cl = (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
@@ -206,8 +218,8 @@ def test_golden_pe_parity(tmp_path, trex1_index, prefix, pbat):
     # two threads, as every run of the memoized engine before this one:
     # the native engine sums the stats of every worker it ever started,
     # so fewer threads than a previous call count stale reads
-    run_map(trex1_index, golden_path(prefix + "_1.fq"),
-            golden_path(prefix + "_2.fq"), str(sam), str(mst), cl, pbat=pbat,
+    run_map(port_index, golden_file(prefix + "_1.fq"),
+            golden_file(prefix + "_2.fq"), str(sam), str(mst), cl, pbat=pbat,
             engine_factory=_factory(), threads=2)
     assert sam.read_text() == _golden(prefix + ".sam")
     assert mst.read_text() == _golden(prefix + ".mstats")
@@ -217,33 +229,35 @@ def test_golden_pe_parity(tmp_path, trex1_index, prefix, pbat):
     ("small_pe", False),
     ("small_rpbat_pe", True),
 ])
-def test_pe_allow_ambig_matches_native(tmp_path, trex1_index, prefix,
+def test_pe_allow_ambig_matches_native(tmp_path, indexes, prefix,
                                        random_pbat):
+    port_index = indexes[0]
     """Under -a the device mating sweep decides pairs (n_device_mated > 0)
     and the output equals the native engine's."""
     port, native = _pe_port_and_native(
-        tmp_path, trex1_index, prefix, f"map -a -i tests/tRex1.idx {prefix}",
+        tmp_path, indexes, prefix, f"map -a -i tests/tRex1.idx {prefix}",
         allow_ambig=True, random_pbat=random_pbat)
     assert port == native
-    eng = _factory()(trex1_index, True, 0.1, 32, 3000)
+    eng = _factory()(port_index, True, 0.1, 32, 3000)
     assert eng.n_device_mated > 0
 
 
-def test_pe_wide_band_fallback(tmp_path, trex1_index):
+def test_pe_wide_band_fallback(tmp_path, indexes):
+    port_index = indexes[0]
     """-m 0.45 PE: bands beyond BW_MAX flag their units (bw_fb) for native
     seeding; the output equals the native engine's."""
     port, native = _pe_port_and_native(
-        tmp_path, trex1_index, "small_pe", "map -m 0.45 small_pe",
+        tmp_path, indexes, "small_pe", "map -m 0.45 small_pe",
         valid_frac=0.45)
     assert port == native
-    eng = _factory()(trex1_index, False, 0.45, 32, 3000)
+    eng = _factory()(port_index, False, 0.45, 32, 3000)
     assert eng.n_fallback > 0
 
 
-def test_pe_concordance_window_matches_native(tmp_path, trex1_index):
+def test_pe_concordance_window_matches_native(tmp_path, indexes):
     """-l 40 -L 500 reach the device mating sweep as pe_dist."""
     port, native = _pe_port_and_native(
-        tmp_path, trex1_index, "small_pe", "map -l 40 -L 500 small_pe",
+        tmp_path, indexes, "small_pe", "map -l 40 -L 500 small_pe",
         pe_min_dist=40, pe_max_dist=500)
     assert port == native
 

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import GOLDEN, golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    GOLDEN, golden_file, port_index, release_engines,
+)
 from tests.test_torch_stage12 import _units
 from tests.test_torch_stage12pe import _golden_pairs, _pe_units
 
@@ -31,10 +33,10 @@ def _golden(name):
 
 
 @pytest.fixture(scope="module")
-def tables(trex1_index):
+def tables(port_index):
     from tests.test_torch_stage12pe import _tables
 
-    return _tables(trex1_index)
+    return _tables(port_index)
 
 
 def _jax_mesh():
@@ -112,13 +114,13 @@ def test_shard_stage12pe_matches_jax(tables):
 
 
 def _map_mesh(tmp_path, index, prefix, paired, **fac_kw):
-    from abismal_tpu.map.engine import run_map
+    from abismal_tpu_torch.map.engine import run_map
     from abismal_tpu_torch.map.pipeline import (
         make_torch_native_engine_factory,
     )
 
-    fq1 = golden_path(prefix + "_1.fq")
-    fq2 = golden_path(prefix + "_2.fq") if paired else None
+    fq1 = golden_file(prefix + "_1.fq")
+    fq2 = golden_file(prefix + "_2.fq") if paired else None
     tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq" if paired
             else f"tests/{prefix}_1.fq")
     cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
@@ -135,10 +137,10 @@ def _map_mesh(tmp_path, index, prefix, paired, **fac_kw):
 
 @pytest.mark.parametrize("prefix,paired", [("small", False),
                                            ("small_pe", True)])
-def test_mesh_mapping_byte_identical(tmp_path, trex1_index, prefix, paired):
+def test_mesh_mapping_byte_identical(tmp_path, port_index, prefix, paired):
     """run_map over a 2-slot CPU mesh gives the goldens' SAM and mstats;
     SE decision counts cover every read once."""
-    eng = _map_mesh(tmp_path, trex1_index, prefix, paired, unit_batch=128)
+    eng = _map_mesh(tmp_path, port_index, prefix, paired, unit_batch=128)
     assert eng.n_shards == 2 and len(eng.replicas) == 2
     assert eng.replicas[0] is eng.replicas[1]  # one upload per device
     if not paired:
@@ -147,7 +149,7 @@ def test_mesh_mapping_byte_identical(tmp_path, trex1_index, prefix, paired):
 
 @pytest.mark.parametrize("prefix,paired", [("small", False),
                                            ("small_pe", True)])
-def test_mesh_overflow_fallback_byte_identical(tmp_path, trex1_index,
+def test_mesh_overflow_fallback_byte_identical(tmp_path, port_index,
                                                prefix, paired, monkeypatch):
     """A budget of 8 candidates per unit forces core overflow, so fallback
     units are mixed into the split chunks (unit_batch 64: many chunks in
@@ -157,26 +159,26 @@ def test_mesh_overflow_fallback_byte_identical(tmp_path, trex1_index,
     monkeypatch.setenv("ABISMAL_TPU_CAND_PER_UNIT", "8")
     # a fresh engine: a memoized one may hold a program without the knob
     monkeypatch.setattr(pipeline, "_engine_memo", {})
-    eng = _map_mesh(tmp_path, trex1_index, prefix, paired, unit_batch=64)
+    eng = _map_mesh(tmp_path, port_index, prefix, paired, unit_batch=64)
     assert eng.n_fallback > 0, "budget of 8 must force fallback units"
     if not paired:
         assert int(eng.device_decisions.sum()) == 500
 
 
-def test_mesh_unit_batch_must_divide(trex1_index):
+def test_mesh_unit_batch_must_divide(port_index):
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
     with pytest.raises(ValueError, match="divide"):
-        TorchNativeEngine(trex1_index, unit_batch=129,
+        TorchNativeEngine(port_index, unit_batch=129,
                           mesh_devices=["cpu"] * 2)
 
 
-def test_index_shards_not_ported(trex1_index):
+def test_index_shards_not_ported(port_index):
     """The key-range-sharded index is refused, never ignored."""
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
     with pytest.raises(NotImplementedError, match="item 8"):
-        TorchNativeEngine(trex1_index, device="cpu", index_shards=2)
+        TorchNativeEngine(port_index, device="cpu", index_shards=2)
 
 
 @pytest.mark.parametrize("spec", [2, "all", ["cuda:0", "cuda:0"]],

@@ -10,10 +10,12 @@ import sys
 
 import pytest
 
-from tests.conftest import CACHE, GOLDEN, golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    GOLDEN, PORT_IDX, golden_file, port_index, release_engines,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-IDX = os.path.join(CACHE, "tRex1.idx")
+IDX = PORT_IDX
 
 
 def _golden(name):
@@ -30,7 +32,7 @@ def one_thread(monkeypatch):
 
 @pytest.mark.parametrize("prefix,paired", [("small", False),
                                            ("small_pe", True)])
-def test_multihost_port_engine_byte_identical(tmp_path, trex1_index,
+def test_multihost_port_engine_byte_identical(tmp_path, port_index,
                                               one_thread, prefix, paired):
     """Two shard processes, each loading the index and mapping its range
     with the port engine: the gathered SAM and the merged mstats equal
@@ -38,9 +40,9 @@ def test_multihost_port_engine_byte_identical(tmp_path, trex1_index,
     from abismal_tpu_torch.host import write_stats
     from abismal_tpu_torch.parallel.multihost import run_map_multihost
 
-    assert os.path.exists(IDX)  # written by the trex1_index fixture
-    fq1 = golden_path(prefix + "_1.fq")
-    fq2 = golden_path(prefix + "_2.fq") if paired else None
+    assert os.path.exists(IDX)  # written by the port_index fixture
+    fq1 = golden_file(prefix + "_1.fq")
+    fq2 = golden_file(prefix + "_2.fq") if paired else None
     tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq" if paired
             else f"tests/{prefix}_1.fq")
     cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
@@ -53,11 +55,11 @@ def test_multihost_port_engine_byte_identical(tmp_path, trex1_index,
     assert mst.read_text() == _golden(prefix + ".mstats")
 
 
-def test_shard_cli_gather(tmp_path, trex1_index):
+def test_shard_cli_gather(tmp_path, port_index):
     """`python -m abismal_tpu_torch map --shard I:2` per host, the two
     shards concatenated in rank order: the golden, but for the @PG line,
     which records each shard's own argv."""
-    fq1 = golden_path("small_1.fq")
+    fq1 = golden_file("small_1.fq")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     parts = [tmp_path / f"shard{i}.sam" for i in range(2)]
     procs = [subprocess.Popen(
@@ -88,7 +90,7 @@ def test_shard_without_card_raises(tmp_path, call):
 
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    fq1 = golden_path("small_1.fq")
+    fq1 = golden_file("small_1.fq")
     out = str(tmp_path / "o.sam")
     with pytest.raises(RuntimeError, match="CUDA"):
         if call == "map_shard":

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    golden_file, port_index, release_engines,
+)
 
 jax = pytest.importorskip("jax")
 
@@ -20,11 +22,11 @@ LMAX = 128
 
 
 @pytest.fixture(scope="module")
-def tables(trex1_index):
+def tables(port_index):
     from abismal_tpu.map.pipeline import DeviceIndex as JaxDeviceIndex
     from abismal_tpu_torch.map.pipeline import DeviceIndex
 
-    jdev = JaxDeviceIndex(trex1_index)
+    jdev = JaxDeviceIndex(port_index)
     g32, _g2o, c2, c3, idx = (np.asarray(t) for t in jdev.tables())
     tdev = DeviceIndex.from_numpy_tables(
         g32, c2, c3, idx, jdev.n_index2, jdev.n_index3, jdev.max_candidates,
@@ -34,12 +36,12 @@ def tables(trex1_index):
 
 def _units(first, n_reads, a_rich=False, random_pbat=False):
     """One chunk of small_1.fq reads as the engine lays it out."""
-    from abismal_tpu.io.fastq import ReadLoader
+    from abismal_tpu_torch.io.fastq import ReadLoader
     from abismal_tpu.map.pipeline import TpuNativeEngine
     from abismal_tpu.map.seeds import get_conv_is_ga
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
-    reads = ReadLoader(golden_path("small_1.fq")).load_batch()
+    reads = ReadLoader(golden_file("small_1.fq")).load_batch()
     reads = reads[first : first + n_reads]
 
     class _Shape:
@@ -58,13 +60,13 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def test_device_index_from_numpy_tables(trex1_index, tables):
+def test_device_index_from_numpy_tables(port_index, tables):
     """JAX's i32 pair tables, re-read as u32 prefix arrays, equal the
     port's own tables built from the index."""
     from abismal_tpu_torch.map.pipeline import DeviceIndex
 
     _, tdev = tables
-    own = DeviceIndex.from_index(trex1_index, "cpu")
+    own = DeviceIndex.from_index(port_index, "cpu")
     for a, b in zip(tdev.tables(), own.tables()):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert (tdev.n_index2, tdev.n_index3, tdev.max_candidates,

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import golden_path
+from tests.test_torch_fixtures import (  # noqa: F401
+    golden_file, port_index, release_engines,
+)
 
 jax = pytest.importorskip("jax")
 
@@ -33,8 +35,8 @@ def _tables(index):
 
 
 @pytest.fixture(scope="module")
-def tables(trex1_index):
-    return _tables(trex1_index)
+def tables(port_index):
+    return _tables(port_index)
 
 
 def _pe_units(reads1, reads2, random_pbat, pbat=False):
@@ -55,9 +57,9 @@ def _pe_units(reads1, reads2, random_pbat, pbat=False):
 
 
 def _golden_pairs(prefix, first, n):
-    from abismal_tpu.io.fastq import ReadLoader
+    from abismal_tpu_torch.io.fastq import ReadLoader
 
-    return [ReadLoader(golden_path(f"{prefix}_{e}.fq")).load_batch()[
+    return [ReadLoader(golden_file(f"{prefix}_{e}.fq")).load_batch()[
         first : first + n] for e in (1, 2)]
 
 
@@ -126,7 +128,7 @@ def test_stage12pe_iupac_negative_bands_match_jax(tmp_path):
     (+1600, exact): (E', C) wins at ranks (1, 2) and is not E''s first
     window, while (E, C) is a zero-score recompute after it, so the stale
     end-1 score comes from E, not E'.  Rows equal JAX."""
-    from abismal_tpu.index.build import create_index
+    from abismal_tpu_torch.index.build import create_index
 
     rng = np.random.default_rng(11)
     n = 120_000
