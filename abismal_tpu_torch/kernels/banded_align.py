@@ -4,14 +4,17 @@
 K2, banded_score, replaces abismal_tpu/kernels/banded_align.py:_kernel_body
 (build_banded_scorer).  K3, banded_trace, replaces _tracer_body
 (build_banded_tracer) together with the arrow walk of
-abismal_tpu/map/pipeline.py:build_tb_block, fused into one kernel.  The
-CUDA versions live in csrc/banded_align.cu (K2: a warp takes four jobs,
-lane groups sized to the band, rows staged in shared memory; K3: a warp
-per job, its arrow panel in shared memory); the plain PyTorch versions
-below compute the same thing row by row over the whole batch, in the JAX
-package's row parametrization (see that module's docstring): the query
-sits at the fixed offset QOFF, and win[rr] is the genome nibble of row rr
-from win_start(pos, bw)."""
+abismal_tpu/map/pipeline.py:build_tb_block, fused into one kernel;
+banded_trace_packed is the same kernel behind a staging step that reads
+the caller's packed query rows and the packed genome itself, so the
+single-end traceback is one launch.  The CUDA versions live in
+csrc/banded_align.cu (rows staged in shared memory; K2: a warp takes four
+jobs, lane groups sized to the band; K3: two jobs a warp, the table by
+anti-diagonals, two arrow bits a cell kept in shared memory and walked a
+run at a time); the plain PyTorch versions below compute the same thing
+row by row over the whole batch, in the JAX package's row parametrization (see
+that module's docstring): the query sits at the fixed offset QOFF, and
+win[rr] is the genome nibble of row rr from win_start(pos, bw)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from ..map.host_units import TB_NOPS
 from . import _build
+from .popcount_compare import M32, genome_words
 
 ALN_MATCH = 2
 ALN_MISMATCH = -3
@@ -41,6 +45,23 @@ def walk_step_cap(lp: int) -> int:
     (lp + QOFF) + 2 (QOFF + 1) + 4, checked every 4 unrolled steps."""
     maxstep = lp + QOFF + 2 * (QOFF + 1) + 4
     return -(-maxstep // 4) * 4
+
+
+def unpack_nibbles(pnib: torch.Tensor) -> torch.Tensor:
+    """(B, W) u8, two nibbles per byte (base i in nibble i & 1 of byte
+    i >> 1) -> (B, 2W) int64 nibbles."""
+    p = pnib.to(torch.int64)
+    return torch.stack([p & 0xF, p >> 4], dim=2).reshape(p.shape[0],
+                                                          2 * p.shape[1])
+
+
+def window_nibbles(genome32, g0, width: int) -> torch.Tensor:
+    """(J, width) u8 genome nibbles at positions g0 + k (g0 int64, u32
+    values): a direct gather from the packed genome; positions past its
+    end read 0, as the JAX window's clamped guard rows do."""
+    p = g0[:, None] + torch.arange(width, device=g0.device)[None, :]
+    w = genome_words(genome32, p >> 3)
+    return ((w >> ((p & 7) * 4)) & 0xF).to(torch.uint8)
 
 
 def _dp_rows(q, win, bw, qsz):
@@ -125,6 +146,14 @@ def banded_trace_plain(q, win, bw, qsz, wpos, do_tb):
            order, the caller reverses them and adds the soft clips;
       meta (J, 4) i32: [n_ops (-1: not traced or buffer overflow),
            soft_bottom, soft_top, new_pos (u32 bits)]."""
+    return _trace_plain(q, win, bw, qsz, wpos, do_tb,
+                        walk_step_cap(q.shape[1]))
+
+
+def _trace_plain(q, win, bw, qsz, wpos, do_tb, max_step):
+    """banded_trace_plain with the walk cut after max_step steps.  No
+    alignment reaches walk_step_cap(lq) (a walk of s steps scores at most
+    2 lq - 4 (s - lq) > 0), so the tests of the cap set a lower one."""
     J, lq = q.shape
     dev = q.device
     n_rows = lq + QOFF
@@ -174,7 +203,7 @@ def banded_trace_plain(q, win, bw, qsz, wpos, do_tb):
     ops = torch.zeros((J, TB_NOPS), dtype=torch.int64, device=dev)
     over = torch.zeros_like(started)
     kops = torch.arange(TB_NOPS, device=dev)[None, :]
-    for step in range(walk_step_cap(lq)):
+    for step in range(max_step):
         # lanes that stopped are no-ops, so stopping when none is active
         # leaves every lane where the JAX while_loop leaves it
         if step % 8 == 0 and not bool(act.any()):
@@ -212,11 +241,17 @@ def banded_trace(q, win, bw, qsz, wpos, do_tb):
     """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (or an error).  Same arguments and results as
     banded_trace_plain."""
+    return _trace(q, win, bw, qsz, wpos, do_tb, walk_step_cap(q.shape[1]))
+
+
+def _trace(q, win, bw, qsz, wpos, do_tb, max_step):
+    """banded_trace with the walk cut after max_step steps (the tests of
+    the cap; see _trace_plain)."""
     if q.device.type == "cpu":
-        return banded_trace_plain(q, win, bw, qsz, wpos, do_tb)
+        return _trace_plain(q, win, bw, qsz, wpos, do_tb, max_step)
     J, lq = q.shape
-    q = q.to(torch.uint8).contiguous()
-    win = win.to(torch.uint8).contiguous()
+    q = _build.aligned(q.to(torch.uint8).contiguous(), 4)
+    win = _build.aligned(win.to(torch.uint8).contiguous(), 4)
     bw = bw.reshape(J).to(torch.int32).contiguous()
     qsz = qsz.reshape(J).to(torch.int32).contiguous()
     wpos = wpos.reshape(J).to(torch.int64).contiguous()
@@ -225,20 +260,76 @@ def banded_trace(q, win, bw, qsz, wpos, do_tb):
     ops = torch.empty((J, TB_NOPS), dtype=torch.int32, device=q.device)
     meta = torch.empty((J, 4), dtype=torch.int32, device=q.device)
     if J:
-        panel_rows = -(-(lq + QOFF) // 8) * 8
-        # one job per warp; the panels stay within 48 KB of static-size
-        # shared memory per block
-        warps = max(1, min(4, (48 * 1024) // (panel_rows * 32)))
         lib = _build.load()
         with torch.cuda.device(q.device):
             rc = lib.banded_trace_launch(
                 q.data_ptr(), lq, win.data_ptr(), win.shape[1],
                 bw.data_ptr(), qsz.data_ptr(), wpos.data_ptr(),
                 do_tb.data_ptr(), ops.data_ptr(), meta.data_ptr(), J,
-                panel_rows, walk_step_cap(lq), warps, _build.stream_of(q))
+                max_step, _build.stream_of(q))
         _build.check(rc, "banded_trace")
         banded_trace.launches += 1
     return ops, meta
 
 
 banded_trace.launches = 0
+
+
+def _packed_lq(pnib, lmax):
+    return 2 * pnib.shape[1] if lmax is None else min(lmax, 2 * pnib.shape[1])
+
+
+def banded_trace_packed_plain(genome32, pnib, wunit, wbw, wqsz, wpos, do_tb,
+                              lmax=None):
+    """Plain PyTorch K3 on packed operands: job j's query is the first lmax
+    nibbles of the packed row pnib[wunit[j]] ((B, W) u8, two nibbles a
+    byte), its window the lmax + QOFF genome nibbles from win_start(wpos,
+    wbw) & 0xFFFFFFFF of genome32 (eight nibbles a word, 0 past the end);
+    wunit, wbw, wqsz, wpos (J,) int64, do_tb (J,) bool.  Gathers and
+    unpacks both, then banded_trace_plain; same results."""
+    lq = _packed_lq(pnib, lmax)
+    wunit, wbw, wpos = (t.to(torch.int64) for t in (wunit, wbw, wpos))
+    q = unpack_nibbles(pnib[wunit])[:, :lq].to(torch.uint8)
+    win = window_nibbles(genome32, win_start(wpos, wbw) & M32, lq + QOFF)
+    return banded_trace_plain(q, win, wbw, wqsz, wpos, do_tb)
+
+
+def banded_trace_packed(genome32, pnib, wunit, wbw, wqsz, wpos, do_tb,
+                        lmax=None):
+    """K3 on packed operands: the plain version for CPU tensors, for CUDA
+    tensors the CUDA kernel (or an error), which unpacks each job's query
+    row and genome window into shared memory itself: one launch, and none
+    at all for int64 / bool arguments that are already contiguous.  Same
+    arguments and results as banded_trace_packed_plain."""
+    if pnib.device.type == "cpu":
+        return banded_trace_packed_plain(genome32, pnib, wunit, wbw, wqsz,
+                                         wpos, do_tb, lmax)
+    J = wunit.shape[0]
+    genome32 = genome32.to(torch.int32).contiguous()
+    pnib = pnib.to(torch.uint8).contiguous()
+    wunit, wbw, wqsz, wpos = (t.reshape(J).to(torch.int64).contiguous()
+                              for t in (wunit, wbw, wqsz, wpos))
+    do_tb = do_tb.reshape(J).contiguous()
+    # a bool tensor is one byte an element: the kernel reads it as it is
+    do_tb = (do_tb.view(torch.uint8) if do_tb.dtype == torch.bool
+             else do_tb.to(torch.uint8))
+    _build.require_device("banded_trace_packed", genome32, pnib, wunit, wbw,
+                          wqsz, wpos, do_tb)
+    ops = torch.empty((J, TB_NOPS), dtype=torch.int32, device=pnib.device)
+    meta = torch.empty((J, 4), dtype=torch.int32, device=pnib.device)
+    if J:
+        lq = _packed_lq(pnib, lmax)
+        lib = _build.load()
+        with torch.cuda.device(pnib.device):
+            rc = lib.banded_trace_packed_launch(
+                genome32.data_ptr(), genome32.shape[0], pnib.data_ptr(),
+                pnib.shape[1], lq, wunit.data_ptr(), wbw.data_ptr(),
+                wqsz.data_ptr(), wpos.data_ptr(), do_tb.data_ptr(),
+                ops.data_ptr(), meta.data_ptr(), J, walk_step_cap(lq),
+                _build.stream_of(pnib))
+        _build.check(rc, "banded_trace_packed")
+        banded_trace_packed.launches += 1
+    return ops, meta
+
+
+banded_trace_packed.launches = 0

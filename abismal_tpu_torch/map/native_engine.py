@@ -197,7 +197,7 @@ class NativeMappingEngine:
         """records: (n_reads, 4) int32 per-read device decisions; the
         native side does traceback-for-winners + SAM + stats, or a full
         exact re-map for REC_FALLBACK rows.  cig_ops/cig_meta (optional):
-        device-traceback output (pipeline.build_tb_block) -- aligned rows
+        device-traceback output (kernels.banded_align, K3) -- aligned rows
         with meta n_ops >= 0 skip the host aligner entirely."""
         names, seqs = zip(*reads) if reads else ((), ())
         rblob, roffs = _blob(list(seqs))

@@ -1,6 +1,7 @@
 """PyTorch port of the single-end device pipeline of
 abismal_tpu/map/pipeline.py: the candidate core (_make_core), the fused
-stage-1+2 program with on-device traceback (build_stage12, build_tb_block),
+stage-1+2 program with on-device traceback (build_stage12; JAX's
+build_tb_block is the kernel wrapper kernels.banded_align.banded_trace),
 the engine half that feeds the native finalize (TorchNativeEngine) and its
 factory.  Names follow the JAX module so each counterpart is easy to find.
 
@@ -30,7 +31,8 @@ from ..constants import (
 )
 from ..device import resolve_device
 from ..kernels.banded_align import (
-    BW_MAX, QOFF, banded_score, banded_trace, win_start,
+    BW_MAX, QOFF, banded_score, banded_trace_packed, unpack_nibbles,
+    win_start, window_nibbles,
 )
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
@@ -56,23 +58,6 @@ def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 tensor of u32 (or i32) values -> int32 with the same bits."""
     x = x & M32
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
-def unpack_nibbles(pnib: torch.Tensor) -> torch.Tensor:
-    """(B, W) u8, two nibbles per byte (base i in nibble i & 1 of byte
-    i >> 1) -> (B, 2W) int64 nibbles."""
-    p = pnib.to(I64)
-    return torch.stack([p & 0xF, p >> 4], dim=2).reshape(p.shape[0],
-                                                          2 * p.shape[1])
-
-
-def window_nibbles(genome32, g0, width: int) -> torch.Tensor:
-    """(J, width) u8 genome nibbles at positions g0 + k (g0 int64, u32
-    values): a direct gather from the packed genome; positions past its
-    end read 0, as the JAX window's clamped guard rows do."""
-    p = g0[:, None] + torch.arange(width, device=g0.device)[None, :]
-    w = genome_words(genome32, p >> 3)
-    return ((w >> ((p & 7) * 4)) & 0xF).to(torch.uint8)
 
 
 def _pad1(x, n: int, value):
@@ -502,19 +487,6 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
     return core, o_spec
 
 
-def build_tb_block(lmax: int):
-    """Device traceback for winner alignments (↔ JAX build_tb_block): a
-    thin caller of K3, whose kernel also walks the arrows.  Returns
-    tb(q2 (J2, lmax) u8, win2 (J2, lmax + QOFF) u8, wbw (J2,), wqsz (J2,),
-    wpos (J2,) u32 in int64, do_tb (J2,) bool) -> (ops (J2, TB_NOPS) i32,
-    meta (J2, 4) i32); see kernels.banded_align.banded_trace_plain."""
-
-    def tb(q2, win2, wbw, wqsz, wpos, do_tb):
-        return banded_trace(q2[:, :lmax], win2, wbw, wqsz, wpos, do_tb)
-
-    return tb
-
-
 def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                   n_index3: int, per: int, cand_per_unit: int | None = None,
                   k_slots: int = 50, jobs_per_read: int = 8,
@@ -526,7 +498,8 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     scode, max_diffs_r, marks=None) -> (R, 8 + TB_NOPS) i32 packed rows
     [rec(4) | cig_meta(4) | cig_ops(TB_NOPS)] (only rec with device_tb
     off).  marks, a list, collects (name, CUDA event) pairs at the
-    program's phase boundaries."""
+    program's phase boundaries: start, core, decide, score (K2 done),
+    select (winners and records done), end (traceback done)."""
     cand_per_unit = _resolve_cand_budget(cand_per_unit, n_index2, n_index3,
                                          lmax)
     K = int(os.environ.get("ABISMAL_TPU_K_SLOTS", k_slots))
@@ -537,7 +510,6 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
                               cand_per_unit, ext_iters=ext_iters,
                               ext_pool=ext_pool)
-    tb_block = build_tb_block(lmax)
     WW3 = lmax + QOFF  # window rows per job
     K2 = ((K + 14 + 15) // 16) * 16
 
@@ -701,23 +673,22 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
             torch.where(has_ex, e_pos0, torch.where(aligned, bpos, 0)),
             torch.where(aligned, M, 0)], dim=1)
         rec = u32_to_i32(rec)
+        mark("select")
         if not device_tb:
             mark("end")
             return rec
 
-        # --- traceback of the winners (K3 with the walk fused)
+        # --- traceback of the winners: K3 with the walk fused reads each
+        # winner's packed query row and genome window itself (untraced
+        # lanes carry bw = 1, qsz = 0)
         do_tb = aligned & ~fb
-        J2 = ((R + 127) // 128) * 128
-        padR = J2 - R
-        wunit = _pad1(qrowK.gather(1, ist)[:, 0], padR, 0)
-        wbw = _pad1(torch.where(do_tb, bwK.gather(1, ist)[:, 0], 1), padR, 1)
-        wqsz = _pad1(torch.where(do_tb, rlen, 0), padR, 0)
-        wpos2 = _pad1(torch.where(do_tb, bpos, 0), padR, 0)
-        q2 = unpack_nibbles(pnib[wunit])[:, :lmax].to(torch.uint8)
-        win2 = window_nibbles(genome32, win_start(wpos2, wbw) & M32, WW3)
-        ops, meta = tb_block(q2, win2, wbw, wqsz, wpos2,
-                             _pad1(do_tb, padR, False))
-        out = torch.cat([rec, meta[:R], ops[:R]], dim=1)
+        wunit = qrowK.gather(1, ist)[:, 0]
+        wbw = torch.where(do_tb, bwK.gather(1, ist)[:, 0], 1)
+        wqsz = torch.where(do_tb, rlen, 0)
+        wpos2 = torch.where(do_tb, bpos, 0)
+        ops, meta = banded_trace_packed(genome32, pnib, wunit, wbw, wqsz,
+                                        wpos2, do_tb, lmax)
+        out = torch.cat([rec, meta, ops], dim=1)
         mark("end")
         return out
 

@@ -2170,11 +2170,16 @@ void run_threads(Engine &E, int64_t n_items, int n_threads, Fn fn) {
   if (n_items < n_threads)
     n_threads = std::max<int64_t>(1, n_items);
   const int64_t chunk = (n_items + n_threads - 1) / n_threads;
-  std::vector<std::thread> ts;
-  for (int t = 0; t < n_threads; ++t) {
-    Worker *w = get_worker(E, t);
+  // sum_stats adds up every worker the engine ever started: also those an
+  // earlier call with more threads left behind start this call at zero
+  get_worker(E, n_threads - 1);
+  for (auto *w : E.workers) {
     w->out.clear();
     std::memset(w->st, 0, sizeof(w->st));
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < n_threads; ++t) {
+    Worker *w = E.workers[t];
     const int64_t lo = t * chunk;
     const int64_t hi = std::min<int64_t>(n_items, lo + chunk);
     if (lo >= hi)

@@ -7,16 +7,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
               one nvcc per source at once, and prints what ptxas says of
               their registers and spills;
   3. kernels  each kernel (K1 popcount_compare, K2 banded_score, K3
-              banded_trace) against its plain PyTorch version on the card,
+              banded_trace and banded_trace_packed, its entry point on
+              the main path) against its plain PyTorch version on the card,
               at main-path shapes (K2 also at the paired-end program's
               J = 16384, with negative bands and fill rows, and at
-              J = 8192 with the narrow bands of the default -m 0.1), exact
-              equality; both timed with CUDA events in turns (plain,
-              kernel, kernel, plain), the kernel also as a CUDA graph of
+              J = 8192 with the narrow bands of the default -m 0.1; K3 at
+              J2 = 1024 mixed bands, at the bands and length of real
+              reads, and on 1024 and 2048 winners read from packed rows
+              and a 256 MB packed genome), exact equality; both timed
+              with CUDA events in turns (plain, kernel, kernel, plain),
+              the kernel also as a CUDA graph of
               its launches, which leaves the host out (K1 also over 16
               input sets in turn, which L2 cannot hold); for each case the
               bytes and operations counted from its inputs, the bound
-              they give on this card, and the kernel's share of it;
+              they give on this card, and the kernel's share of it; for
+              K3, whose launches fill under one wave of warps, also
+              chain_ms, a model of its longest job's serial chain (rows
+              plus walk steps at an assumed cycle count a link; it is in
+              this phase's line only, not in the kernels' summary);
   4. goldens  maps tests/golden small_1.fq (500 reads) and reads_1.fq (10k)
               with the port engine on the card; the SAM and mstats must
               equal the upstream goldens byte for byte, and every kernel's
@@ -79,10 +87,11 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 TOL = 0  # integer kernels: exact equality
 SCALE_MB = 1000  # the hg38-size stand-in genome of the scale phase
 
+# the kernels of the main path, by the wrapper that launches each
 REPLACES = {
     "popcount_compare": "abismal_tpu/kernels/popcount_compare.py:34",
     "banded_score": "abismal_tpu/kernels/banded_align.py:44",
-    "banded_trace": "abismal_tpu/kernels/banded_align.py:99",
+    "banded_trace_packed": "abismal_tpu/kernels/banded_align.py:99",
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
 # 67 TFLOP/s of fp32 outside the tensor cores, which counts an FMA as two
@@ -97,11 +106,25 @@ OPS_PER_CELL_SCORE = 8
 OPS_PER_CELL_TRACE = 14
 OPS_PER_WORD_COMPARE = 4  # funnel shift, and, popc, accumulate
 NARROW_BANDS = (1, 3, 5, 9, 13, 21)  # 2 d + 1 for d <= 10: -m 0.1 at 100 b
+# the bands recorded on the 10k golden reads: four in five at the cap 21
+READ_BANDS = (21, 21, 21, 21, 3, 21, 21, 21, 21, 9, 21, 21, 21, 21, 13, 21,
+              21, 21, 21, 1, 21, 21, 5)
+READ_LENGTH = 100
+PACKED_GENOME_WORDS = 1 << 26  # 256 MB of packed genome, beyond the L2
+# K3's chain: cycles of one link, a table row or a walk step.  A row is
+# two shuffles one after the other, each followed by an add-and-max and a
+# select (~25 + 2 x 5 cycles each), and the ~60 integer instructions of
+# its trip, which a warp alone on its scheduler issues one every second
+# cycle (16 int32 lanes): 70-120.  A walk step is a shared-memory load
+# (~30) and about ten dependent operations (~5 each); runs of M arrows are
+# taken 32 rows at once, so the steps overcount the walk.  One round
+# figure stands for both: an estimate, which nothing holds the kernel to.
+K3_CHAIN_CYCLES = 100
 
 SOURCES = {
     "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
     "banded_score": "abismal_tpu_torch/csrc/banded_align.cu",
-    "banded_trace": "abismal_tpu_torch/csrc/banded_align.cu",
+    "banded_trace_packed": "abismal_tpu_torch/csrc/banded_align.cu",
 }
 
 
@@ -209,10 +232,11 @@ def k1_inputs(rng, dev, B=2048, cand=64, nw_words=16, n_gw=1 << 20):
 
 
 def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0,
-               bands=(1, 5, 61, 3, 9, 21, 41)):
+               bands=(1, 5, 61, 3, 9, 21, 41), length=None):
     """Banded-alignment jobs over a random one-hot genome with IUPAC
     nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos); job
-    i takes band bands[i mod len(bands)]."""
+    i takes band bands[i mod len(bands)] and a length drawn from 36 to
+    lmax, or the one given."""
     import numpy as np
 
     from abismal_tpu_torch.kernels.banded_align import QOFF, win_start
@@ -229,7 +253,7 @@ def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0,
     pos = np.zeros(n, np.int64)
     bws = np.array(bands)
     for i in range(n - n_pad):
-        L = int(rng.integers(36, lmax + 1))
+        L = length or int(rng.integers(36, lmax + 1))
         p = int(rng.integers(200, G - 400))
         r = genome[p : p + L].copy()
         if i < overflow:  # an indel every 6 bases: > TB_NOPS cigar runs
@@ -284,6 +308,98 @@ def k1_bound(genome32, pos, pk, b_of, nw_of):
     return bound(nbytes, OPS_PER_WORD_COMPARE * int(nw_of.sum().item()))
 
 
+def random_genome32(dev, n_gw, seed):
+    """(n_gw,) int32: a packed genome of one-hot nibbles, eight a word,
+    made on the device in slices."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty(n_gw, dtype=torch.int32, device=dev)
+    shifts = 4 * torch.arange(8, device=dev)
+    step = 1 << 22
+    for a in range(0, n_gw, step):
+        n = min(step, n_gw - a)
+        nib = 1 << torch.randint(0, 4, (n, 8), generator=gen, device=dev)
+        w = (nib << shifts).sum(dim=1)
+        out[a : a + n] = torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+            torch.int32)
+    return out
+
+
+def packed_trace_inputs(dev, R, n_gw, seed, lmax=128):
+    """banded_trace_packed's arguments as build_stage12 makes them: R
+    winners of READ_LENGTH bases copied from a packed genome of n_gw words
+    with substitutions and indels, their packed query rows scattered over
+    2 R unit rows, bands of READ_BANDS, one lane in ten untraced (bw 1,
+    qsz 0, pos 0).  The first jobs sit where a window leaves the genome:
+    before nibble 0 (its start wraps modulo 2^32 and reads 0) and across
+    or past the last word."""
+    import numpy as np
+    import torch
+
+    from abismal_tpu_torch.kernels.banded_align import window_nibbles
+
+    rng = np.random.default_rng(seed)
+    genome32 = random_genome32(dev, n_gw, seed)
+    L, n_nib = READ_LENGTH, 8 * n_gw
+    pos = rng.integers(200, n_nib - 400, R).astype(np.int64)
+    pos[:8] = rng.integers(0, 45, 8)
+    pos[8:16] = n_nib - rng.integers(20, 160, 8)
+    pos[16:20] = n_nib + rng.integers(0, 4000, 4)
+    ref = window_nibbles(genome32, torch.from_numpy(pos).to(dev),
+                         L + 1).cpu().numpy()
+    bw = np.array(READ_BANDS)[np.arange(R) % len(READ_BANDS)]
+    U = (1 << rng.integers(0, 4, (2 * R, lmax + 32))).astype(np.uint8)
+    wunit = rng.permutation(2 * R)[:R].astype(np.int64)
+    for i in range(R):
+        r = list(ref[i, :L])
+        for _ in range(int(rng.integers(0, 6))):
+            r[int(rng.integers(0, L))] = 1 << int(rng.integers(0, 4))
+        if rng.random() < 0.3:
+            r.insert(int(rng.integers(5, L - 5)), 1 << int(rng.integers(0, 4)))
+        if rng.random() < 0.3:
+            del r[int(rng.integers(5, len(r) - 5))]
+            r.append(ref[i, L])
+        U[wunit[i]] = 0
+        U[wunit[i], :L] = r[:L]
+    pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
+    do_tb = rng.random(R) < 0.9
+    do_tb[:20] = True
+    qsz = np.where(do_tb, L, 0).astype(np.int64)
+    bw = np.where(do_tb, bw, 1).astype(np.int64)
+    pos = np.where(do_tb, pos, 0)
+    return [genome32] + [torch.from_numpy(a).to(dev) for a in (
+        pnib, wunit, bw, qsz, pos, do_tb)] + [lmax]
+
+
+def sm_clock_hz():
+    """The card's highest SM clock, as nvidia-smi gives it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"], capture_output=True,
+        text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def trace_chain(lq, bw, qsz, do_tb, ops, meta):
+    """(rows, steps) of the job with the longest serial chain in a K3
+    case: the table rows its band reaches plus the steps of its walk (the
+    runs of its ops; its length where the op buffer overflowed)."""
+    import torch
+
+    from abismal_tpu_torch.kernels.banded_align import QOFF
+
+    bw, qsz = bw.reshape(-1).long(), qsz.reshape(-1).long()
+    live = (bw > 0) & (qsz > 0)
+    rows = torch.where(live, qsz.clamp(max=lq) + QOFF
+                       - (QOFF - bw + 1).clamp(min=0), 0)
+    runs = (ops.long() >> 4).sum(dim=1)
+    steps = torch.where(meta[:, 0] >= 0, runs,
+                        torch.where(do_tb.reshape(-1).bool() & live, qsz, 0))
+    j = int((rows + steps).argmax())
+    return int(rows[j]), int(steps[j])
+
+
 def kernel_cases(dev):
     """The kernels phase's cases, inputs made with numpy from fixed seeds:
     dicts of name, plain, kernel, args (tensors on dev), reps_plain, bound
@@ -333,19 +449,50 @@ def kernel_cases(dev):
                                     n_pad=512, bands=NARROW_BANDS)
     cases.append(score_case("banded_score_narrow", q, win, bw, qsz, 3))
 
+    def trace_case(name, q, win, bw, qsz, pos, do_tb):
+        t = on_card(q, win, bw, qsz, pos, do_tb)
+        J2 = q.shape[0]
+        return dict(
+            name=name, plain=ba.banded_trace_plain, kernel=ba.banded_trace,
+            args=t, reps_plain=2, lq=q.shape[1],
+            bound=bound(nbytes_of(*t) + 4 * J2 * (ba.TB_NOPS + 4),
+                        OPS_PER_CELL_TRACE
+                        * live_cells(q.shape[1], t[2], t[3])),
+            extra=dict(shape=f"J2={J2}", mean_band=float(bw[qsz > 0].mean())))
+
     q, win, bw, qsz, pos = align_jobs(rng, 1024, n_pad=128, overflow=4)
     do_tb = rng.random(1024) < 0.9
     do_tb[:4] = True
     bw[~do_tb], qsz[~do_tb] = 1, 0
-    t = on_card(q, win, bw, qsz, pos, do_tb)
-    J2 = q.shape[0]
-    cases.append(dict(
-        name="banded_trace", plain=ba.banded_trace_plain,
-        kernel=ba.banded_trace, args=t, reps_plain=2,
-        bound=bound(nbytes_of(*t) + 4 * J2 * (ba.TB_NOPS + 4),
-                    OPS_PER_CELL_TRACE
-                    * live_cells(q.shape[1], t[2], t[3])),
-        extra=dict(shape=f"J2={J2}")))
+    cases.append(trace_case("banded_trace", q, win, bw, qsz, pos, do_tb))
+
+    # the winners real reads give: 100 bases, bands of READ_BANDS
+    rng_r = np.random.default_rng(37)
+    q, win, bw, qsz, pos = align_jobs(rng_r, 1024, bands=READ_BANDS,
+                                      length=READ_LENGTH)
+    do_tb = rng_r.random(1024) < 0.9
+    bw[~do_tb], qsz[~do_tb] = 1, 0
+    cases.append(trace_case("banded_trace_reads", q, win, bw, qsz, pos,
+                            do_tb))
+
+    # K3 on the caller's packed operands, one and two chunks of winners
+    for name, R, seed in (("banded_trace_packed", 1024, 47),
+                          ("banded_trace_packed_2048", 2048, 57)):
+        t = packed_trace_inputs(dev, R, PACKED_GENOME_WORDS, seed)
+        genome32, pnib, wunit, wbw, wqsz, wpos, do_tb, lmax = t
+        traced = int((wqsz > 0).sum())
+        # bytes: per job its four int64 and its flag, its output row, and
+        # for a traced job its packed query row and genome window
+        nbytes = R * (4 * 8 + 1 + 4 * (ba.TB_NOPS + 4)) + traced * (
+            pnib.shape[1] + (lmax + ba.QOFF + 1) // 2)
+        cases.append(dict(
+            name=name, plain=ba.banded_trace_packed_plain,
+            kernel=ba.banded_trace_packed, args=t, reps_plain=2, lq=lmax,
+            bound=bound(nbytes, OPS_PER_CELL_TRACE
+                        * live_cells(lmax, wbw, wqsz)),
+            extra=dict(shape=f"R={R}", mean_band=float(
+                wbw[wqsz > 0].double().mean()),
+                       genome_bytes=4 * PACKED_GENOME_WORDS)))
     return cases
 
 
@@ -375,8 +522,12 @@ def phase_kernels(dev):
     and reads the kernel's device time against its bound."""
     import torch
 
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    clock = sm_clock_hz()
     res = {"tolerance": TOL, "peak_bytes_per_s": PEAK_BYTES_PER_S,
-           "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S}
+           "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S,
+           "sm_clock_hz": clock, "k3_chain_cycles": K3_CHAIN_CYCLES}
     for case in kernel_cases(dev):
         name, plain, kernel, args = (case[k] for k in ("name", "plain",
                                                        "kernel", "args"))
@@ -399,12 +550,26 @@ def phase_kernels(dev):
         if name == "banded_score_pe":
             check(bool((want[args[2] < 0] == 0).all()),
                   "negative bands must score 0")
+        if name.startswith("banded_trace"):
+            # under one wave of warps no layout reaches the bound, which
+            # counts operations at full occupancy.  chain_ms is a model,
+            # not a measurement and not a bound: the longest job's rows
+            # and walk steps at K3_CHAIN_CYCLES a link
+            packed = kernel is ba.banded_trace_packed
+            bw, qsz, do_tb = (args[3], args[4], args[6]) if packed \
+                else (args[2], args[3], args[5])
+            rows, steps = trace_chain(case["lq"], bw, qsz, do_tb, *want)
+            res[name].update(
+                chain_rows=rows, chain_steps=steps,
+                chain_ms=(rows + steps) * K3_CHAIN_CYCLES / clock * 1e3,
+                traced=int((want[1][:, 0] >= 0).sum()))
         if name == "banded_trace":
-            w_meta = want[1]
-            n_over = int((w_meta[:4, 0] == -1).sum())
+            n_over = int((want[1][:4, 0] == -1).sum())
             check(n_over > 0, "K3 inputs lack a TB_NOPS overflow job")
-            res[name].update(overflow_jobs=n_over,
-                             traced=int((w_meta[:, 0] >= 0).sum()))
+            res[name]["overflow_jobs"] = n_over
+        if name == "banded_trace_packed":
+            check(int((args[4] > 0).sum()) - res[name]["traced"] >= 8,
+                  "K3 packed inputs lack windows that leave the genome")
     return res
 
 
@@ -454,7 +619,9 @@ def trex1_index(threads):
 
 def chunk_device_ms(eng, first, last="traceback_ms"):
     """Per-chunk device times (ms) between the program's phase marks; the
-    last interval is the SE traceback or the PE mating sweep (mate_ms)."""
+    last interval is the SE traceback (winner selection and records
+    included; trace_only_ms is what follows them, K3 and its few
+    operands) or the PE mating sweep (mate_ms)."""
     import numpy as np
 
     rows = []
@@ -464,12 +631,17 @@ def chunk_device_ms(eng, first, last="traceback_ms"):
                      ev["core"].elapsed_time(ev["decide"]),
                      ev["decide"].elapsed_time(ev["score"]),
                      ev["score"].elapsed_time(ev["end"]),
-                     ev["start"].elapsed_time(ev["end"])])
+                     ev["start"].elapsed_time(ev["end"]),
+                     ev["select"].elapsed_time(ev["end"])
+                     if "select" in ev else 0.0])
     if not rows:
         return {}
     m = np.mean(np.array(rows), axis=0)
-    return {"core_ms": m[0], "decide_ms": m[1], "score_ms": m[2], last: m[3],
-            "total_ms": m[4], "chunks": len(rows)}
+    out = {"core_ms": m[0], "decide_ms": m[1], "score_ms": m[2], last: m[3],
+           "total_ms": m[4], "chunks": len(rows)}
+    if "select" in dict(eng.chunk_marks[-1]):
+        out["trace_only_ms"] = m[5]
+    return out
 
 
 def map_with(engine_factory, index, fq, sam, mstats, cl, threads, fq2=None,
@@ -564,7 +736,7 @@ def phase_goldens(dev, threads):
     eng = factory(index, False, 0.1, 32, 3000)
     eng.profile = True
     out = {"index": how, "index_s": t_index}
-    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace)
+    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace_packed)
     for k in kernels:
         k.launches = 0
     for prefix in ("small", "reads"):
@@ -846,7 +1018,7 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.parallel.multihost import run_map_multihost
 
-    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace)
+    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace_packed)
     rates = {**rates, **sets["rates"]}
     big = sets["index"]
     n_cards = torch.cuda.device_count()
@@ -1069,19 +1241,25 @@ def main():
         return 1
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCES[name],
-             replaces=REPLACES[name],
-             launches=(launches[name] + launches_pe.get(name, 0)
-                       + launches_out[name]),
-             max_abs_err=max(kres[k]["max_abs_err"] for k in kres
-                             if k.startswith(name)), ms=kres[name]["ms"],
-             plain_ms=kres[name]["plain_ms"],
-             bound_ms=kres[name]["bound_ms"],
-             bound_by=kres[name]["bound_by"],
-             # no single PyTorch call computes any of the three functions
-             library_ms=None) for name in REPLACES]}),
-        flush=True)
+    # K3's cases all run one device code behind two entry points
+    cases_of = {"banded_trace_packed": "banded_trace"}
+    line = []
+    for name in REPLACES:
+        k = kres[name]
+        entry = dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=(launches[name] + launches_pe.get(name, 0)
+                      + launches_out[name]),
+            max_abs_err=max(kres[c]["max_abs_err"] for c in kres
+                            if isinstance(kres[c], dict)
+                            and c.startswith(cases_of.get(name, name))),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"],
+            # no single PyTorch call computes any of the three functions
+            library_ms=None)
+        line.append(entry)
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,8 @@ the order given.  Per case it prints the kernel's device time from a CUDA
 graph of its launches (ms), the time of a Python loop of launches
 (host_loop_ms, which the wrapper's host time bounds from below) and
 whether the result equals the plain version's.  The cases and the timers
-are those of the chip_smoke.py beside this script (kernel_cases)."""
+are those of the chip_smoke.py beside this script (kernel_cases), so every
+tree must have the entry points that script names."""
 
 import argparse
 import importlib.util

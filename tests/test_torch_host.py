@@ -209,6 +209,41 @@ def test_native_factory_gives_the_goldens(tmp_path, port_index, prefix):
             if f.startswith("_engine-") and f.endswith(".so")]
 
 
+def test_native_engine_reused_with_fewer_threads(port_index):
+    """One native engine maps SE reads with 2 threads, then pairs with 1:
+    the second call's stats count its own reads only (the idle worker of
+    the first call starts every call at zero)."""
+    import io
+
+    from abismal_tpu_torch.io.fastq import ReadLoader
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.stats import PEStats, SEStats
+
+    def reads(name):
+        return ReadLoader(golden_file(name)).load_batch()
+
+    eng = NativeMappingEngine(port_index, n_threads=2)
+    se, out = SEStats(), io.StringIO()
+    eng.map_se_reads(reads("small_1.fq"), False, False, se, out)
+    assert se.total_reads == 500
+    eng.n_threads = 1
+    pe = PEStats()
+    eng.map_pe_reads(reads("small_pe_1.fq"), reads("small_pe_2.fq"), False,
+                     False, pe, out)
+    assert pe.read_pair_stats.total_reads == 500
+    fresh = PEStats()
+    NativeMappingEngine(port_index, n_threads=1).map_pe_reads(
+        reads("small_pe_1.fq"), reads("small_pe_2.fq"), False, False, fresh,
+        io.StringIO())
+    for blk in ("read_pair_stats", "end1_stats", "end2_stats"):
+        assert vars(getattr(pe, blk)) == vars(getattr(fresh, blk)), blk
+    # and back up: SE with 2 threads after the 1-thread call
+    eng.n_threads = 2
+    se2 = SEStats()
+    eng.map_se_reads(reads("small_1.fq"), False, False, se2, io.StringIO())
+    assert vars(se2) == vars(se)
+
+
 def test_run_map_refuses_other_engines(port_index):
     """The port's run_map takes native-library engines only; the JAX
     package's pure-Python reference engine is not carried over."""
