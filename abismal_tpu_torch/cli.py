@@ -4,10 +4,12 @@ on --device (default cuda), and scales out as abismal_tpu's CLI does:
 --mesh splits each chunk over several devices, --engine hybrid maps a
 share of the reads on the host cores at the same time, and --hosts /
 --shard map read ranges in separate processes or on separate machines.
-`idx` and `sim` are host-only.  Options accept single- or double-dash
-long names and the reference's short names, and the SAM @PG CL: header
-records argv exactly as the reference does (the subcommand plus its
-arguments)."""
+ABISMAL_TPU_STAGE2=0 takes the event-stream route (the device seeds, the
+native engine decides), and --device-align then scores its alignments on
+the device.  `idx` and `sim` are host-only.  Options accept single- or
+double-dash long names and the reference's short names, and the SAM @PG
+CL: header records argv exactly as the reference does (the subcommand
+plus its arguments)."""
 
 from __future__ import annotations
 
@@ -150,6 +152,13 @@ def cmd_map(argv):
                    help="--engine hybrid: fraction of reads routed to the "
                         "device (default $ABISMAL_DEVICE_SHARE or 0.15; "
                         "pick ~= dev_rate / (dev_rate + host_rate))")
+    p.add_argument("--device-align", dest="device_align", default=None,
+                   action="store_true",
+                   help="on the event-stream route (ABISMAL_TPU_STAGE2=0) "
+                        "score the native engine's alignment jobs on the "
+                        "device too (default $ABISMAL_TPU_DEVICE_ALIGN; the "
+                        "fused default route scores every job on the device "
+                        "already; not with --mesh)")
     p.add_argument("--mesh", default=None,
                    help="map over the first N local CUDA devices, or "
                         "'all', each with its own copy of the index and "
@@ -181,6 +190,10 @@ def cmd_map(argv):
         return 1
     if a.mesh is not None and a.engine == "hybrid":
         print("--mesh cannot be combined with --engine hybrid",
+              file=sys.stderr)
+        return 1
+    if a.mesh is not None and a.device_align:
+        print("--device-align cannot be combined with --mesh",
               file=sys.stderr)
         return 1
 
@@ -232,7 +245,7 @@ def cmd_map(argv):
 
     factory = make_torch_native_engine_factory(
         a.device, lmax=a.lmax, unit_batch=unit_batch, n_threads=a.threads,
-        mesh_devices=mesh)
+        mesh_devices=mesh, device_align=a.device_align)
     if a.engine == "hybrid":
         return _map_hybrid(a, index, reads2, command_line, factory)
     run_map(

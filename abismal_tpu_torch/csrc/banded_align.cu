@@ -1,7 +1,10 @@
 // K2 and K3: banded local-alignment score and traceback.
 //
-// K2 (banded_score_launch) replaces abismal_tpu/kernels/banded_align.py:
-// _kernel_body (the Pallas scorer called at abismal_tpu/map/pipeline.py:1482).
+// K2 (banded_score_packed_launch) replaces abismal_tpu/kernels/
+// banded_align.py:_kernel_body (the Pallas scorer called at
+// abismal_tpu/map/pipeline.py:1482) together with the operand gathers in
+// front of it there and in banded_align.py:build_device_align (:358): it
+// reads packed query rows and the packed genome itself.
 // K3 (banded_trace_launch, banded_trace_packed_launch) replaces
 // banded_align.py:_tracer_body together with the arrow walk of
 // pipeline.py:build_tb_block (:1080-1160), fused.
@@ -43,7 +46,11 @@
 //     constant c < bw there;
 //   - rows no job of the pass can reach are skipped; a negative band, or a
 //     fill row (bw 1, qsz 0), has no live cell: it scores 0 and is neither
-//     staged nor run.
+//     staged nor run;
+//   - the warp unpacks each live job's query row (two nibbles a byte) and
+//     genome window (eight nibbles a word, a funnel shift for the nibble
+//     offset) into the staged rows with 32-bit stores, so the caller
+//     builds no operand.
 //
 // K3 on the H100 is bound by one warp's latency: a chunk traces about a
 // thousand winners, which is under one wave of warps whatever the layout,
@@ -221,69 +228,76 @@ __host__ __device__ inline int k2_sw_bytes(int lq) {
   return (lq + QOFF + 4 + 3) & ~3;
 }
 
-__global__ void banded_score_kernel(const uint8_t* __restrict__ q, int lq,
-                                    const uint8_t* __restrict__ win, int lw,
-                                    const int32_t* __restrict__ bw,
-                                    const int32_t* __restrict__ qsz,
-                                    int32_t* __restrict__ out, int J) {
-  extern __shared__ uint32_t smem[];
-  const int wib = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t job0 =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) + wib) * JPW;
-  if (job0 >= J) return;  // uniform per warp
-  const int njobs = J - job0 < JPW ? static_cast<int>(J - job0) : JPW;
-  const int sqb = k2_sq_bytes(lq);
-  const int swb = k2_sw_bytes(lq);
-  uint8_t* base = reinterpret_cast<uint8_t*>(smem) + wib * JPW * (sqb + swb);
+// Four nibbles (the low 16 bits of x) spread to a byte each.
+__device__ __forceinline__ uint32_t spread_nibbles(uint32_t x) {
+  return (x & 0xFu) | ((x & 0xF0u) << 4) | ((x & 0xF00u) << 8) |
+         ((x & 0xF000u) << 12);
+}
 
-  // --- group g of 8 lanes holds job g's band and length.  A job without a
-  // live cell (band <= 0, or a fill row of qsz 0) scores 0, is not staged
-  // and takes no part in the row ranges
+// Words k = k0, k0 + stride, ... below nwords of a staged query, unpacked
+// from the packed row prow (base i in nibble i & 1 of byte i >> 1): byte
+// 4 k + t holds query nibble 4 k + t - QOFF, 0 outside [0, nq).
+__device__ __forceinline__ void stage_packed_query(
+    uint32_t* __restrict__ sq4, int nwords, const uint8_t* __restrict__ prow,
+    int nq, int k0, int stride) {
+#pragma unroll 4
+  for (int k = k0; k < nwords; k += stride) {
+    const int i = 4 * k - QOFF;  // even
+    uint32_t word = 0u;
+    if (i >= 0 && i < nq) {
+      const uint32_t b0 = __ldg(prow + (i >> 1));
+      const uint32_t b1 = i + 2 < nq ? __ldg(prow + (i >> 1) + 1) : 0u;
+      word = spread_nibbles(b0 | (b1 << 8));
+      if (nq - i < 4) word &= (1u << (8 * (nq - i))) - 1u;
+    }
+    sq4[k] = word;
+  }
+}
+
+// Words k = k0, k0 + stride, ... below nwords of staged window rows, from
+// the packed genome (n_gw words, eight nibbles a word): byte 4 k + t holds
+// row i = 4 k + t - skew, the genome nibble g0 + i, 0 outside [0, nw) and
+// past the genome's end.
+__device__ __forceinline__ void stage_packed_window(
+    uint32_t* __restrict__ sw4, int nwords, int skew,
+    const uint32_t* __restrict__ genome32, int64_t n_gw, int64_t g0, int nw,
+    int k0, int stride) {
+#pragma unroll 4
+  for (int k = k0; k < nwords; k += stride) {
+    const int i = 4 * k - skew;
+    uint32_t word = 0u;
+    if (i >= 0 && i < nw) {
+      const int64_t p = g0 + i;
+      const int64_t wi = p >> 3;
+      const int sh = static_cast<int>(p & 7) * 4;
+      const uint32_t w0 = wi < n_gw ? __ldg(genome32 + wi) : 0u;
+      // four nibbles from bit sh on: the next word only above bit 16
+      const uint32_t w1 =
+          (sh > 16 && wi + 1 < n_gw) ? __ldg(genome32 + wi + 1) : 0u;
+      word = spread_nibbles(__funnelshift_r(w0, w1, sh));
+      if (nw - i < 4) word &= (1u << (8 * (nw - i))) - 1u;
+    }
+    sw4[k] = word;
+  }
+}
+
+// The genome nibble of window row 0 of a job at band position pos with
+// band b: win_start(pos, b) modulo 2^32.
+__device__ __forceinline__ int64_t window_start(int64_t pos, int b) {
+  return (pos + ((b - 1) >> 1) - QOFF) & 0xFFFFFFFFll;
+}
+
+// The K2 passes over a warp's staged jobs, from base (JPW jobs of sqb +
+// swb bytes, query then window rows).  Group g of 8 lanes holds job g's
+// band b and length n, live if it has a cell; a job that is not live has
+// been written already.  All 32 lanes of the warp must call it.
+__device__ __forceinline__ void score_warp(const uint8_t* base, int sqb,
+                                           int swb, int lq, int b, int n,
+                                           bool live, int njobs, int64_t job0,
+                                           int32_t* __restrict__ out,
+                                           int lane) {
   const int g = lane >> 3;
   const int l = lane & 7;
-  int b = 0, n = 0;
-  if (g < njobs) {
-    b = bw[job0 + g];
-    n = qsz[job0 + g];
-  }
-  const bool live = g < njobs && b > 0 && n > 0;
-  if (g < njobs && !live && l == 0) out[job0 + g] = 0;
-  const unsigned staged = __ballot_sync(FULL, live);
-  if (staged == 0u) return;  // uniform per warp
-
-  // --- stage the live jobs' queries and windows, zero-padded
-  const bool words = ((lq | lw) & 3) == 0;  // rows start on word bounds
-  for (int s = 0; s < njobs; ++s) {
-    if (!((staged >> (8 * s)) & 1u)) continue;  // uniform per warp
-    uint8_t* sq = base + s * (sqb + swb);
-    uint8_t* sw = sq + sqb;
-    const uint8_t* qj = q + (job0 + s) * lq;
-    const uint8_t* wj = win + (job0 + s) * lw;
-    if (words) {
-      uint32_t* sq4 = reinterpret_cast<uint32_t*>(sq);
-      uint32_t* sw4 = reinterpret_cast<uint32_t*>(sw);
-      const uint32_t* q4 = reinterpret_cast<const uint32_t*>(qj);
-      const uint32_t* w4 = reinterpret_cast<const uint32_t*>(wj);
-#pragma unroll 2
-      for (int k = lane; k < sqb / 4; k += 32) {
-        const int i = k - QOFF / 4;
-        sq4[k] = (i >= 0 && i < lq / 4) ? __ldg(q4 + i) : 0u;
-      }
-#pragma unroll 2
-      for (int k = lane; k < swb / 4; k += 32)
-        sw4[k] = (k < lw / 4 && k < (lq + QOFF) / 4) ? __ldg(w4 + k) : 0u;
-    } else {
-      for (int k = lane; k < sqb; k += 32) {
-        const int i = k - QOFF;
-        sq[k] = (i >= 0 && i < lq) ? __ldg(qj + i) : 0;
-      }
-      for (int k = lane; k < swb; k += 32)
-        sw[k] = (k < lw && k < lq + QOFF) ? __ldg(wj + k) : 0;
-    }
-  }
-  __syncwarp();
-
   // --- narrow pass: group g runs job g if its band fits 8 lanes
   {
     const bool on = live && b <= NARROW;
@@ -326,6 +340,60 @@ __global__ void banded_score_kernel(const uint8_t* __restrict__ q, int lq,
         band_pass<32, 2>(sq, sq + sqb, bs, ns, r0, r1, s0, s1, lane);
     if (lane == 0) out[job0 + s] = best;
   }
+}
+
+// K2 on the caller's packed operands (build_device_align's program, and
+// the job builds of the fused programs): job j scores the query row
+// pnib[unit[j]] (W bytes, base i in nibble i & 1 of byte i >> 1; its first
+// lq nibbles) against the lq + QOFF genome nibbles from window_start(
+// pos[j], bw[j]) of genome32 (n_gw words, 0 past the end).  Group g of 8
+// lanes holds job g's band and length.  A job without a live cell (band
+// <= 0, or a fill row of qsz 0) scores 0, is not staged and takes no part
+// in the row ranges.  The warp stages its live jobs with 32-bit loads,
+// zero-padded, then runs the passes of score_warp.
+__global__ void banded_score_packed_kernel(
+    const uint32_t* __restrict__ genome32, int64_t n_gw,
+    const uint8_t* __restrict__ pnib, int W, int lq,
+    const int64_t* __restrict__ unit, const int64_t* __restrict__ pos,
+    const int64_t* __restrict__ bw, const int64_t* __restrict__ qsz,
+    int32_t* __restrict__ out, int J) {
+  extern __shared__ uint32_t smem[];
+  const int wib = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t job0 =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) + wib) * JPW;
+  if (job0 >= J) return;  // uniform per warp
+  const int njobs = J - job0 < JPW ? static_cast<int>(J - job0) : JPW;
+  const int sqb = k2_sq_bytes(lq);
+  const int swb = k2_sw_bytes(lq);
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem) + wib * JPW * (sqb + swb);
+
+  const int g = lane >> 3;
+  const int l = lane & 7;
+  int b = 0, n = 0;
+  if (g < njobs) {
+    b = static_cast<int>(bw[job0 + g]);
+    n = static_cast<int>(qsz[job0 + g]);
+  }
+  const bool live = g < njobs && b > 0 && n > 0;
+  if (g < njobs && !live && l == 0) out[job0 + g] = 0;
+  const unsigned staged = __ballot_sync(FULL, live);
+  if (staged == 0u) return;  // uniform per warp
+
+  // --- the warp unpacks each live job's query row and window in turn
+  const int nq = min(lq, 2 * W);
+  for (int s = 0; s < njobs; ++s) {
+    if (!((staged >> (8 * s)) & 1u)) continue;  // uniform per warp
+    uint32_t* sq4 = reinterpret_cast<uint32_t*>(base + s * (sqb + swb));
+    stage_packed_query(sq4, sqb / 4, pnib + unit[job0 + s] * W, nq, lane,
+                       32);
+    stage_packed_window(
+        sq4 + sqb / 4, swb / 4, 0, genome32, n_gw,
+        window_start(pos[job0 + s], __shfl_sync(FULL, b, 8 * s)), lq + QOFF,
+        lane, 32);
+  }
+  __syncwarp();
+  score_warp(base, sqb, swb, lq, b, n, live, njobs, job0, out, lane);
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -771,12 +839,6 @@ __global__ void banded_trace_kernel(const uint8_t* __restrict__ q, int lq,
   trace_warp(base, lq, jb, ops, meta, job0, njobs, max_step, lane);
 }
 
-// Four nibbles (the low 16 bits of x) spread to a byte each.
-__device__ __forceinline__ uint32_t spread_nibbles(uint32_t x) {
-  return (x & 0xFu) | ((x & 0xF0u) << 4) | ((x & 0xF00u) << 8) |
-         ((x & 0xF000u) << 12);
-}
-
 // K3 on the caller's packed operands: job j traces the query row
 // pnib[wunit[j]] (W bytes, base i in nibble i & 1 of byte i >> 1; its first
 // lq nibbles) against the genome window of lq + QOFF nibbles that starts at
@@ -814,64 +876,36 @@ __global__ void banded_trace_packed_kernel(
   // --- group g unpacks its job's query row and window, zero-padded
   if (jb.live) {
     const int sqb = k2_sq_bytes(lq);
-    const int swb = k3_sw_bytes(lq);
     uint32_t* sq4 = reinterpret_cast<uint32_t*>(k3_staged(base, lq, g));
-    uint32_t* sw4 = sq4 + sqb / 4;  // window row k at byte SKEW + k
-    const uint8_t* prow = pnib + wunit[job0 + g] * W;
-    const int nq = min(lq, 2 * W);
-#pragma unroll 4
-    for (int k = l; k < sqb / 4; k += TG) {
-      const int i = 4 * k - QOFF;  // even
-      uint32_t word = 0u;
-      if (i >= 0 && i < nq) {
-        const uint32_t b0 = __ldg(prow + (i >> 1));
-        const uint32_t b1 = i + 2 < nq ? __ldg(prow + (i >> 1) + 1) : 0u;
-        word = spread_nibbles(b0 | (b1 << 8));
-        if (nq - i < 4) word &= (1u << (8 * (nq - i))) - 1u;
-      }
-      sq4[k] = word;
-    }
-    const int64_t g0 =
-        (jb.wp + ((jb.b - 1) >> 1) - QOFF) & 0xFFFFFFFFll;
-    const int nw = lq + QOFF;
-#pragma unroll 4
-    for (int k = l; k < swb / 4; k += TG) {
-      const int i = 4 * k - SKEW;
-      uint32_t word = 0u;
-      if (i >= 0 && i < nw) {
-        const int64_t p = g0 + i;
-        const int64_t wi = p >> 3;
-        const int sh = static_cast<int>(p & 7) * 4;
-        const uint32_t w0 = wi < n_gw ? __ldg(genome32 + wi) : 0u;
-        // four nibbles from bit sh on: the next word only above bit 16
-        const uint32_t w1 =
-            (sh > 16 && wi + 1 < n_gw) ? __ldg(genome32 + wi + 1) : 0u;
-        word = spread_nibbles(__funnelshift_r(w0, w1, sh));
-        if (nw - i < 4) word &= (1u << (8 * (nw - i))) - 1u;
-      }
-      sw4[k] = word;
-    }
+    stage_packed_query(sq4, sqb / 4, pnib + wunit[job0 + g] * W,
+                       min(lq, 2 * W), l, TG);
+    // window row k at byte SKEW + k
+    stage_packed_window(sq4 + sqb / 4, k3_sw_bytes(lq) / 4, SKEW, genome32,
+                        n_gw, window_start(jb.wp, jb.b), lq + QOFF, l, TG);
   }
   trace_warp(base, lq, jb, ops, meta, job0, njobs, max_step, lane);
 }
 
 }  // namespace
 
-extern "C" int banded_score_launch(const void* q, int lq, const void* win,
-                                   int lw, const void* bw, const void* qsz,
-                                   void* out, int J, void* stream) {
+extern "C" int banded_score_packed_launch(
+    const void* genome32, int64_t n_gw, const void* pnib, int W, int lq,
+    const void* unit, const void* pos, const void* bw, const void* qsz,
+    void* out, int J, void* stream) {
   // 8 warps x 4 jobs per block while their staged rows fit the 48 KB of
   // shared memory a block gets without opting in; fewer warps for long lq
   const int per_warp = JPW * (k2_sq_bytes(lq) + k2_sw_bytes(lq));
   const int fit = (48 * 1024) / per_warp;
   const int warps = fit < 8 ? fit : 8;
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (warps < 1 || lq < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int jobs_per_block = warps * JPW;
   const int blocks = (J + jobs_per_block - 1) / jobs_per_block;
-  banded_score_kernel<<<blocks, warps * 32, warps * per_warp,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), lq, static_cast<const uint8_t*>(win), lw,
-      static_cast<const int32_t*>(bw), static_cast<const int32_t*>(qsz),
+  banded_score_packed_kernel<<<blocks, warps * 32, warps * per_warp,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(genome32), n_gw,
+      static_cast<const uint8_t*>(pnib), W, lq,
+      static_cast<const int64_t*>(unit), static_cast<const int64_t*>(pos),
+      static_cast<const int64_t*>(bw), static_cast<const int64_t*>(qsz),
       static_cast<int32_t*>(out), J);
   return static_cast<int>(cudaGetLastError());
 }

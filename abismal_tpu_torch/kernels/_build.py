@@ -37,8 +37,9 @@ SIGNATURES = {
         "popcount_compare_launch": [_P, _L, _P, _P, _I, _P, _P, _P, _L, _P],
     },
     "banded_align": {
-        # q, lq, win, lw, bw, qsz, out, J, stream
-        "banded_score_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
+        # genome32, n_gw, pnib, W, lq, unit, pos, bw, qsz, out, J, stream
+        "banded_score_packed_launch": [_P, _L, _P, _I, _I, _P, _P, _P, _P,
+                                       _P, _I, _P],
         # q, lq, win, lw, bw, qsz, wpos, do_tb, ops, meta, J, max_step,
         # stream
         "banded_trace_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,

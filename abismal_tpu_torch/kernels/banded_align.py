@@ -1,12 +1,14 @@
 """K2 and K3: banded local-alignment score and traceback
 (AbismalAlign::align and build_traceback, AbismalAlign.hpp:320-440).
 
-K2, banded_score, replaces abismal_tpu/kernels/banded_align.py:_kernel_body
-(build_banded_scorer).  K3, banded_trace, replaces _tracer_body
+K2, banded_score_packed, replaces abismal_tpu/kernels/banded_align.py:
+_kernel_body (build_banded_scorer) and build_device_align, the scorer on
+operands gathered on the device: its kernel reads the caller's packed
+query rows and the packed genome itself, so every K2 call site is one
+launch.  K3, banded_trace, replaces _tracer_body
 (build_banded_tracer) together with the arrow walk of
 abismal_tpu/map/pipeline.py:build_tb_block, fused into one kernel;
-banded_trace_packed is the same kernel behind a staging step that reads
-the caller's packed query rows and the packed genome itself, so the
+banded_trace_packed is K3 behind the same staging step, so the
 single-end traceback is one launch.  The CUDA versions live in
 csrc/banded_align.cu (rows staged in shared memory; K2: a warp takes four
 jobs, lane groups sized to the band; K3: two jobs a warp, the table by
@@ -109,38 +111,71 @@ def banded_score_plain(q, win, bw, qsz):
     return best.to(torch.int32)[:, None]
 
 
-def banded_score(q, win, bw, qsz):
-    """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (or an error).  Same arguments and result as
-    banded_score_plain."""
-    if q.device.type == "cpu":
-        return banded_score_plain(q, win, bw, qsz)
-    J = q.shape[0]
-    q = _build.aligned(q.to(torch.uint8).contiguous(), 4)
-    win = _build.aligned(win.to(torch.uint8).contiguous(), 4)
-    bw = bw.reshape(J).to(torch.int32).contiguous()
-    qsz = qsz.reshape(J).to(torch.int32).contiguous()
-    _build.require_device("banded_score", q, win, bw, qsz)
-    out = torch.empty(J, dtype=torch.int32, device=q.device)
+def _packed_lq(pnib, lmax):
+    return 2 * pnib.shape[1] if lmax is None else min(lmax, 2 * pnib.shape[1])
+
+
+def _packed_operands(genome32, pnib, unit, pos, bw, lq):
+    """The query rows and genome windows of jobs on packed operands: the
+    first lq nibbles of pnib[unit], the lq + QOFF genome nibbles from
+    win_start(pos, bw) & 0xFFFFFFFF (0 past the genome's end)."""
+    unit, pos, bw = (t.to(torch.int64) for t in (unit, pos, bw))
+    q = unpack_nibbles(pnib[unit])[:, :lq].to(torch.uint8)
+    win = window_nibbles(genome32, win_start(pos, bw) & M32, lq + QOFF)
+    return q, win
+
+
+def banded_score_packed_plain(genome32, pnib, unit, pos, bw, qsz,
+                              lmax=None):
+    """Plain PyTorch K2 on packed operands (↔ JAX build_device_align): job
+    j's query is the first lmax nibbles of the packed row pnib[unit[j]]
+    ((B, W) u8, two nibbles a byte), its window the lmax + QOFF genome
+    nibbles from win_start(pos, bw) & 0xFFFFFFFF of genome32 (eight
+    nibbles a word, 0 past the end); unit, pos, bw, qsz (J,) integers.
+    Returns the best cell scores (J,) i32, as banded_score_plain."""
+    q, win = _packed_operands(genome32, pnib, unit, pos, bw,
+                              _packed_lq(pnib, lmax))
+    return banded_score_plain(q, win, bw.reshape(-1, 1),
+                              qsz.reshape(-1, 1))[:, 0]
+
+
+def banded_score_packed(genome32, pnib, unit, pos, bw, qsz, lmax=None):
+    """K2 on packed operands: the plain version for CPU tensors, for CUDA
+    tensors the CUDA kernel (or an error), which unpacks each job's query
+    row and genome window into shared memory itself (one launch; none
+    more for int64 arguments that are already contiguous).  Same
+    arguments and result as banded_score_packed_plain; J jobs, no
+    padding."""
+    if pnib.device.type == "cpu":
+        return banded_score_packed_plain(genome32, pnib, unit, pos, bw, qsz,
+                                         lmax)
+    J = unit.shape[0]
+    genome32 = genome32.to(torch.int32).contiguous()
+    pnib = pnib.to(torch.uint8).contiguous()
+    unit, pos, bw, qsz = (t.reshape(J).to(torch.int64).contiguous()
+                          for t in (unit, pos, bw, qsz))
+    _build.require_device("banded_score_packed", genome32, pnib, unit, pos,
+                          bw, qsz)
+    out = torch.empty(J, dtype=torch.int32, device=pnib.device)
     if J:
         lib = _build.load()
-        # the runtime launches on the calling thread's current device
-        with torch.cuda.device(q.device):
-            rc = lib.banded_score_launch(
-                q.data_ptr(), q.shape[1], win.data_ptr(), win.shape[1],
-                bw.data_ptr(), qsz.data_ptr(), out.data_ptr(), J,
-                _build.stream_of(q))
-        _build.check(rc, "banded_score")
-        banded_score.launches += 1
-    return out[:, None]
+        with torch.cuda.device(pnib.device):
+            rc = lib.banded_score_packed_launch(
+                genome32.data_ptr(), genome32.shape[0], pnib.data_ptr(),
+                pnib.shape[1], _packed_lq(pnib, lmax), unit.data_ptr(),
+                pos.data_ptr(), bw.data_ptr(), qsz.data_ptr(), out.data_ptr(),
+                J, _build.stream_of(pnib))
+        _build.check(rc, "banded_score_packed")
+        banded_score_packed.launches += 1
+    return out
 
 
-banded_score.launches = 0
+banded_score_packed.launches = 0
 
 
 def banded_trace_plain(q, win, bw, qsz, wpos, do_tb):
     """Plain PyTorch K3 (tracer + arrow walk).  q, win, bw, qsz as for
-    banded_score (bw, qsz (J,)); wpos (J,) int64 u32 band positions;
+    banded_score_plain (bw, qsz (J,)); wpos (J,) int64 u32 band positions;
     do_tb (J,) bool.  Untraced lanes carry bw = 1, qsz = 0.  Returns
       ops  (J, TB_NOPS) i32: run-length cigar ops (run << 4 | op) in walk
            order, the caller reverses them and adds the soft clips;
@@ -275,10 +310,6 @@ def _trace(q, win, bw, qsz, wpos, do_tb, max_step):
 banded_trace.launches = 0
 
 
-def _packed_lq(pnib, lmax):
-    return 2 * pnib.shape[1] if lmax is None else min(lmax, 2 * pnib.shape[1])
-
-
 def banded_trace_packed_plain(genome32, pnib, wunit, wbw, wqsz, wpos, do_tb,
                               lmax=None):
     """Plain PyTorch K3 on packed operands: job j's query is the first lmax
@@ -287,11 +318,10 @@ def banded_trace_packed_plain(genome32, pnib, wunit, wbw, wqsz, wpos, do_tb,
     wbw) & 0xFFFFFFFF of genome32 (eight nibbles a word, 0 past the end);
     wunit, wbw, wqsz, wpos (J,) int64, do_tb (J,) bool.  Gathers and
     unpacks both, then banded_trace_plain; same results."""
-    lq = _packed_lq(pnib, lmax)
-    wunit, wbw, wpos = (t.to(torch.int64) for t in (wunit, wbw, wpos))
-    q = unpack_nibbles(pnib[wunit])[:, :lq].to(torch.uint8)
-    win = window_nibbles(genome32, win_start(wpos, wbw) & M32, lq + QOFF)
-    return banded_trace_plain(q, win, wbw, wqsz, wpos, do_tb)
+    q, win = _packed_operands(genome32, pnib, wunit, wpos, wbw,
+                              _packed_lq(pnib, lmax))
+    return banded_trace_plain(q, win, wbw.to(torch.int64), wqsz,
+                              wpos.to(torch.int64), do_tb)
 
 
 def banded_trace_packed(genome32, pnib, wunit, wbw, wqsz, wpos, do_tb,

@@ -2,8 +2,9 @@
 helpers and the static unit-layout helpers of abismal_tpu/map/pipeline.py,
 and read_hashes / get_conv_is_ga of abismal_tpu/map/seeds.py): the static
 limits of the device programs, the candidate-budget estimate from the
-index's counters, genome packing, the per-unit strand-code and conversion
-patterns, the ASCII read matrices and the pure-native engine factory.
+index's counters, genome packing, the stage-1 unit layout
+(prepare_units), the per-unit strand-code and conversion patterns, the
+ASCII read matrices and the pure-native engine factory.
 Nothing here touches a torch device."""
 
 from __future__ import annotations
@@ -183,6 +184,21 @@ def ext_iters_for(index) -> int:
         if c.shape[0] > 1:
             mb = max(mb, int(np.diff(c.astype(np.int64)).max()))
     return max(2, int(np.ceil(np.log2(mb + 1))) + 1)
+
+
+def prepare_units(unit_reads, lmax: int):
+    """Host-side layout of encoded unit reads (list of uint8 nibble arrays)
+    into the fixed-shape stage-1 inputs: two nibbles per uploaded byte
+    (half-size transfers); unpacking and word packing happen on device."""
+    B = len(unit_reads)
+    preads = np.zeros((B, lmax + 32), dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i, pr in enumerate(unit_reads):
+        n = pr.shape[0]
+        lens[i] = n
+        preads[i, :n] = pr
+    pnib = preads[:, 0::2] | (preads[:, 1::2] << np.uint8(4))
+    return pnib, lens
 
 
 def _se_scode_pattern(a_rich_mode, random_pbat):

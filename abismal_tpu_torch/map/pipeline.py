@@ -1,9 +1,10 @@
-"""PyTorch port of the single-end device pipeline of
-abismal_tpu/map/pipeline.py: the candidate core (_make_core), the fused
-stage-1+2 program with on-device traceback (build_stage12; JAX's
-build_tb_block is the kernel wrapper kernels.banded_align.banded_trace),
-the engine half that feeds the native finalize (TorchNativeEngine) and its
-factory.  Names follow the JAX module so each counterpart is easy to find.
+"""PyTorch port of the device pipeline of abismal_tpu/map/pipeline.py: the
+candidate core (_make_core), the event-stream program (build_stage1), the
+fused stage-1+2 programs with on-device traceback (build_stage12; JAX's
+build_tb_block is the kernel wrapper kernels.banded_align.banded_trace)
+and build_stage12pe, the engine half that feeds the native engine
+(TorchNativeEngine) and its factory.  Names follow the JAX module so each
+counterpart is easy to find.
 
 The NumPy helpers (budgets, genome packing, unit patterns, constants) are
 in host_units.py beside this module, and the host side -- the C++ native
@@ -20,7 +21,9 @@ go and collected with one copy in finish_se."""
 from __future__ import annotations
 
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -31,13 +34,12 @@ from ..constants import (
 )
 from ..device import resolve_device
 from ..kernels.banded_align import (
-    BW_MAX, QOFF, banded_score, banded_trace_packed, unpack_nibbles,
-    win_start, window_nibbles,
+    BW_MAX, banded_score_packed, banded_trace_packed, unpack_nibbles,
 )
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
 from ..parallel.mesh import (
-    make_mesh, replicate_tables, shard_stage12, shard_stage12pe,
+    make_mesh, replicate_tables, shard_stage1, shard_stage12, shard_stage12pe,
 )
 from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
 from .host_units import (
@@ -487,6 +489,82 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
     return core, o_spec
 
 
+_stage1_memo = {}
+
+
+def build_stage1(lmax: int, max_candidates: int, n_index2: int,
+                 n_index3: int, cand_per_unit: int | None = None,
+                 gcap_per_unit: int | None = None, ext_iters: int = 31,
+                 ext_pool: int | None = None):
+    """Stage 1 of the event-stream route (↔ JAX build_stage1, non-TP): the
+    candidate core plus the compaction of accepted events (diffs <= thr,
+    the unit's largest cutoff 0.4 len) into one dense stream that the
+    native engine replays.  Returns (stage1, o_spec); stage1(genome32,
+    counter2, counter3, index_all, pnib, lens, is_ga, thr) -> (ev, cf):
+      ev  (2, gcap) i32 of u32 bits: row 0 the positions, row 1 (diffs +
+          512) << 22 | rank (rank = cell * SLOT + slot), units in order and
+          each unit's events in discovery order; gcap = B * gcap_per_unit
+          (ABISMAL_TPU_GCAP_PER_UNIT, default 32), events past it dropped;
+      cf  (B,) i32: accepted count | overflow << 30 (overflow: the unit
+          goes to the native seeding).
+    Sync-free, like build_stage12.  Memoized per parameter tuple."""
+    cand_per_unit = _resolve_cand_budget(cand_per_unit, n_index2, n_index3,
+                                         lmax)
+    gcap_per_unit = int(os.environ.get(
+        "ABISMAL_TPU_GCAP_PER_UNIT",
+        32 if gcap_per_unit is None else gcap_per_unit))
+    key = (lmax, max_candidates, n_index2, n_index3, cand_per_unit,
+           gcap_per_unit, ext_iters, ext_pool)
+    if key in _stage1_memo:
+        return _stage1_memo[key]
+    core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
+                              cand_per_unit, ext_iters=ext_iters,
+                              ext_pool=ext_pool)
+
+    def stage1(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
+               thr):
+        dev = pnib.device
+        B = pnib.shape[0]
+        gcap = B * gcap_per_unit
+        gflat = B * cand_per_unit
+        lens, thr = lens.to(I64), thr.to(I64)
+        c = core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
+                 thr[:, None])
+        d = c["d"].to(I64)
+        accept = c["valid"] & (d <= c["extras"][:, 0])
+
+        # --- compact accepted events into the stream (one cumsum)
+        acc = accept.to(I64)
+        acc_inc = torch.cumsum(acc, dim=0)
+        gdest = acc_inc - acc
+        ok = accept & (gdest < gcap)
+        # diffs +512-biased into a 10-bit field (IUPAC codes drive them
+        # below zero), rank in the low 22 bits
+        meta = ((d + 512) << 22) | (c["cell_of"] * SLOT + c["slot"])
+        gev = torch.zeros((gcap + 1, 2), dtype=I64, device=dev)
+        gev[torch.where(ok, gdest, gcap)] = torch.stack(
+            [c["pos"], torch.where(ok, meta, 0)], dim=1)
+
+        # --- per-unit counts from the accept prefix sums; a unit dropped
+        # events iff its accepted span crosses gcap
+        acc_at = torch.cat([torch.zeros(1, dtype=I64, device=dev), acc_inc])
+        ustart = c["unit_start"].clamp(max=gflat)
+        uend = (c["unit_start"] + c["unit_total"]).clamp(max=gflat)
+        count = acc_at[uend] - acc_at[ustart]
+        dropped = acc_at[uend] > torch.clamp(acc_at[ustart], min=gcap)
+        # reads under DEVICE_MIN_LEN and those whose length or cutoff
+        # leaves the 10-bit diffs field go to the native seeding
+        overflow = (c["overflow"] | dropped
+                    | ((lens > 0) & (lens < DEVICE_MIN_LEN))
+                    | (thr > 511) | (lens > 512))
+        ev = u32_to_i32(gev[:gcap].T).contiguous()
+        cf = (count | (overflow.to(I64) << 30)).to(torch.int32)
+        return ev, cf
+
+    _stage1_memo[key] = (stage1, o_spec)
+    return stage1, o_spec
+
+
 def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                   n_index3: int, per: int, cand_per_unit: int | None = None,
                   k_slots: int = 50, jobs_per_read: int = 8,
@@ -510,7 +588,6 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
                               cand_per_unit, ext_iters=ext_iters,
                               ext_pool=ext_pool)
-    WW3 = lmax + QOFF  # window rows per job
     K2 = ((K + 14 + 15) // 16) * 16
 
     def stage12(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
@@ -627,16 +704,16 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         jexc = torch.cumsum(jm, dim=0) - jm
         job_ok = (jm != 0) & (jexc < J)
         job_fb = ((jm != 0) & (jexc >= J)).reshape(R, K2).any(dim=1)
-        jrows = torch.tensor([0, 32767, 1, 0], dtype=I64, device=dev).repeat(
-            J + 1, 1)
-        jrows[torch.where(job_ok, jexc, J)] = torch.stack(
+        # job columns (unit, pos, bw, qsz) as rows, so that each is one
+        # contiguous tensor for K2, which reads the packed rows and genome
+        jrows = torch.tensor([[0], [32767], [1], [0]], dtype=I64,
+                             device=dev).repeat(1, J + 1)
+        jrows[:, torch.where(job_ok, jexc, J)] = torch.stack(
             [qrowK.reshape(-1), posK.reshape(-1), bwK.reshape(-1),
-             rlen.repeat_interleave(K2)], dim=1)
+             rlen.repeat_interleave(K2)])
         if J:
-            junit, jpos, jbw, jqsz = jrows[:J].unbind(dim=1)
-            q = unpack_nibbles(pnib[junit])[:, :lmax].to(torch.uint8)
-            win = window_nibbles(genome32, win_start(jpos, jbw) & M32, WW3)
-            scores_j = banded_score(q, win, jbw, jqsz)[:, 0].to(I64)
+            scores_j = banded_score_packed(genome32, pnib, *jrows[:, :J],
+                                           lmax).to(I64)
             scrK = torch.where(job_ok.reshape(R, K2),
                                scores_j[jexc.clamp(max=J - 1)].reshape(R, K2),
                                0)
@@ -720,7 +797,6 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
                               cand_per_unit, ext_iters=ext_iters,
                               ext_pool=ext_pool)
     K = k_slots
-    WW3 = lmax + QOFF
 
     def stage12pe(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
                   max_diffs_u, pe_dist, marks=None):
@@ -774,16 +850,16 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
                                         dim=0)])
         bw_fb = (b_atx[uend_at] - b_atx[ust_c]) > 0
         jdest = torch.where(job_ok & (bw_c <= BW_MAX), jexc, J)
-        # d rides the high half of the qsz column, as in the JAX rows
-        jrows = torch.tensor([0, 32767, 1, 0], dtype=I64, device=dev).repeat(
-            J + 1, 1)
-        jrows[jdest] = torch.stack(
-            [b_of, pos, bw_c.clamp(max=BW_MAX), (d << 16) | extras[:, 3]],
-            dim=1)
-        junit, jpos, jbw, jqd = jrows[:J].unbind(dim=1)
-        q = unpack_nibbles(pnib[junit])[:, :lmax].to(torch.uint8)
-        win = window_nibbles(genome32, win_start(jpos, jbw) & M32, WW3)
-        scores_j = banded_score(q, win, jbw, jqd & 0xFFFF)[:, 0].to(I64)
+        # d rides the high half of the qsz column, as in the JAX rows; the
+        # columns are rows, so that each is one contiguous tensor for K2,
+        # which reads the packed rows and genome
+        jrows = torch.tensor([[0], [32767], [1], [0]], dtype=I64,
+                             device=dev).repeat(1, J + 1)
+        jrows[:, jdest] = torch.stack(
+            [b_of, pos, bw_c.clamp(max=BW_MAX), (d << 16) | extras[:, 3]])
+        junit, jpos, jbw, jqd = jrows[:, :J]
+        scores_j = banded_score_packed(genome32, pnib, junit, jpos, jbw,
+                                       jqd & 0xFFFF, lmax).to(I64)
         mark("score")
 
         # --- slot (u, k): the unit's k-th kept candidate, gathered from
@@ -798,8 +874,8 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         fb = (overflow | heap_fb | bw_fb | job_fb
               | ((lens > 0) & (lens < DEVICE_MIN_LEN)))
         cnt = torch.where(fb, -1, n_acc)
-        posKm = torch.where(live, jrows[:, 1][jrank], INF32)
-        dKm = torch.where(live, jrows[:, 3][jrank] >> 16, INF32)
+        posKm = torch.where(live, jrows[1][jrank], INF32)
+        dKm = torch.where(live, jrows[3][jrank] >> 16, INF32)
         ds = (dKm << 16) | (scrK & 0xFFFF)  # wraps as i32 when packed
 
         # --- mating sweep (best_pair, abismal.cpp:1722-1831): per pair
@@ -876,19 +952,30 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
 
 
 class TorchNativeEngine:
-    """The JAX TpuNativeEngine's fused device path on a torch device: the
-    stage-1+2 programs (build_stage12 for single-end, build_stage12pe for
-    paired-end) run on the device and their packed rows go to the native
-    engine's finalize, which formats the SAM and re-maps the fallback
-    reads exactly.  Implements the dispatch/finish pipeline interface of
-    run_map_pipelined.
+    """The JAX TpuNativeEngine on a torch device.  Implements the
+    dispatch/finish pipeline interface of run_map_pipelined, by one of two
+    routes:
+      fused (device_stage2, the default): the stage-1+2 programs
+        (build_stage12 for single-end, build_stage12pe for paired-end) run
+        on the device and their packed rows go to the native engine's
+        finalize, which formats the SAM and re-maps the fallback reads
+        exactly;
+      event stream (device_stage2=False, or ABISMAL_TPU_STAGE2=0):
+        build_stage1's accepted events go to the native engine, which
+        replays them in place of its own seeding (units flagged overflow
+        re-seed natively) and decides, aligns and formats.  With
+        device_align (ABISMAL_TPU_DEVICE_ALIGN=1; not with a mesh) the
+        native engine hands its alignment jobs back, K2 scores up to
+        align_jcap of them a chunk on the device from the chunk's resident
+        unit rows (banded_score_packed), and the native engine scores the
+        rest and finishes.
 
     mesh_devices (an int, "all" or a list of devices: parallel.mesh.
     make_mesh) splits every chunk over the mesh's slots, each with its
     replica of the tables, in place of the one device; unit_batch must
     divide by the mesh size.  With a mesh, device_decisions adds up the
-    SE decision counts [unmapped, exact, aligned, fallback] of every
-    read, and no phase marks are kept."""
+    fused route's SE decision counts [unmapped, exact, aligned, fallback]
+    of every read, and no phase marks are kept."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -896,11 +983,13 @@ class TorchNativeEngine:
     def __init__(self, index, allow_ambig=False, valid_frac=0.1,
                  pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
                  unit_batch: int = 2048, n_threads: int = 1,
-                 device="cuda", mesh_devices=None, index_shards=None):
+                 device="cuda", mesh_devices=None, index_shards=None,
+                 device_stage2=None, device_align=None,
+                 align_jcap: int = 8192):
         if index_shards:
             raise NotImplementedError(
                 "index_shards: the key-range-sharded index is not ported "
-                "yet (ROADMAP.md item 8)")
+                "yet (ROADMAP.md section 1 item 4)")
         if index.genome_size > POS_EMPTY - 1:
             # positions are u32 and POS_EMPTY marks a dead PE slot
             raise ValueError(f"genome of {index.genome_size} bases exceeds "
@@ -927,6 +1016,16 @@ class TorchNativeEngine:
         else:
             self.replicas = replicate_tables(index, self.mesh)
             self.dev = self.replicas[0]
+        if device_stage2 is None:
+            device_stage2 = bool(int(os.environ.get("ABISMAL_TPU_STAGE2",
+                                                    "1")))
+        self.device_stage2 = bool(device_stage2)
+        if device_align is None:
+            device_align = bool(int(os.environ.get(
+                "ABISMAL_TPU_DEVICE_ALIGN", "0")))
+        self.device_align = bool(device_align) and self.mesh is None
+        self.align_jcap = int(align_jcap)
+        self.n_device_aligned = 0
         self.device_decisions = np.zeros(4, dtype=np.int64)
         self._host_counters = (index.counter, index.counter_t,
                                index.counter_a)
@@ -935,8 +1034,10 @@ class TorchNativeEngine:
         self._stage12_progs = {}
         self.n_fallback = 0
         self.n_units = 0
-        self.stage_time = {"device dispatch": 0.0, "device collect": 0.0,
-                           "native stage-2": 0.0}
+        self._pool = None  # collector threads of the event route
+        self._counter_lock = threading.Lock()
+        self.stage_time = {"unit prep": 0.0, "device dispatch": 0.0,
+                           "device collect": 0.0, "native stage-2": 0.0}
         # per-chunk phase marks (CUDA events) when profile is on
         self.profile = False
         self.chunk_marks = []
@@ -1025,15 +1126,195 @@ class TorchNativeEngine:
     def _put(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def close(self):
+        """Stops the event route's collector threads, once the batches in
+        flight are collected (a later dispatch starts them anew)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    # --- the event-stream route (device_stage2 off) ------------------------
+    def _stage1_prog(self, cand_budget):
+        ext_pool = self._informed_ext_pool()
+        key = ("stage1", cand_budget, ext_pool)
+        prog = self._stage12_progs.get(key)
+        if prog is None:
+            prog, _ = build_stage1(
+                self.lmax, self.dev.max_candidates, self.dev.n_index2,
+                self.dev.n_index3, cand_per_unit=cand_budget,
+                ext_iters=self.dev.ext_iters, ext_pool=ext_pool)
+            if self.mesh is not None:
+                prog = shard_stage1(prog, self.mesh)
+            self._stage12_progs[key] = prog
+        return prog
+
+    def _dispatch_events(self, pnib_all, lens_all, wanted, is_ga_pat, t0):
+        """Enqueues build_stage1 on every unit_batch units of the batch's
+        unit rows (unit id = row, as in the JAX _se_units_flat and
+        _pe_units_flat) and starts their collection on the collector
+        threads.  Empty and oversized reads' rows have length 0: their
+        units are not resident and re-seed natively.  Returns (pending,
+        future of (events, unit_loc)); pending holds (first unit, units,
+        ev, cf, the chunk's unit rows on the device)."""
+        per = is_ga_pat.shape[0]
+        t1 = time.perf_counter()
+        prog = self._stage1_prog(self._budget_for((pnib_all, lens_all),
+                                                  is_ga_pat, per))
+        n = wanted.shape[0]  # per units a read (the rows pad an empty batch)
+        resident = lens_all[:n] > 0
+        B = max(self.n_shards, self.unit_batch - self.unit_batch
+                % self.n_shards)
+        if self.mesh is None:
+            tables = self.dev.tables()
+        pending = []
+        for u0 in range(0, n, B):
+            nu = min(B, n - u0)
+            if not resident[u0 : u0 + nu].any():
+                continue
+            preads, lens = pnib_all[u0 : u0 + nu], lens_all[u0 : u0 + nu]
+            if B - nu:
+                preads = np.pad(preads, ((0, B - nu), (0, 0)))
+                lens = np.pad(lens, (0, B - nu))
+            is_ga = is_ga_pat[(u0 + np.arange(B)) % per]
+            thr = ((2 * lens.astype(np.int64)) // 5).astype(np.int32)
+            if self.mesh is not None:
+                ev, cf, _total = prog(self.replicas, preads, lens, is_ga, thr)
+                pn = None
+            else:
+                pn = self._put(preads)
+                ev, cf = prog(*tables, pn, self._put(lens), self._put(is_ga),
+                              self._put(thr))
+            pending.append((u0, nu, ev, cf, pn))
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.pipeline_depth)
+        fut = self._pool.submit(self._collect_flat, pending, resident, wanted)
+        t2 = time.perf_counter()
+        self.stage_time["unit prep"] += t1 - t0
+        self.stage_time["device dispatch"] += t2 - t1
+        return pending, fut
+
+    def _collect_flat(self, pending, resident, wanted):
+        """The chunks' streams in the native engine's event format (↔ JAX
+        _collect_flat): ((pos u32, diffs i32, rank i32, start i64, count
+        i64, boundary), (unit_chunk, unit_row)).  count -1 sends a unit to
+        the native seeding: overflowed units, and those that are not
+        resident.  Each slot's stream is cut to the length it wrote (gcap
+        at most), so the offsets of later slots and chunks hold.  Runs on
+        a collector thread: the shared counters are guarded."""
+        n = resident.shape[0]
+        start = np.zeros(n, dtype=np.int64)
+        count = np.full(n, -1, dtype=np.int64)
+        unit_chunk = np.full(n, -1, dtype=np.int32)  # -1: not on the device
+        unit_row = np.zeros(n, dtype=np.int32)
+        pos_parts, meta_parts = [], []
+        base = n_fb = 0
+        for ci, (u0, nu, ev_t, cf_t, _pn) in enumerate(pending):
+            ev = ev_t.cpu().numpy().view(np.uint32)
+            cf = cf_t.cpu().numpy()
+            cnt = (cf & 0x3FFFFFFF).astype(np.int64)
+            overflow = (cf >> 30) != 0
+            # a mesh stacks each slot's stream: slot s on rows (2s, 2s+1)
+            n_sh = ev.shape[0] // 2
+            cnt2d = cnt.reshape(n_sh, -1)
+            within = np.cumsum(cnt2d, axis=1) - cnt2d
+            totals = np.minimum(within[:, -1] + cnt2d[:, -1], ev.shape[1])
+            ustart = (np.concatenate(([0], np.cumsum(totals)[:-1]))[:, None]
+                      + within).reshape(-1)
+            for sh in range(n_sh):
+                pos_parts.append(ev[2 * sh, : totals[sh]])
+                meta_parts.append(ev[2 * sh + 1, : totals[sh]])
+            res = resident[u0 : u0 + nu]
+            ok = res & ~overflow[:nu]
+            start[u0 : u0 + nu] = np.where(ok, base + ustart[:nu], 0)
+            count[u0 : u0 + nu] = np.where(ok, cnt[:nu], -1)
+            unit_chunk[u0 : u0 + nu] = np.where(res, ci, -1)
+            unit_row[u0 : u0 + nu] = np.arange(nu)
+            n_fb += int((res & overflow[:nu]).sum())
+            base += int(totals.sum())
+        with self._counter_lock:
+            self.n_units += int(wanted.sum())
+            self.n_fallback += n_fb + int((wanted & ~resident).sum())
+        if pos_parts:
+            ev_pos = np.concatenate(pos_parts)
+            meta = np.concatenate(meta_parts)
+        else:
+            ev_pos = meta = np.zeros(1, dtype=np.uint32)
+        events = (ev_pos, (meta >> 22).astype(np.int32) - 512,
+                  (meta & 0x3FFFFF).astype(np.int32), start, count,
+                  o_spec_for(self.lmax) * 2 * SLOT)
+        return events, (unit_chunk, unit_row)
+
+    def _finish_events(self, handle, stats, out):
+        """The native engine on the batch's events; with device_align, its
+        alignment jobs scored on the device in between."""
+        _, paired, reads, arm, rp, per, pending, fut = handle
+        t0 = time.perf_counter()
+        events, unit_loc = fut.result()
+        t1 = time.perf_counter()
+        self.stage_time["device collect"] += t1 - t0
+        nat = self.native
+        if not self.device_align:
+            call = nat._call_pe if paired else nat._call_se
+            call(*reads, arm, rp, stats, out, events)
+        else:
+            phase1 = nat._phase1_pe if paired else nat._phase1_se
+            n_jobs, jobs = phase1(*reads, arm, rp, events)
+            scores = np.full(n_jobs, np.iinfo(np.int32).min, dtype=np.int32)
+            if n_jobs:
+                # PE: jobs[:, 1] is the unit's offset in its pair's block;
+                # SE: the encoding (pt, pt_rc, pa, pa_rc), mapped to it
+                enc = jobs[:, 1].astype(np.int64)
+                if paired:
+                    uoff = enc
+                elif rp:
+                    uoff = np.array([0, 2, 1, 3], dtype=np.int64)[enc]
+                else:
+                    uoff = ((enc == 1) | (enc == 3)).astype(np.int64)
+                self._score_jobs_on_device(
+                    jobs, scores, per * jobs[:, 0].astype(np.int64) + uoff,
+                    pending, unit_loc)
+            (nat._phase2_pe if paired else nat._phase2_se)(scores, stats, out)
+        self.stage_time["native stage-2"] += time.perf_counter() - t1
+        return len(reads[0])
+
+    def _score_jobs_on_device(self, jobs, scores, uid, pending, unit_loc):
+        """Scores the native engine's alignment jobs (read, enc or slot,
+        pos, bw, qsz) with K2 on the unit rows each chunk left on the
+        device; uid is each job's unit.  At most align_jcap jobs a chunk
+        go to the device; the rest, and jobs of units not on the device,
+        keep the sentinel and are scored natively in phase 2."""
+        uc, ur = unit_loc
+        cidx, row = uc[uid], ur[uid]
+        for ci, (_u0, _nu, _ev, _cf, pn) in enumerate(pending):
+            take = np.flatnonzero(cidx == ci)[: self.align_jcap]
+            if not take.size:
+                continue
+            cols = self._put(np.stack([
+                row[take].astype(np.int64),
+                jobs[take, 2].astype(np.int64) & M32,
+                jobs[take, 3].astype(np.int64),
+                jobs[take, 4].astype(np.int64)]))
+            res = banded_score_packed(self.dev.genome32, pn, *cols,
+                                      self.lmax)
+            scores[take] = res.cpu().numpy()
+            self.n_device_aligned += int(take.size)
+
     def dispatch_se(self, reads, a_rich_mode, random_pbat):
         """Enqueues the device program for every chunk of the batch."""
         t0 = time.perf_counter()
         pnib_all, lens_all, per, oversized = self._se_units_mat(
             reads, a_rich_mode, random_pbat)
-        scode_pat = _se_scode_pattern(a_rich_mode,
-                                                      random_pbat)
+        scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
         is_ga_pat = np.array([get_conv_is_ga(int(c)) for c in scode_pat],
                              dtype=bool)
+        if not self.device_stage2:
+            # every unit of a read with bases is on the native side's list
+            wanted = np.repeat(np.fromiter((bool(s) for _, s in reads),
+                                           dtype=bool, count=len(reads)),
+                               per)
+            return ("events", False, (reads,), a_rich_mode, random_pbat,
+                    per) + self._dispatch_events(pnib_all, lens_all, wanted,
+                                                 is_ga_pat, t0)
         prog = self._stage12_prog(
             per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
         q = per * self.n_shards  # batch quantum (units/read x mesh slots)
@@ -1073,6 +1354,8 @@ class TorchNativeEngine:
     def finish_se(self, handle, stats, out):
         """Collects the chunks' packed rows (one copy each) and hands them
         to the native finalize."""
+        if handle[0] == "events":
+            return self._finish_events(handle, stats, out)
         reads, arm, rp, per, pending, oversized = handle
         t1 = time.perf_counter()
         R = len(reads)
@@ -1167,8 +1450,18 @@ class TorchNativeEngine:
         t0 = time.perf_counter()
         pnib_all, lens_all, per, oversized = self._pe_units_mat(
             reads1, reads2, a_rich_mode, random_pbat)
-        is_ga_pat = _pe_is_ga_pattern(a_rich_mode,
-                                                      random_pbat)
+        is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
+        if not self.device_stage2:
+            # units 0 and 3 of an orientation block carry end 1, 1 and 2
+            # end 2 (the JAX _pe_units_flat order)
+            has = [np.fromiter((bool(s) for _, s in r), dtype=bool,
+                               count=len(r)) for r in (reads1, reads2)]
+            end2 = np.tile([False, True, True, False], per // 4)
+            wanted = np.where(end2[None, :], has[1][:, None],
+                              has[0][:, None]).reshape(-1)
+            return ("events", True, (reads1, reads2), a_rich_mode,
+                    random_pbat, per) + self._dispatch_events(
+                        pnib_all, lens_all, wanted, is_ga_pat, t0)
         prog = self._stage12pe_prog(
             per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
         q = per * self.n_shards
@@ -1209,6 +1502,8 @@ class TorchNativeEngine:
     def finish_pe(self, handle, stats, out):
         """Collects the chunks' packed slot rows (one copy each) and hands
         them to the native PE finalize."""
+        if handle[0] == "events":
+            return self._finish_events(handle, stats, out)
         reads1, reads2, arm, rp, per, pending, oversized = handle
         t1 = time.perf_counter()
         n_pairs = len(reads1)
@@ -1242,19 +1537,31 @@ class TorchNativeEngine:
 _engine_memo = {}
 
 
+def release_engines():
+    """Closes and drops every memoized engine, and with it its tables."""
+    for _index, eng in _engine_memo.values():
+        eng.close()
+    _engine_memo.clear()
+
+
 def make_torch_native_engine_factory(device, lmax: int = 128,
                                      unit_batch: int = 2048,
-                                     n_threads: int = 1, mesh_devices=None):
+                                     n_threads: int = 1, mesh_devices=None,
+                                     device_align=None,
+                                     align_jcap: int = 8192,
+                                     device_stage2=None):
     """run_map engine factory for TorchNativeEngine on `device`, or over
     the mesh mesh_devices, memoized per index (the device tables are ~1 GB
-    at any genome size)."""
+    at any genome size).  device_stage2 and device_align pick the route
+    (None: the environment's default; see TorchNativeEngine)."""
     mesh_key = (tuple(str(d) for d in mesh_devices)
                 if isinstance(mesh_devices, (list, tuple)) else mesh_devices)
 
     def factory(index, allow_ambig, valid_frac, pe_min_dist, pe_max_dist):
         key = ("torch-native", id(index), int(index.max_candidates),
                allow_ambig, valid_frac, pe_min_dist, pe_max_dist, lmax,
-               unit_batch, str(device), mesh_key)
+               unit_batch, str(device), mesh_key, device_align, align_jcap,
+               device_stage2)
         hit = _engine_memo.get(key)
         if hit is not None and hit[0] is index:
             hit[1].n_threads = n_threads
@@ -1262,7 +1569,10 @@ def make_torch_native_engine_factory(device, lmax: int = 128,
         eng = TorchNativeEngine(index, allow_ambig, valid_frac, pe_min_dist,
                                 pe_max_dist, lmax=lmax, unit_batch=unit_batch,
                                 n_threads=n_threads, device=device,
-                                mesh_devices=mesh_devices)
+                                mesh_devices=mesh_devices,
+                                device_align=device_align,
+                                align_jcap=align_jcap,
+                                device_stage2=device_stage2)
         _engine_memo[key] = (index, eng)
         return eng
 

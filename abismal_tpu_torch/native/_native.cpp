@@ -1385,8 +1385,11 @@ index_capture_kept(const uint8_t *nib, int64_t n, const int64_t *exc_s,
   // 25-symbol / 16-symbol window reads) rather than rolled at every
   // position: the DP keeps only ~5-8% of positions, so O(kept * window)
   // beats O(genome * 3 rolls), and the keep bitmap is skipped 64 bytes at
-  // a time.  A 16-symbol Horner in base 3 stays below 3^16, so the
-  // rolling form's modulo never fires -- values are identical.
+  // a time.  The rolling form's value is the last 16 symbols' Horner in
+  // base 3 modulo 3^16.  IUPAC genome codes give symbol 3 (R for C->T, Y
+  // for G->A, ...), which can carry the Horner past 3^16, so the key takes
+  // the modulo here too; unreduced, such a key counted and placed past
+  // the end of the bucket tables.
   auto key2_at = [&](int64_t p) {
 #if defined(__AVX512BW__) && defined(__AVX512VL__)
     const uint32_t m = _mm256_testn_epi8_mask(
@@ -1424,8 +1427,8 @@ index_capture_kept(const uint8_t *nib, int64_t n, const int64_t *exc_s,
           ht = ht * 3 + nib_three_ct(nib[p + j]);
           ha = ha * 3 + nib_three_ga(nib[p + j]);
         }
-        vkt[t].push_back(ht);
-        vka[t].push_back(ha);
+        vkt[t].push_back(ht % HASH_MASK_THREE);
+        vka[t].push_back(ha % HASH_MASK_THREE);
         vp3[t].push_back((uint32_t)p);
       }
     };

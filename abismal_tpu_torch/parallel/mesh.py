@@ -72,7 +72,8 @@ def _run_slices(prog, devices, replicas, args, shared=()):
     program's order: those at the positions in shared whole, the others
     cut into len(devices) contiguous slices along their first axis.  All
     slots are enqueued before any result is copied back; returns the
-    rows concatenated in slot order, on the CPU."""
+    rows concatenated in slot order, on the CPU (for a program that
+    returns a tuple, a tuple of them)."""
     n = len(devices)
     for i, a in enumerate(args):
         if i not in shared and a.shape[0] % n:
@@ -87,7 +88,26 @@ def _run_slices(prog, devices, replicas, args, shared=()):
             outs.append(prog(*rep.tables(), *(
                 torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in sl)))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat([o[k].cpu() for o in outs])
+                     for k in range(len(outs[0])))
     return torch.cat([o.cpu() for o in outs])
+
+
+def shard_stage1(stage1, devices):
+    """The event-stream program (build_stage1) over the mesh (↔ JAX
+    shard_stage1): wrapped(replicas, pnib, lens, is_ga, thr), host arrays
+    split by unit.  Returns (ev, cf, total_events) on the CPU: each slot's
+    (2, gcap) stream, slot s on rows (2s, 2s + 1); the count | overflow
+    words of every unit in order; the accepted events summed over the
+    slots on the host (JAX's psum)."""
+
+    def wrapped(replicas, pnib, lens, is_ga, thr):
+        ev, cf = _run_slices(stage1, devices, replicas,
+                             (pnib, lens, is_ga, thr))
+        return ev, cf, int((cf & 0x3FFFFFFF).sum())
+
+    return wrapped
 
 
 def shard_stage12(stage12, devices):

@@ -6,12 +6,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. build    nvcc-builds the port's kernels (csrc/*.cu) from the checkout,
               one nvcc per source at once, and prints what ptxas says of
               their registers and spills;
-  3. kernels  each kernel (K1 popcount_compare, K2 banded_score, K3
+  3. kernels  each kernel (K1 popcount_compare, K2 banded_score_packed,
+              which reads packed query rows and the packed genome, K3
               banded_trace and banded_trace_packed, its entry point on
               the main path) against its plain PyTorch version on the card,
-              at main-path shapes (K2 also at the paired-end program's
-              J = 16384, with negative bands and fill rows, and at
-              J = 8192 with the narrow bands of the default -m 0.1; K3 at
+              at main-path shapes (K2 at J = 8192 over a 256 MB packed
+              genome with the bands of real reads, at J = 8192 with mixed
+              bands, at the paired-end program's J = 16384, with negative
+              bands and fill rows, and at J = 8192 with the narrow bands of
+              the default -m 0.1; K3 at
               J2 = 1024 mixed bands, at the bands and length of real
               reads, and on 1024 and 2048 winners read from packed rows
               and a 256 MB packed genome), exact equality; both timed
@@ -39,11 +42,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
               K1 and K2 counters must move during these runs; then
               small_rpbat_pe under -a with random PBAT must equal the
               native engine, with pairs mated on the device;
-  6. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome:
+  6. events   the event-stream route (device_stage2=False: build_stage1's
+              events replayed by the native engine) on small, reads and
+              the six paired-end goldens, without and with device_align
+              (the native engine's alignment jobs scored by
+              banded_score_packed): SAM and mstats byte for byte; K1 must
+              launch in both, banded_score_packed in the align runs only;
+              then `map --device-align` with ABISMAL_TPU_STAGE2=0 in a
+              process of its own on small gives the golden but for @PG;
+  7. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome:
               20k simulated SE reads, then 20k simulated pairs, each mapped
               by the port and by the native engine: the SAM bytes must be
-              equal;
-  7. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
+              equal; the SE reads also through the event route with
+              device_align (reads/s beside the native control, fallback,
+              jobs scored on the device);
+  8. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
               mesh      two slots on cuda:0 (unit_batch 4096: each slot
                         maps 2048 units, the one-card chunk): small, reads,
                         small_pe, reads_pe give the goldens' SAM and mstats
@@ -55,9 +68,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                         dev_rate / (dev_rate + host_rate) from this call's
                         rates, equals the native SAM; the NativeShardServer
                         split on reads and reads_pe gives the goldens;
-              multihost run_map_multihost with 2 shards on reads and
-                        reads_pe gives the goldens, and the two `map
-                        --shard I:2` processes on small, concatenated,
+              multihost run_map_multihost with 2 shards on small and
+                        reads_pe gives the goldens, and the two
+                        `map --shard I:2`
+                        processes on small (single-end), concatenated,
                         give the golden but for the @PG line;
               K1-K3 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
@@ -90,8 +104,19 @@ SCALE_MB = 1000  # the hg38-size stand-in genome of the scale phase
 # the kernels of the main path, by the wrapper that launches each
 REPLACES = {
     "popcount_compare": "abismal_tpu/kernels/popcount_compare.py:34",
-    "banded_score": "abismal_tpu/kernels/banded_align.py:44",
+    # K2, at the fused programs' call sites and behind build_device_align
+    # (banded_align.py:358)
+    "banded_score_packed": "abismal_tpu/kernels/banded_align.py:44",
     "banded_trace_packed": "abismal_tpu/kernels/banded_align.py:99",
+}
+# the kernels phase's cases of each entry point
+CASES = {
+    "popcount_compare": ("popcount_compare",),
+    "banded_score_packed": ("banded_score_packed", "banded_score_mixed",
+                            "banded_score_pe", "banded_score_narrow"),
+    "banded_trace_packed": ("banded_trace", "banded_trace_reads",
+                            "banded_trace_packed",
+                            "banded_trace_packed_2048"),
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
 # 67 TFLOP/s of fp32 outside the tensor cores, which counts an FMA as two
@@ -123,13 +148,18 @@ K3_CHAIN_CYCLES = 100
 
 SOURCES = {
     "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
-    "banded_score": "abismal_tpu_torch/csrc/banded_align.cu",
+    "banded_score_packed": "abismal_tpu_torch/csrc/banded_align.cu",
     "banded_trace_packed": "abismal_tpu_torch/csrc/banded_align.cu",
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One phase's JSON line, with the script's wall time so far."""
+    print(json.dumps({"phase": phase, **kv,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond, msg):
@@ -234,9 +264,9 @@ def k1_inputs(rng, dev, B=2048, cand=64, nw_words=16, n_gw=1 << 20):
 def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0,
                bands=(1, 5, 61, 3, 9, 21, 41), length=None):
     """Banded-alignment jobs over a random one-hot genome with IUPAC
-    nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos); job
-    i takes band bands[i mod len(bands)] and a length drawn from 36 to
-    lmax, or the one given."""
+    nibbles: (q (n, lmax) u8, win (n, lmax + QOFF) u8, bw, qsz, pos,
+    genome (G,) u8 nibbles); job i takes band bands[i mod len(bands)] and
+    a length drawn from 36 to lmax, or the one given."""
     import numpy as np
 
     from abismal_tpu_torch.kernels.banded_align import QOFF, win_start
@@ -282,7 +312,25 @@ def align_jobs(rng, n, lmax=128, n_pad=0, overflow=0,
         q[i, : r.shape[0]] = r
         win[i] = genome[g0 : g0 + ww]
         bw[i], qsz[i], pos[i] = b, r.shape[0], p
-    return q, win, bw, qsz, pos
+    return q, win, bw, qsz, pos, genome
+
+
+def packed_jobs(dev, genome, q, bw, qsz, pos):
+    """banded_score_packed's arguments for jobs given as query rows q over
+    a genome of nibbles: the genome packed eight nibbles a word (64 zero
+    guard words), the query rows two nibbles a byte, one unit row each."""
+    import numpy as np
+    import torch
+
+    g = np.zeros(-(-genome.shape[0] // 8) * 8 + 64 * 8, np.uint32)
+    g[: genome.shape[0]] = genome
+    genome32 = (g.reshape(-1, 8) << (4 * np.arange(8, dtype=np.uint32))).sum(
+        axis=1, dtype=np.uint32).view(np.int32)
+    pnib = q[:, 0::2] | (q[:, 1::2] << np.uint8(4))
+    unit = np.arange(q.shape[0], dtype=np.int64)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        genome32, pnib, unit, pos.astype(np.int64), bw.astype(np.int64),
+        qsz.astype(np.int64))] + [q.shape[1]]
 
 
 def k1_bound(genome32, pos, pk, b_of, nw_of):
@@ -413,15 +461,22 @@ def kernel_cases(dev):
     def on_card(*arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
-    def score_case(name, q, win, bw, qsz, reps_plain, **extra):
-        t = on_card(q, win, bw[:, None], qsz[:, None])
+    def score_case(name, args, reps_plain, **extra):
+        """K2 on packed operands: bytes per job its four int64 and its
+        score, and for a live job its packed query row and genome
+        window."""
+        genome32, pnib, unit, pos, bw, qsz, lmax = args
+        J = unit.shape[0]
+        live = (bw > 0) & (qsz > 0)
+        nbytes = J * (4 * 8 + 4) + int(live.sum()) * (
+            pnib.shape[1] + (lmax + ba.QOFF + 1) // 2)
         return dict(
-            name=name, plain=ba.banded_score_plain, kernel=ba.banded_score,
-            args=t, reps_plain=reps_plain,
-            bound=bound(nbytes_of(*t) + 4 * q.shape[0], OPS_PER_CELL_SCORE
-                        * live_cells(q.shape[1], t[2], t[3])),
-            extra=dict(shape=f"J={q.shape[0]}",
-                       mean_band=float(bw[bw > 0].mean()), **extra))
+            name=name, plain=ba.banded_score_packed_plain,
+            kernel=ba.banded_score_packed, args=args, reps_plain=reps_plain,
+            bound=bound(nbytes, OPS_PER_CELL_SCORE
+                        * live_cells(lmax, bw, qsz)),
+            extra=dict(shape=f"J={J}",
+                       mean_band=float(bw[live].double().mean()), **extra))
 
     rng = np.random.default_rng(7)
     cases = []
@@ -431,23 +486,34 @@ def kernel_cases(dev):
         kernel=pc.popcount_compare, args=list(args), reps_plain=5,
         bound=k1_bound(*args), extra=dict(shape=f"G={args[1].shape[0]}")))
 
-    q, win, bw, qsz, _ = align_jobs(rng, 8192, n_pad=512)
-    cases.append(score_case("banded_score", q, win, bw, qsz, 3))
+    # K2: the align_jcap jobs the device-align route gives one chunk, with
+    # the bands of real reads, over a 256 MB genome (windows leave it too)
+    t = packed_trace_inputs(dev, 8192, PACKED_GENOME_WORDS, 67)
+    genome32, pnib, unit, bw, qsz, pos, _do_tb, lmax = t
+    cases.append(score_case("banded_score_packed",
+                            [genome32, pnib, unit, pos, bw, qsz, lmax], 3,
+                            genome_bytes=4 * PACKED_GENOME_WORDS))
+
+    q, _, bw, qsz, pos, genome = align_jobs(rng, 8192, n_pad=512)
+    cases.append(score_case("banded_score_mixed",
+                            packed_jobs(dev, genome, q, bw, qsz, pos), 3))
 
     # the paired-end program's shape: 8 jobs x 2048 units, negative bands
     # (IUPAC diffs are not remapped there) and fill rows (bw 1, qsz 0);
     # a seed of its own leaves the K3 inputs below as they were
     rng_pe = np.random.default_rng(17)
-    q, win, bw, qsz, _ = align_jobs(rng_pe, 16384, n_pad=1024)
+    q, _, bw, qsz, pos, genome = align_jobs(rng_pe, 16384, n_pad=1024)
     bw[3::7] = -(2 * rng_pe.integers(0, 30, bw[3::7].shape[0]) + 1)
     bw[5::11], qsz[5::11] = 1, 0
-    cases.append(score_case("banded_score_pe", q, win, bw, qsz, 2,
+    cases.append(score_case("banded_score_pe",
+                            packed_jobs(dev, genome, q, bw, qsz, pos), 2,
                             negative_bands=int((bw < 0).sum())))
 
     # the bands real reads give at the default -m 0.1 (seed of its own)
-    q, win, bw, qsz, _ = align_jobs(np.random.default_rng(27), 8192,
-                                    n_pad=512, bands=NARROW_BANDS)
-    cases.append(score_case("banded_score_narrow", q, win, bw, qsz, 3))
+    q, _, bw, qsz, pos, genome = align_jobs(np.random.default_rng(27), 8192,
+                                            n_pad=512, bands=NARROW_BANDS)
+    cases.append(score_case("banded_score_narrow",
+                            packed_jobs(dev, genome, q, bw, qsz, pos), 3))
 
     def trace_case(name, q, win, bw, qsz, pos, do_tb):
         t = on_card(q, win, bw, qsz, pos, do_tb)
@@ -460,7 +526,7 @@ def kernel_cases(dev):
                         * live_cells(q.shape[1], t[2], t[3])),
             extra=dict(shape=f"J2={J2}", mean_band=float(bw[qsz > 0].mean())))
 
-    q, win, bw, qsz, pos = align_jobs(rng, 1024, n_pad=128, overflow=4)
+    q, win, bw, qsz, pos, _ = align_jobs(rng, 1024, n_pad=128, overflow=4)
     do_tb = rng.random(1024) < 0.9
     do_tb[:4] = True
     bw[~do_tb], qsz[~do_tb] = 1, 0
@@ -468,8 +534,8 @@ def kernel_cases(dev):
 
     # the winners real reads give: 100 bases, bands of READ_BANDS
     rng_r = np.random.default_rng(37)
-    q, win, bw, qsz, pos = align_jobs(rng_r, 1024, bands=READ_BANDS,
-                                      length=READ_LENGTH)
+    q, win, bw, qsz, pos, _ = align_jobs(rng_r, 1024, bands=READ_BANDS,
+                                         length=READ_LENGTH)
     do_tb = rng_r.random(1024) < 0.9
     bw[~do_tb], qsz[~do_tb] = 1, 0
     cases.append(trace_case("banded_trace_reads", q, win, bw, qsz, pos,
@@ -548,7 +614,7 @@ def phase_kernels(dev):
         if name == "popcount_compare":
             res[name]["ms_rotating"] = k1_rotating_ms(dev, kernel)
         if name == "banded_score_pe":
-            check(bool((want[args[2] < 0] == 0).all()),
+            check(bool((want[args[4] < 0] == 0).all()),
                   "negative bands must score 0")
         if name.startswith("banded_trace"):
             # under one wave of warps no layout reaches the bound, which
@@ -593,6 +659,11 @@ def golden_identical(prefix, sam, mstats):
         with gzip.open(os.path.join(GOLDEN, prefix + ext), "rb") as f:
             same.append(open(path, "rb").read() == f.read())
     return same
+
+
+def sam_body(sam):
+    """A SAM's lines but the @PG line, which records the run's argv."""
+    return [ln for ln in sam.split(b"\n") if not ln.startswith(b"@PG")]
 
 
 def md5(path):
@@ -679,30 +750,32 @@ def port_map(factory, index, fq, sam, mstats, cl, threads, fq2=None, **kw):
 
 
 class BandRecorder:
-    """Stands in for the pipeline's banded_score while a run is mapped and
-    counts the bands of its live jobs (qsz > 0); bands below 0 count at
-    -1.  The kernel's wrapper runs as ever."""
+    """Stands in for the pipeline's K2 entry point `name`
+    (banded_score_packed) while a run is mapped and counts the bands of
+    its live jobs (qsz > 0, the last two arguments but for lmax); bands
+    below 0 count at -1.  The kernel's wrapper runs as ever."""
 
-    def __init__(self, pipeline):
-        self.pipeline = pipeline
-        self.inner = pipeline.banded_score
+    def __init__(self, pipeline, name):
+        self.pipeline, self.name = pipeline, name
+        self.inner = getattr(pipeline, name)
         self.hist = None  # on the device, added to without a sync
 
-    def __call__(self, q, win, bw, qsz):
+    def __call__(self, *args):
         import torch
 
+        bw, qsz = [a for a in args if torch.is_tensor(a)][-2:]
         if self.hist is None:
             self.hist = torch.zeros(66, dtype=torch.int64, device=bw.device)
         self.hist.scatter_add_(0, bw.reshape(-1).long().clamp(-1, 64) + 1,
                                (qsz.reshape(-1) > 0).long())
-        return self.inner(q, win, bw, qsz)
+        return self.inner(*args)
 
     def __enter__(self):
-        self.pipeline.banded_score = self
+        setattr(self.pipeline, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.pipeline.banded_score = self.inner
+        setattr(self.pipeline, self.name, self.inner)
 
     def summary(self):
         import numpy as np
@@ -736,7 +809,8 @@ def phase_goldens(dev, threads):
     eng = factory(index, False, 0.1, 32, 3000)
     eng.profile = True
     out = {"index": how, "index_s": t_index}
-    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace_packed)
+    kernels = (pc.popcount_compare, ba.banded_score_packed,
+               ba.banded_trace_packed)
     for k in kernels:
         k.launches = 0
     for prefix in ("small", "reads"):
@@ -757,7 +831,7 @@ def phase_goldens(dev, threads):
     # the bands K2 gets on `reads`, from a run of its own: the recorder
     # adds a scatter per chunk, which the timed runs above do not carry
     fq = os.path.join(WORK, "reads_1.fq")
-    with BandRecorder(pipeline) as rec:
+    with BandRecorder(pipeline, "banded_score_packed") as rec:
         map_with(factory, index, fq, os.path.join(WORK, "bands.sam"), None,
                  "bands", threads)
     out["k2_bands_reads"] = rec.summary()
@@ -788,7 +862,7 @@ def phase_goldens_pe(dev, threads, index):
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
     native = make_native_engine_factory(n_threads=threads)
     out = {}
-    kernels = (pc.popcount_compare, ba.banded_score)
+    kernels = (pc.popcount_compare, ba.banded_score_packed)
     for k in kernels:
         k.launches = 0
     for prefix, pbat in PE_GOLDENS:
@@ -816,7 +890,7 @@ def phase_goldens_pe(dev, threads, index):
         check(n > 0, f"{name} was not launched on the paired-end path")
     # the bands of `reads_pe`, recorded outside the timed runs
     fq1, fq2 = (os.path.join(WORK, f"reads_pe_{e}.fq") for e in (1, 2))
-    with BandRecorder(pipeline) as rec:
+    with BandRecorder(pipeline, "banded_score_packed") as rec:
         map_with(factory, index, fq1, os.path.join(WORK, "bands_pe.sam"),
                  None, "bands", threads, fq2)
     out["k2_bands_reads_pe"] = rec.summary()
@@ -838,6 +912,64 @@ def phase_goldens_pe(dev, threads, index):
     return out, launches
 
 
+def phase_events(dev, threads, index):
+    """The event-stream route (device_stage2=False) on the goldens, without
+    and with device_align: SAM and mstats byte for byte; K1 launches in
+    both, banded_score_packed in the align runs alone."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+
+    out = {}
+    launches = {"popcount_compare": 0, "banded_score_packed": 0}
+    for align in (False, True):
+        factory = make_torch_native_engine_factory(
+            dev, n_threads=threads, device_stage2=False, device_align=align)
+        eng = factory(index, False, 0.1, 32, 3000)
+        for k in (pc.popcount_compare, ba.banded_score_packed):
+            k.launches = 0
+        for prefix, pbat in (("small", False), ("reads", False))+PE_GOLDENS:
+            fq1, fq2 = golden_fastqs(prefix)
+            sam = os.path.join(WORK, f"events_{prefix}.sam")
+            mst = os.path.join(WORK, f"events_{prefix}.mstats")
+            flag = "-P " if pbat else ""
+            a0 = eng.n_device_aligned
+            st = port_map(factory, index, fq1, sam, mst,
+                          golden_cl(prefix, flag), threads, fq2, pbat=pbat)
+            sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+            st.update(sam_identical=sam_ok, mstats_identical=mst_ok,
+                      n_device_aligned=eng.n_device_aligned - a0)
+            check(sam_ok and mst_ok, f"events {prefix} (device_align "
+                  f"{align}): output differs from the golden")
+            out[f"{prefix}{'_align' if align else ''}"] = st
+        check(pc.popcount_compare.launches > 0,
+              "popcount_compare was not launched on the event route")
+        moved = ba.banded_score_packed.launches
+        check(moved > 0 if align else moved == 0,
+              f"banded_score_packed launched {moved} times with "
+              f"device_align {align}")
+        launches["popcount_compare"] += pc.popcount_compare.launches
+        launches["banded_score_packed"] += moved
+    out["launches"] = launches
+    # the CLI on the card, as a user runs the route: ABISMAL_TPU_STAGE2=0
+    # and --device-align, on small; the golden SAM but for the @PG line
+    sam = os.path.join(WORK, "events_cli.sam")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "abismal_tpu_torch", "map", "--device-align",
+         "-o", sam, "-i", os.path.join(WORK, "tRex1.idx"),
+         gunzip_to("small_1.fq", WORK)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, ABISMAL_TPU_STAGE2="0"))
+    check(res.returncode == 0, f"map --device-align: {res.stderr[-2000:]}")
+    with gzip.open(os.path.join(GOLDEN, "small.sam.gz"), "rb") as f:
+        same = sam_body(open(sam, "rb").read()) == sam_body(f.read())
+    check(same, "map --device-align (ABISMAL_TPU_STAGE2=0): the SAM "
+          "differs from the golden")
+    out["cli_device_align_small"] = dict(
+        seconds=time.perf_counter() - t0, sam_identical_but_pg=same)
+    return out, launches
+
+
 def gen_genome(path, total):
     """tools/scale_test.py:gen_genome, loaded from its file so that tools/
     does not go on sys.path."""
@@ -851,6 +983,7 @@ def gen_genome(path, total):
 def phase_scale(dev, threads):
     import torch
 
+    from abismal_tpu_torch.device import card_info
     from abismal_tpu_torch.host import (
         SimConfig, create_index, make_native_engine_factory, simulate_reads,
     )
@@ -883,6 +1016,23 @@ def phase_scale(dev, threads):
                       fq, sam_n, None, "scale", threads)
     same = open(sam_t, "rb").read() == open(sam_n, "rb").read()
     check(same, "scale: port SAM differs from the native engine's")
+    # the event-stream route with device_align on the same reads
+    fac_ev = make_torch_native_engine_factory(
+        dev, n_threads=threads, device_stage2=False, device_align=True)
+    eng_ev = fac_ev(index, False, 0.1, 32, 3000)
+    sam_e = os.path.join(WORK, "scale_events.sam")
+    events = {}
+    for run in ("first", "warm"):
+        a0 = eng_ev.n_device_aligned
+        events[run] = port_map(fac_ev, index, fq, sam_e, None, "scale",
+                               threads)
+        events[run]["n_device_aligned"] = eng_ev.n_device_aligned - a0
+        check(open(sam_e, "rb").read() == open(sam_n, "rb").read(),
+              f"scale events ({run}): SAM differs from the native engine's")
+        check(events[run]["n_device_aligned"] > 0,
+              "scale events: no job was scored on the device")
+    events.update(sam_identical=True, native_reads_per_s=20000 / secs_n,
+                  card=card_info())
 
     # the same genome and index, 20k pairs at the goldens' parameters
     t4 = time.perf_counter()
@@ -907,6 +1057,7 @@ def phase_scale(dev, threads):
     res = dict(genome_mb=SCALE_MB, gen_s=t1 - t0, index_s=t2 - t1,
                sim_s=t3 - t2, first=st, warm=st_warm,
                native_reads_per_s=20000 / secs_n, sam_identical=same, pe=pe,
+               events_align=events,
                cand_budget=eng.cand_budget,
                ext_pool=eng._informed_ext_pool(),
                table_bytes=eng.dev.nbytes(),
@@ -924,7 +1075,8 @@ def phase_scale(dev, threads):
 # --- phase 7 -------------------------------------------------------------------
 
 MESH_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
-SPLIT_GOLDENS = ("reads", "reads_pe")  # the server split and multihost
+SPLIT_GOLDENS = ("reads", "reads_pe")  # the server split
+MULTIHOST_GOLDENS = ("small", "reads_pe")  # run_map_multihost
 SHARD_CLI_GOLDEN = "small"
 
 
@@ -934,11 +1086,12 @@ def golden_fastqs(prefix):
     return fq1, fq2
 
 
-def golden_cl(prefix):
-    """The argv the (non-PBAT) golden was mapped with, MANIFEST.md."""
+def golden_cl(prefix, flag=""):
+    """The argv the golden was mapped with, MANIFEST.md (flag: "-P " for
+    the PBAT ones)."""
     tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq"
             if prefix.endswith("_pe") else f"tests/{prefix}_1.fq")
-    return (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
+    return (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
             f"-i tests/tRex1.idx {tail}")
 
 
@@ -1018,7 +1171,8 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.parallel.multihost import run_map_multihost
 
-    kernels = (pc.popcount_compare, ba.banded_score, ba.banded_trace_packed)
+    kernels = (pc.popcount_compare, ba.banded_score_packed,
+               ba.banded_trace_packed)
     rates = {**rates, **sets["rates"]}
     big = sets["index"]
     n_cards = torch.cuda.device_count()
@@ -1123,7 +1277,7 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
     idx = os.path.join(WORK, "tRex1.idx")
     per_host = max(1, threads // 2)
     mh = {}
-    for prefix in SPLIT_GOLDENS:
+    for prefix in MULTIHOST_GOLDENS:
         fq1, fq2 = golden_fastqs(prefix)
         sam = os.path.join(WORK, f"multihost_{prefix}.sam")
         mst = os.path.join(WORK, f"multihost_{prefix}.mstats")
@@ -1137,9 +1291,9 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
               "the golden")
         unit = "pairs" if fq2 else "reads"
         n = n_reads_of(fq1)
-        mh[prefix] = rated({unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
-                            "sam_identical": sam_ok,
-                            "mstats_identical": mst_ok}, prefix)
+        st = {unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
+              "sam_identical": sam_ok, "mstats_identical": mst_ok}
+        mh[prefix] = rated(st, prefix) if prefix in rates else st
     # `map --shard I:2`, one process per shard, both at once
     fq1, _ = golden_fastqs(SHARD_CLI_GOLDEN)
     parts = [os.path.join(WORK, f"shard{i}.sam") for i in range(2)]
@@ -1164,16 +1318,35 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
                    "rb") as f:
         golden = f.read()
 
-    def body(sam):
-        return [ln for ln in sam.split(b"\n") if not ln.startswith(b"@PG")]
-
-    same = body(gathered) == body(golden)
+    same = sam_body(gathered) == sam_body(golden)
     check(same, "map --shard: the gathered shards differ from the golden")
     mh["shard_cli_" + SHARD_CLI_GOLDEN] = dict(
         seconds=secs, sam_identical_but_pg=same)
     out["multihost"] = mh
     return out, {name: sum(ls[name] for ls in launches.values())
                  for name in launches["mesh"]}
+
+
+def kernels_line(kres, phase_launches):
+    """The kernels' summary: one entry per entry point, its launches
+    summed over the main paths' phases (each phase's counts were taken
+    from zero), every number measured in the kernels phase."""
+    line = []
+    for name in REPLACES:
+        k = kres[name]
+        entry = dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=sum(ls.get(name, 0) for ls in phase_launches),
+            max_abs_err=max(kres[c]["max_abs_err"] for c in CASES[name]),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"],
+            # no single PyTorch call computes any of these functions
+            library_ms=None)
+        check(entry["launches"] > 0,
+              f"{name} was not launched on the main paths")
+        line.append(entry)
+    return line
 
 
 def main():
@@ -1222,6 +1395,9 @@ def main():
         pres, launches_pe = phase_goldens_pe(dev, threads, index)
         emit("goldens_pe", **pres)
 
+        eres, launches_ev = phase_events(dev, threads, index)
+        emit("events", **eres)
+
         sres, sets = phase_scale(dev, threads)
         emit("scale", **sres)
 
@@ -1236,29 +1412,13 @@ def main():
         check(not [m for m in sys.modules
                    if m == "abismal_tpu" or m.startswith("abismal_tpu.")],
               "the port loaded the JAX package abismal_tpu")
+        line = kernels_line(kres, (launches, launches_pe, launches_ev,
+                                   launches_out))
     except Exception:
         traceback.print_exc()
         return 1
 
     print(card, flush=True)
-    # K3's cases all run one device code behind two entry points
-    cases_of = {"banded_trace_packed": "banded_trace"}
-    line = []
-    for name in REPLACES:
-        k = kres[name]
-        entry = dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name],
-            launches=(launches[name] + launches_pe.get(name, 0)
-                      + launches_out[name]),
-            max_abs_err=max(kres[c]["max_abs_err"] for c in kres
-                            if isinstance(kres[c], dict)
-                            and c.startswith(cases_of.get(name, name))),
-            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"],
-            # no single PyTorch call computes any of the three functions
-            library_ms=None)
-        line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ then asked in turns (A B, B A, A B, ...), one pass at a time while the
 others sleep: the 20k reads with the port engine (se), the 20k pairs
 (pe), and the 20k reads with the native engine alone (native), whose C++
 is the control.  A pass is a whole run_map, reads in, SAM out, as in the
-scale phase; its rate and its mean device span per chunk are printed, and
+scale phase; its rate, its mean device span per chunk and the part of it
+from the decisions to K2's scores (score_ms) are printed, and
 at the end per checkout the median of each, and whether the SAMs of all
 checkouts are the same bytes.  The genome, the read sets and the mapping
 helpers are those of the chip_smoke.py beside this script."""
@@ -87,6 +88,7 @@ def worker(tree, work, fa, fq, fq1, fq2):
                          "scale", threads, pair)
         return {"per_s": st["pairs_per_s" if pair else "reads_per_s"],
                 "span_ms": st.get("total_ms"),
+                "score_ms": st.get("score_ms"),
                 "dispatch_s": st["host_s"].get("device dispatch")}, out
 
     md5s = {}
@@ -172,7 +174,7 @@ def main():
         for kind in KINDS:
             for i, tree in enumerate(a.tree):
                 row = {"kind": kind, "tree": tree, "slot": i}
-                for key in ("per_s", "span_ms", "dispatch_s"):
+                for key in ("per_s", "span_ms", "score_ms", "dispatch_s"):
                     vals = [r[key] for r in res[kind][i]
                             if r.get(key) is not None]
                     if vals:

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K3_CASES, LMAX, _genome, _job_arrays, _k1_arrays, _k3_case,
-    _packed_arrays, _pe_score_arrays, _random_jobs,
+    K3_CASES, LMAX, _k1_arrays, _k2_case, _k3_case, _packed_arrays,
+    _packed_score_arrays,
 )
 
 torch.set_num_threads(1)
@@ -146,35 +146,45 @@ def test_emulated_banded_trace_packed(emulated, lmax, R):
     assert int((meta[:, 0] > 0).sum()) > R // 2
 
 
+def _score_packed(lib, arrs, lmax):
+    """K2 (banded_score_packed_launch) on the operands arrs, emulated;
+    returns its scores and the plain version's."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    genome32, pnib, unit, pos, bw, qsz = arrs
+    J = unit.shape[0]
+    a = [_c(genome32, np.int32), _c(pnib, np.uint8)] + [
+        _c(x, np.int64) for x in (unit, pos, bw, qsz)]
+    out = np.full(J, -7, np.int32)
+    rc = lib["banded_score_packed_launch"](
+        a[0].ctypes.data, a[0].shape[0], a[1].ctypes.data, a[1].shape[1],
+        min(lmax, 2 * pnib.shape[1]), *(x.ctypes.data for x in a[2:]),
+        out.ctypes.data, J, None)
+    assert rc == 0
+    want = ba.banded_score_packed_plain(
+        *(torch.from_numpy(x) for x in arrs), lmax)
+    return out, want.numpy()
+
+
 @pytest.mark.parametrize("case", ["mixed", "narrow", "negative-fill",
                                   "ragged", "byte-rows"])
 def test_emulated_banded_score_cases(emulated, case):
     """K2's CUDA source where its lane groups change (the cases of
     test_banded_score_kernel_cases, 128 jobs of each)."""
-    from abismal_tpu_torch.kernels import banded_align as ba
+    out, want = _score_packed(emulated, *_k2_case(case, 128))
+    np.testing.assert_array_equal(out, want)
+    assert int((out > 0).sum()) > out.shape[0] // 2
 
-    if case == "negative-fill":
-        q, win, bw, qsz = _pe_score_arrays(13, 128)
-    else:
-        rng, genome = _genome(14, iupac=50)
-        J = 123 if case == "ragged" else 128
-        bws = (1, 3, 5, 9, 13, 21) if case == "narrow" else (
-            1, 3, 5, 21, 24, 32, 33, 41, 61)
-        q, win, bw, qsz, _, _ = _job_arrays(
-            genome, _random_jobs(rng, genome, J - 8, bws=bws), J)
-    if case == "byte-rows":  # lq = 126, lw = 187: neither a multiple of 4
-        q, win = q[:, : LMAX - 2], win[:, : LMAX + 59]
-    J = q.shape[0]
-    a = [_c(q, np.uint8), _c(win, np.uint8), _c(bw.reshape(J), np.int32),
-         _c(qsz.reshape(J), np.int32)]
-    out = np.full(J, -7, np.int32)
-    rc = emulated["banded_score_launch"](
-        a[0].ctypes.data, a[0].shape[1], a[1].ctypes.data, a[1].shape[1],
-        a[2].ctypes.data, a[3].ctypes.data, out.ctypes.data, J, None)
-    assert rc == 0
-    want = ba.banded_score_plain(*(torch.from_numpy(x) for x in (
-        a[0], a[1], a[2][:, None], a[3][:, None])))
-    np.testing.assert_array_equal(out, want.numpy()[:, 0])
+
+@pytest.mark.parametrize("lmax,J", [(LMAX, 70), (125, 33)])
+def test_emulated_banded_score_packed(emulated, lmax, J):
+    """K2's packed entry point: IUPAC codes, windows before nibble 0 and
+    past the genome's end, negative bands, fill rows, an odd row length
+    and a job count that is not a multiple of a warp's four."""
+    out, want = _score_packed(emulated, _packed_score_arrays(42, J, 3000),
+                              lmax)
+    np.testing.assert_array_equal(out, want)
+    assert int((out > 0).sum()) > J // 2
 
 
 @pytest.mark.parametrize("kw", [

@@ -103,13 +103,29 @@ def ref_index():
     return read_index(port_index_file())
 
 
-@pytest.fixture(scope="module", autouse=True)
-def release_engines():
-    """Engines are memoized per index and hold over a GB of tables each:
-    a module drops them when it is done, so that a test worker's memory
-    does not grow with every file it runs."""
-    yield
+def _drop_engines():
+    import sys
+
     from abismal_tpu_torch.map import pipeline
 
-    pipeline._engine_memo.clear()
+    pipeline.release_engines()
+    ref = sys.modules.get("abismal_tpu.map.pipeline")
+    if ref is not None:
+        for memo in (ref._engine_memo, ref._stage1_memo, ref._stage12_memo,
+                     ref._stage12pe_memo):
+            memo.clear()
+    if "jax" in sys.modules:
+        sys.modules["jax"].clear_caches()
     gc.collect()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_engines():
+    """Engines are memoized per index and hold over a GB of tables each,
+    and compiled JAX programs hold more: a module drops both, its own when
+    it is done and those a module run before it on this worker left (the
+    JAX package's memoized engines and programs too), so that a test
+    worker's memory does not grow with every file it runs."""
+    _drop_engines()
+    yield
+    _drop_engines()

@@ -113,14 +113,16 @@ def _helper_results(pkg, index):
             out[f"is_ga/{arm}/{rp}"] = statics._pe_is_ga_pattern(arm, rp)
     out["get_conv_is_ga"] = [seeds.get_conv_is_ga(c)
                              for c in (0, 0x10, 0x1000, 0x1010)]
+    pnib, plens = helpers.prepare_units(units + [units[0][:0]], 128)
+    out["prepare_units/pnib"], out["prepare_units/lens"] = pnib, plens
     return out
 
 
 def test_numpy_helpers_agree(port_index):
     """win_start, pack_genome_u32, o_spec_for, ext_iters_for,
     estimate_cand_budget, _resolve_cand_budget, _ascii_matrices, the
-    strand-code and conversion patterns and get_conv_is_ga: equal results
-    through both packages."""
+    strand-code and conversion patterns, get_conv_is_ga and prepare_units:
+    equal results through both packages."""
     import importlib
 
     def package(name, ref):
@@ -280,3 +282,137 @@ def test_shard_helpers_agree(tmp_path):
     assert (tmp_path / "own").read_bytes() == data
     assert (tmp_path / "ref").read_bytes() == data
     assert own._SE_FIELDS == ref._SE_FIELDS
+
+
+def _revcomp_iupac(s):
+    return s[::-1].translate(str.maketrans("ACGTRYKMSWBDHVN",
+                                           "TGCAYRMKSWVHDBN"))
+
+
+def test_iupac_genome_indexes_and_maps_as_native(tmp_path):
+    """A genome with Y, R and W spots (and every IUPAC code but N): the
+    port's create_index writes the JAX package's bytes, and pairs and
+    single reads from it map through the port's native engine as through
+    the JAX package's, and through the device engine's event route as
+    through the port's native engine.  The fused route maps the single
+    reads as the native engine does and the pairs as the JAX package's
+    fused route does: its mating sweep scores the negative bands of IUPAC
+    diffs 0 where the native engine takes the whole band, so on such a
+    genome both differ from the native engine (ROADMAP.md section 3)."""
+    import io
+
+    from abismal_tpu.index.build import create_index as ref_create_index
+    from abismal_tpu.index.serialize import read_index as ref_read_index
+    from abismal_tpu.index.serialize import write_index as ref_write_index
+    from abismal_tpu.map.native_engine import (
+        NativeMappingEngine as RefNativeEngine,
+    )
+    from abismal_tpu.map.pipeline import TpuNativeEngine
+    from abismal_tpu.map.stats import PEStats as RefPEStats
+    from abismal_tpu.map.stats import SEStats as RefSEStats
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.index.serialize import write_index
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.map.stats import PEStats, SEStats
+
+    rng = np.random.default_rng(11)
+    n = 120_000
+    seq = rng.choice(list("ACGT"), size=n)
+    # no N spots: with N and Y spots both, pairs decided on the device
+    # report NM one off the native engine's (the JAX program too;
+    # ROADMAP.md section 3)
+    for code, k in (("Y", 3000), ("R", 300), ("W", 300), ("K", 200),
+                    ("M", 200), ("S", 200), ("B", 200), ("D", 200),
+                    ("H", 200), ("V", 200)):
+        seq[rng.integers(200, n - 200, k)] = code
+    fa = tmp_path / "iupac.fa"
+    with open(fa, "w") as f:
+        f.write(">chrI\n")
+        text = "".join(seq)
+        for i in range(0, n, 70):
+            f.write(text[i : i + 70] + "\n")
+    index = create_index(str(fa))
+    write_index(index, str(tmp_path / "own.idx"))
+    ref_write_index(ref_create_index(str(fa)), str(tmp_path / "ref.idx"))
+    assert (md5_file(str(tmp_path / "own.idx"))
+            == md5_file(str(tmp_path / "ref.idx")))
+    # reads carry bases only: C to T (bisulfite), each IUPAC code to a
+    # base it stands for
+    conv = str.maketrans("CYRWKMSBDHV", "TTATGATTAAA")
+    reads, r1, r2 = [], [], []
+    for i in range(200):
+        p = int(rng.integers(200, n - 600))
+        frag = "".join(seq[p : p + 300]).translate(conv)
+        reads.append((f"r{i}", frag[:100].encode()))
+        r1.append((f"p{i}", frag[:100].encode()))
+        r2.append((f"p{i}", _revcomp_iupac(frag[-100:]).encode()))
+
+    def mapped(eng, se_stats, pe_stats):
+        o1, st1 = io.StringIO(), se_stats()
+        eng.map_se_reads(reads, False, False, st1, o1)
+        o2, st2 = io.StringIO(), pe_stats()
+        eng.map_pe_reads(r1, r2, False, False, st2, o2)
+        return o1.getvalue(), st1.tostring("reads"), o2.getvalue(), \
+            st2.tostring(False)
+
+    want = mapped(NativeMappingEngine(index, n_threads=2), SEStats, PEStats)
+    ref_index = ref_read_index(str(tmp_path / "ref.idx"))
+    ref = mapped(RefNativeEngine(ref_index, n_threads=2), RefSEStats,
+                 RefPEStats)
+    assert want == ref
+    assert want[2].count("\t99\t") > 100  # pairs mapped as pairs
+    # one engine (a GB of tables) at a time
+    assert mapped(TorchNativeEngine(
+        index, unit_batch=256, n_threads=2, device="cpu",
+        device_stage2=False), SEStats, PEStats) == want
+    fused = mapped(TorchNativeEngine(index, unit_batch=256, n_threads=2,
+                                     device="cpu", device_stage2=True),
+                   SEStats, PEStats)
+    assert fused[:2] == want[:2]
+    ref_fused = mapped(TpuNativeEngine(ref_index, unit_batch=256,
+                                       n_threads=2, device_stage2=True),
+                       RefSEStats, RefPEStats)
+    assert fused[2:] == ref_fused[2:]
+    assert fused[2] != want[2]  # the pairs reach negative bands
+
+
+def test_create_index_reduces_three_letter_keys(tmp_path):
+    """IUPAC codes give the three-letter alphabets a fourth symbol (R
+    under C->T, Y under G->A), which can carry a 16-symbol key past 3^16.
+    The native build reduces it modulo 3^16 as the rolling hash does: on a
+    genome with runs of R and Y its index equals, byte for byte, the NumPy
+    oracle builds of both packages, and each bucket table adds up to its
+    position list.  (Unreduced, such keys were counted and placed past the
+    ends of the tables: the heap fault once seen on IUPAC genomes.)"""
+    from abismal_tpu.index.build import create_index as ref_create_index
+    from abismal_tpu.index.serialize import write_index as ref_write_index
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.index.serialize import write_index
+
+    rng = np.random.default_rng(5)
+    n = 60_000
+    seq = rng.choice(list("ACGT"), size=n)
+    for s0 in rng.integers(100, n - 100, 200):
+        seq[s0 : s0 + 20] = list("RY" * 10)
+    fa = tmp_path / "ry.fa"
+    with open(fa, "w") as f:
+        f.write(">chrRY\n")
+        text = "".join(seq)
+        for i in range(0, n, 70):
+            f.write(text[i : i + 70] + "\n")
+    index = create_index(str(fa))
+    for table, counter in ((index.index, index.counter),
+                           (index.index_t, index.counter_t),
+                           (index.index_a, index.counter_a)):
+        assert int(counter[-1]) == table.shape[0]
+    md5s = []
+    for build, write, kw in ((create_index, write_index, {}),
+                             (create_index, write_index,
+                              {"numpy_build": True}),
+                             (ref_create_index, ref_write_index,
+                              {"numpy_build": True})):
+        out = str(tmp_path / f"i{len(md5s)}.idx")
+        write(index if not md5s else build(str(fa), **kw), out)
+        md5s.append(md5_file(out))
+    assert md5s[0] == md5s[1] == md5s[2]

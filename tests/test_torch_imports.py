@@ -93,9 +93,9 @@ ALONE = (
     "print('NO_JAX')\n")
 
 
-def _run_alone(argv, cwd):
+def _run_alone(argv, cwd, **env_extra):
     # one torch thread: test workers share the CPU
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", **env_extra)
     res = subprocess.run([sys.executable, "-c", ALONE, *argv],
                          capture_output=True, text=True, env=env,
                          cwd=str(cwd), timeout=600)
@@ -160,6 +160,25 @@ def test_cli_map_alone_gives_the_golden(tmp_path, port_index, prefix):
         fqs.append(golden_file(f"{prefix}_2.fq"))
     _run_alone(["map", "--device", "cpu", "-t", "2", "-s", str(mst), "-o",
                 str(sam), "-i", PORT_IDX, *fqs], tmp_path)
+    assert _sam_body(sam.read_text()) == _sam_body(
+        _golden_text(prefix + ".sam"))
+    assert mst.read_text() == _golden_text(prefix + ".mstats")
+
+
+@pytest.mark.parametrize("prefix,extra", [
+    ("small", ["--device-align"]), ("small_pe", []),
+], ids=["se-device-align", "pe"])
+def test_cli_map_event_route_alone(tmp_path, port_index, prefix, extra):
+    """ABISMAL_TPU_STAGE2=0 takes the CLI onto the event-stream route,
+    with --device-align too: the golden SAM (but for @PG) and mstats, and
+    no jax."""
+    sam, mst = tmp_path / "o.sam", tmp_path / "o.mstats"
+    fqs = [golden_file(f"{prefix}_1.fq")]
+    if prefix.endswith("_pe"):
+        fqs.append(golden_file(f"{prefix}_2.fq"))
+    _run_alone(["map", "--device", "cpu", "-t", "2", *extra, "-s", str(mst),
+                "-o", str(sam), "-i", PORT_IDX, *fqs], tmp_path,
+               ABISMAL_TPU_STAGE2="0")
     assert _sam_body(sam.read_text()) == _sam_body(
         _golden_text(prefix + ".sam"))
     assert mst.read_text() == _golden_text(prefix + ".mstats")

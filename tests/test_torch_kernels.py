@@ -116,16 +116,56 @@ def test_popcount_compare_plain_matches_jax(seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _pe_score_arrays(seed, J, iupac=60):
+def _pe_score_arrays(seed, J, iupac=60, packed=False):
     """K2 inputs as build_stage12pe gives them: bands 1..61, negative
     bands (IUPAC diffs below zero, never remapped) and fill rows (bw = 1,
-    qsz = 0) among the jobs, padding lanes at the end."""
+    qsz = 0) among the jobs, padding lanes at the end.  (q, win, bw, qsz),
+    or with packed banded_score_packed's operands (_as_packed)."""
     rng, genome = _genome(seed, iupac=iupac)
     jobs = _random_jobs(rng, genome, J - J // 16, bws=(1, 3, 5, 21, 41, 61))
-    q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, J)
+    q, win, bw, qsz, pos, _ = _job_arrays(genome, jobs, J)
     bw[3::7] = -(2 * rng.integers(0, 30, bw[3::7].shape[0]) + 1)
     bw[5::11], qsz[5::11] = 1, 0
+    if packed:
+        return _as_packed(genome, q, bw, qsz, pos)
     return q, win, bw[:, None], qsz[:, None]
+
+
+def _as_packed(genome, q, bw, qsz, pos, seed=0):
+    """banded_score_packed's operands (genome32, pnib, unit, pos, bw, qsz)
+    for jobs given as query rows q over a genome of nibbles: the genome
+    packed eight nibbles a word with its zero guard words, the query rows
+    packed two nibbles a byte and scattered over twice as many unit rows
+    of random bases."""
+    from abismal_tpu_torch.map.host_units import pack_genome_u32
+
+    J, lq = q.shape
+    genome32 = pack_genome_u32(_pack_u64(genome)).view(np.int32)
+    rng = np.random.default_rng(seed)
+    U = (1 << rng.integers(0, 4, (2 * J, lq + lq % 2))).astype(np.uint8)
+    unit = rng.permutation(2 * J)[:J].astype(np.int64)
+    U[unit, :lq] = q
+    pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
+    return genome32, pnib, unit, pos.astype(np.int64), \
+        bw.reshape(-1).astype(np.int64), qsz.reshape(-1).astype(np.int64)
+
+
+def _k2_case(case, J):
+    """(banded_score_packed's operands, row length) where K2's lane groups
+    change: the narrow bands of -m 0.1 (8 lanes, 2 or 3 columns each),
+    bands of 25-32 (4 columns), bw = 61 alone (the whole warp), negative
+    bands and fill rows, J not a multiple of the jobs per warp or block,
+    and rows that are not whole words (lq = 126, lq + QOFF = 186)."""
+    if case == "negative-fill":
+        return _pe_score_arrays(13, J, packed=True), LMAX
+    rng, genome = _genome(14, iupac=50)
+    bws = {"narrow": (1, 3, 5, 9, 13, 21), "mid": (17, 24, 25, 29, 32, 33),
+           "bw61": (61,)}.get(case, (1, 3, 5, 21, 24, 32, 33, 41, 61))
+    J = J - 5 if case == "ragged" else J
+    jobs = _random_jobs(rng, genome, J - J // 16, bws=bws)
+    q, _, bw, qsz, pos, _ = _job_arrays(genome, jobs, J)
+    lq = LMAX - 2 if case == "byte-rows" else LMAX
+    return _as_packed(genome, q, bw, qsz, pos), lq
 
 
 @pytest.mark.parametrize("seed,iupac,pe", [
@@ -326,7 +366,89 @@ def test_banded_trace_packed_plain_matches_operands(seed):
     assert int((win2[4:8, -1] == 0).sum()) == 4  # windows past the end
 
 
-@pytest.mark.parametrize("name", ["popcount_compare", "banded_score",
+def _device_align_arrays(seed, J=128, lmax=LMAX, iupac=40):
+    """build_device_align's operands over a packed genome with its zero
+    guard words and IUPAC codes: (genome32 u32, pnib, unit, pos, bw, qsz),
+    J jobs (a multiple of the JAX program's 128), the first six with
+    windows across the genome's last word and past its end, fill rows
+    (bw 1, qsz 0, pos 32767) at the end."""
+    from abismal_tpu_torch.map.host_units import pack_genome_u32
+
+    n_nib = 8 * 3000
+    rng, genome = _genome(seed, G=n_nib, iupac=iupac)
+    genome32 = pack_genome_u32(_pack_u64(genome))
+    n = J - J // 16
+    jobs = _random_jobs(rng, genome, n, bws=(1, 3, 5, 9, 21, 33, 61))
+    W = (lmax + 32) // 2
+    U = (1 << rng.integers(0, 4, (2 * J, 2 * W))).astype(np.uint8)
+    unit = rng.permutation(2 * J)[:J].astype(np.int32)
+    bw = np.ones(J, np.int32)
+    qsz = np.zeros(J, np.int32)
+    pos = np.full(J, 32767, np.uint32)
+    for i, (q, b, m, p) in enumerate(jobs):
+        U[unit[i]] = 0
+        U[unit[i], :m] = q
+        bw[i], qsz[i], pos[i] = b, m, p
+    pos[:3] = n_nib - rng.integers(30, 120, 3)
+    pos[3:6] = n_nib + rng.integers(0, 999, 3)
+    pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
+    return genome32, pnib, unit, pos, bw, qsz
+
+
+@pytest.mark.parametrize("seed", [31, 32])
+def test_banded_score_packed_plain_matches_jax(seed):
+    """banded_score_packed_plain equals JAX's build_device_align (its
+    Pallas scorer in interpret mode) on the same packed rows and genome,
+    windows past the genome's end among the jobs: there the JAX gather
+    clamps to the last guard word and the port reads 0, both 0.  No window
+    starts before nibble 0: JAX's u32 positions wrap around to the genome's
+    start there while the port reads 0, and the 32767 N of padding at the
+    genome's ends keep every real job away from it."""
+    pytest.importorskip("jax")
+    from abismal_tpu.kernels.banded_align import build_device_align
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    arrs = _device_align_arrays(seed)
+    want = np.asarray(build_device_align(LMAX, interpret=True)(*arrs))
+    genome32, pnib, unit, pos, bw, qsz = arrs
+    got = ba.banded_score_packed_plain(
+        torch.from_numpy(genome32.view(np.int32)), torch.from_numpy(pnib),
+        torch.from_numpy(unit), torch.from_numpy(pos.astype(np.int64)),
+        torch.from_numpy(bw), torch.from_numpy(qsz), LMAX)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32 and int((want > 0).sum()) > 96
+    assert int((want[3:6] > 0).sum()) == 0  # windows past the end
+
+
+def _packed_score_arrays(seed, R, n_gw, lmax=LMAX, bws=None):
+    """banded_score_packed's operands (genome32, pnib, unit, pos, bw, qsz)
+    from _packed_arrays: windows before nibble 0 and past the genome's
+    end, fill rows, and negative bands in every seventh job."""
+    genome32, pnib, unit, bw, qsz, pos, _ = _packed_arrays(
+        seed, R=R, n_gw=n_gw, lmax=lmax, bws=bws)
+    bw[5::7] = -(2 * np.arange(bw[5::7].shape[0]) % 60 + 1)
+    return genome32, pnib, unit, pos, bw, qsz
+
+
+def test_banded_score_packed_plain_matches_operands():
+    """The packed plain version equals banded_score_plain on the operands
+    the fused SE program built before it: gathered and unpacked query
+    rows, windows gathered from the packed genome (before nibble 0 and
+    past the end), negative bands and fill rows."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    t = [torch.from_numpy(a) for a in _packed_score_arrays(24, 96, 3000)]
+    genome32, pnib, unit, pos, bw, qsz = t
+    got = ba.banded_score_packed(*t, LMAX)
+    q = ba.unpack_nibbles(pnib[unit])[:, :LMAX].to(torch.uint8)
+    win = ba.window_nibbles(genome32, ba.win_start(pos, bw) & 0xFFFFFFFF,
+                            LMAX + ba.QOFF)
+    want = ba.banded_score_plain(q, win, bw, qsz)[:, 0]
+    assert torch.equal(got, want)
+    assert bool((got[bw < 0] == 0).all()) and int((got > 0).sum()) > 48
+
+
+@pytest.mark.parametrize("name", ["popcount_compare", "banded_score_packed",
                                   "banded_trace", "banded_trace_packed"])
 def test_wrapper_raises_off_cpu_and_cuda(name):
     """A wrapper given a tensor that is neither on the CPU nor on a card
@@ -340,7 +462,8 @@ def test_wrapper_raises_off_cpu_and_cuda(name):
         "popcount_compare": lambda: popcount_compare.popcount_compare(
             v, v.long(), torch.zeros((4, 16), dtype=torch.int32,
                                      device="meta"), v.long(), v),
-        "banded_score": lambda: banded_align.banded_score(m, w, v, v),
+        "banded_score_packed": lambda: banded_align.banded_score_packed(
+            v, m, v.long(), v.long(), v.long(), v.long(), LMAX),
         "banded_trace": lambda: banded_align.banded_trace(
             m, w, v, v, v.long(), v.bool()),
         "banded_trace_packed": lambda: banded_align.banded_trace_packed(
@@ -373,15 +496,18 @@ def test_popcount_compare_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_banded_score_kernel_matches_plain(cuda_device):
+    """K2 (banded_score_packed) on 1024 jobs of bands 1..61 over a genome
+    with IUPAC codes."""
     from abismal_tpu_torch.kernels import banded_align as ba
 
     rng, genome = _genome(9, iupac=50)
     jobs = _random_jobs(rng, genome, 1000, bws=(1, 3, 5, 21, 41, 61))
-    arrs = _job_arrays(genome, jobs, 1024)
-    t = [torch.from_numpy(a).to(cuda_device) for a in arrs[:4]]
-    got = ba.banded_score(*t)
+    q, _, bw, qsz, pos, _ = _job_arrays(genome, jobs, 1024)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in _as_packed(genome, q, bw, qsz, pos)]
+    got = ba.banded_score_packed(*t, LMAX)
     torch.cuda.synchronize()
-    assert torch.equal(got, ba.banded_score_plain(*t))
+    assert torch.equal(got, ba.banded_score_packed_plain(*t, LMAX))
 
 
 @pytest.mark.cuda
@@ -391,42 +517,28 @@ def test_banded_score_kernel_pe_shape_matches_plain(cuda_device):
     from abismal_tpu_torch.kernels import banded_align as ba
 
     t = [torch.from_numpy(a).to(cuda_device)
-         for a in _pe_score_arrays(12, 16384)]
-    got = ba.banded_score(*t)
+         for a in _pe_score_arrays(12, 16384, packed=True)]
+    got = ba.banded_score_packed(*t, LMAX)
     torch.cuda.synchronize()
-    assert torch.equal(got, ba.banded_score_plain(*t))
-    assert bool((got[t[2] < 0] == 0).all())
+    assert torch.equal(got, ba.banded_score_packed_plain(*t, LMAX))
+    assert bool((got[t[4] < 0] == 0).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["narrow", "mid", "bw61", "negative-fill",
                                   "ragged", "byte-rows"])
 def test_banded_score_kernel_cases(cuda_device, case):
-    """K2 where its lane groups change: the narrow bands of -m 0.1 (8 lanes,
-    2 or 3 columns each), bands of 25-32 (4 columns), bw = 61 alone (the
-    whole warp), negative bands and fill rows, J not a multiple of the
-    jobs per warp or block, and rows that are not whole words."""
+    """K2 (banded_score_packed) where its lane groups change: the cases of
+    _k2_case, 1024 jobs of each."""
     from abismal_tpu_torch.kernels import banded_align as ba
 
-    rng, genome = _genome(14, iupac=50)
-    bws = {"narrow": (1, 3, 5, 9, 13, 21), "mid": (17, 24, 25, 29, 32, 33),
-           "bw61": (61,)}.get(case, (1, 3, 5, 21, 41, 61))
-    if case == "negative-fill":
-        arrs = _pe_score_arrays(13, 1024)
-    else:
-        J = 1003 if case == "ragged" else 1024
-        jobs = _random_jobs(rng, genome, J - 24, bws=bws)
-        q, win, bw, qsz, _, _ = _job_arrays(genome, jobs, J)
-        arrs = (q, win, bw[:, None], qsz[:, None])
+    arrs, lq = _k2_case(case, 1024)
     t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
-    if case == "byte-rows":  # lq = 126, lw = 187: neither a multiple of 4
-        t[0] = t[0][:, : LMAX - 2].contiguous()
-        t[1] = t[1][:, : LMAX + 59].contiguous()
-    n0 = ba.banded_score.launches
-    got = ba.banded_score(*t)
+    n0 = ba.banded_score_packed.launches
+    got = ba.banded_score_packed(*t, lq)
     torch.cuda.synchronize()
-    assert ba.banded_score.launches == n0 + 1
-    assert torch.equal(got, ba.banded_score_plain(*t))
+    assert ba.banded_score_packed.launches == n0 + 1
+    assert torch.equal(got, ba.banded_score_packed_plain(*t, lq))
 
 
 @pytest.mark.cuda
@@ -619,6 +731,28 @@ def test_banded_trace_packed_kernel_matches_plain(cuda_device, case):
     assert int((want[1][:, 0] > 0).sum()) > R // 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "narrow", "ragged", "lmax-odd"])
+def test_banded_score_packed_kernel_matches_plain(cuda_device, case):
+    """banded_score_packed against its plain version: IUPAC codes, windows
+    before nibble 0, across the genome's last word and past its end,
+    negative bands, fill rows; J not a multiple of the jobs of a warp; an
+    odd row length."""
+    from abismal_tpu_torch.kernels import banded_align as ba
+
+    J = 1001 if case == "ragged" else 2048
+    lmax = 125 if case == "lmax-odd" else LMAX
+    arrs = _packed_score_arrays(34, J, 40000, bws=(
+        (1, 3, 5, 9, 13, 21) if case == "narrow" else None))
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    n0 = ba.banded_score_packed.launches
+    got = ba.banded_score_packed(*t, lmax)
+    torch.cuda.synchronize()
+    assert ba.banded_score_packed.launches == n0 + 1
+    want = ba.banded_score_packed_plain(*t, lmax)
+    assert torch.equal(got, want) and int((want > 0).sum()) > J // 2
+
+
 @pytest.fixture
 def other_card():
     """The last card, when it is not cuda:0."""
@@ -629,7 +763,7 @@ def other_card():
 
 @pytest.mark.cuda
 def test_kernels_launch_on_their_tensors_card(other_card):
-    """K1, K2 and K3 (both entry points) on the last card while cuda:0 is
+    """K1, K2 and K3 (both of K3's entry points) on the last card while cuda:0 is
     current: each wrapper makes its tensors' device current around the
     launch, and each result equals its plain version."""
     from abismal_tpu_torch.kernels import banded_align as ba
@@ -639,18 +773,19 @@ def test_kernels_launch_on_their_tensors_card(other_card):
     q, win, bw, qsz, pos, do_tb = _job_arrays(
         genome, _random_jobs(rng, genome, 500), 512)
     k1 = _k1_torch(*_k1_arrays(4, G=1 << 14, B=256), device=other_card)
-    k2 = [torch.from_numpy(a).to(other_card) for a in (q, win, bw[:, None],
-                                                        qsz[:, None])]
     k3 = [torch.from_numpy(a).to(other_card)
           for a in (q, win, bw, qsz, pos.astype(np.int64), do_tb)]
     k3p = [torch.from_numpy(a).to(other_card)
            for a in _packed_arrays(12, R=256, n_gw=20000)]
+    k2p = [torch.from_numpy(a).to(other_card)
+           for a in _packed_score_arrays(13, 256, 20000)]
     with torch.cuda.device(0):
-        got = (pc.popcount_compare(*k1), ba.banded_score(*k2),
+        got = (pc.popcount_compare(*k1), ba.banded_score_packed(*k2p, LMAX),
                *ba.banded_trace(*k3), *ba.banded_trace_packed(*k3p, LMAX))
         assert torch.cuda.current_device() == 0
     torch.cuda.synchronize(other_card)
-    want = (pc.popcount_compare_plain(*k1), ba.banded_score_plain(*k2),
+    want = (pc.popcount_compare_plain(*k1),
+            ba.banded_score_packed_plain(*k2p, LMAX),
             *ba.banded_trace_plain(*k3),
             *ba.banded_trace_packed_plain(*k3p, LMAX))
     for g, w in zip(got, want):

@@ -271,3 +271,102 @@ def test_genome_beyond_u32_positions_refused():
     with pytest.raises(ValueError, match="exceeds"):
         TorchNativeEngine(SimpleNamespace(genome_size=(1 << 32) - 1),
                           device="cpu")
+
+
+@pytest.mark.parametrize("device_align", [False, True],
+                         ids=["events", "device-align"])
+@pytest.mark.parametrize("prefix,paired,pbat", [
+    ("small", False, False),
+    ("small_pe", True, False),
+    ("small_pbat_pe", True, True),
+    ("small_rpbat_pe", True, True),
+])
+def test_golden_event_route(tmp_path, port_index, monkeypatch, prefix,
+                            paired, pbat, device_align):
+    """The event-stream route (device_stage2=False: build_stage1's events
+    replayed by the native engine) gives the four protocols' goldens, and
+    so does device_align, whose jobs K2 scores on the device up to
+    align_jcap = 256 a chunk, the rest natively (↔ tests/test_pipeline.py
+    ::test_device_align_parity).  The engine is this test's own: the
+    module's memoized engines hold a GB of tables each."""
+    from abismal_tpu_torch.map import pipeline
+    from abismal_tpu_torch.map.engine import run_map
+
+    monkeypatch.setattr(pipeline, "_engine_memo", {})
+    flag = "-P " if pbat else ""
+    tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq" if paired
+            else f"tests/{prefix}_1.fq")
+    cl = (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
+          f"-i tests/tRex1.idx {tail}")
+    fac = _factory(device_stage2=False, device_align=device_align,
+                   align_jcap=256)
+    eng = fac(port_index, False, 0.1, 32, 3000)
+    jobs = []
+    phase1 = "_phase1_pe" if paired else "_phase1_se"
+    inner = getattr(eng.native, phase1)
+
+    def counted(*args):
+        n, j = inner(*args)
+        jobs.append(n)
+        return n, j
+
+    monkeypatch.setattr(eng.native, phase1, counted)
+    a0 = eng.n_device_aligned
+    sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
+    run_map(port_index, golden_file(prefix + "_1.fq"),
+            golden_file(prefix + "_2.fq") if paired else None, str(sam),
+            str(mst), cl, pbat=pbat, engine_factory=fac, threads=2)
+    assert sam.read_text() == _golden(prefix + ".sam")
+    assert mst.read_text() == _golden(prefix + ".mstats")
+    aligned = eng.n_device_aligned - a0
+    if device_align:  # the device scored jobs, the native side the rest
+        assert 0 < aligned < sum(jobs)
+    else:
+        assert aligned == 0 and not jobs
+
+
+def _long_reads(index, n=64, length=250):
+    """n bisulfite-converted substrings of tRex1 of `length` bases."""
+    from abismal_tpu_torch.utils.dna import unpack_nibbles_u64
+
+    nib = unpack_nibbles_u64(index.genome_words, index.genome_size)
+    nib_to_char = np.frombuffer(b"ZACMGRSVTWYHKDBN", dtype=np.uint8)
+    rng = np.random.default_rng(5)
+    reads = []
+    for i in range(n):
+        p = int(rng.integers(40000, index.genome_size - 40000))
+        seq = bytearray(nib_to_char[nib[p : p + length]].tobytes().replace(
+            b"Z", b"A"))
+        for j in range(len(seq)):
+            if seq[j : j + 1] == b"C" and rng.random() < 0.98:
+                seq[j] = ord("T")
+        reads.append((f"r{i}", bytes(seq)))
+    return reads
+
+
+@pytest.mark.parametrize("device_stage2", [False, True],
+                         ids=["events", "fused"])
+def test_lmax_256_long_reads(port_index, monkeypatch, device_stage2):
+    """250-base reads with lmax = 256 (↔ tests/test_pipeline.py::
+    test_lmax_long_reads_zero_fallback) give the native engine's bytes and
+    stats; on the event route no unit falls back.  A budget of 256
+    candidates a unit holds them all."""
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.map.stats import SEStats
+
+    monkeypatch.setenv("ABISMAL_TPU_CAND_PER_UNIT", "256")
+    reads = _long_reads(port_index)
+    port = TorchNativeEngine(port_index, lmax=256, unit_batch=128,
+                             n_threads=2, device="cpu",
+                             device_stage2=device_stage2)
+    outs = []
+    for eng in (port, NativeMappingEngine(port_index, n_threads=2)):
+        out, st = io.StringIO(), SEStats()
+        eng.map_se_reads(reads, False, False, st, out)
+        outs.append((out.getvalue(), st.__dict__))
+    assert outs[0] == outs[1]
+    assert outs[1][1]["reads_mapped_unique"] > 48
+    assert port.n_units == 128
+    if not device_stage2:
+        assert port.n_fallback == 0, "long reads fell back to the host path"

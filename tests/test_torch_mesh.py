@@ -165,6 +165,24 @@ def test_mesh_overflow_fallback_byte_identical(tmp_path, port_index,
         assert int(eng.device_decisions.sum()) == 500
 
 
+@pytest.mark.parametrize("prefix,paired", [("small", False),
+                                           ("small_pe", True)])
+def test_mesh_event_route_byte_identical(tmp_path, port_index, prefix,
+                                         paired, monkeypatch):
+    """The event-stream route over a 2-slot CPU mesh (shard_stage1) gives
+    the goldens; 4 events a unit fill each slot's stream, so the
+    collection cuts every slot's stream to the length it wrote and the
+    units past it re-seed natively.  device_align is off with a mesh."""
+    from abismal_tpu_torch.map import pipeline
+
+    monkeypatch.setenv("ABISMAL_TPU_GCAP_PER_UNIT", "4")
+    monkeypatch.setattr(pipeline, "_engine_memo", {})
+    eng = _map_mesh(tmp_path, port_index, prefix, paired, unit_batch=128,
+                    device_stage2=False, device_align=True)
+    assert not eng.device_align and eng.n_device_aligned == 0
+    assert eng.n_fallback > 0, "4 events a unit must overflow slot streams"
+
+
 def test_mesh_unit_batch_must_divide(port_index):
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
@@ -177,7 +195,7 @@ def test_index_shards_not_ported(port_index):
     """The key-range-sharded index is refused, never ignored."""
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         TorchNativeEngine(port_index, device="cpu", index_shards=2)
 
 

@@ -112,8 +112,11 @@ def test_shard_without_card_raises(tmp_path, call):
     (["--shard", "two", "-i", "x.idx"], 1, "--shard must be I:N"),
     (["--mesh", "all", "--device", "cpu", "-i", "x.idx"], 1,
      "--mesh all needs CUDA devices"),
+    (["--mesh", "2", "--device-align", "-i", "x.idx"], 1,
+     "--device-align cannot be combined with --mesh"),
 ], ids=["hosts-no-index", "shard-no-index", "hosts-hybrid", "shard-mesh",
-        "mesh-hybrid", "shard-range", "shard-format", "mesh-all-cpu"])
+        "mesh-hybrid", "shard-range", "shard-format", "mesh-all-cpu",
+        "mesh-device-align"])
 def test_cli_scaleout_refusals(capsys, argv, code, msg):
     """The JAX CLI's checks on the scale-out options, made before any
     index is read."""

@@ -165,3 +165,56 @@ def test_stage12pe_iupac_negative_bands_match_jax(tmp_path):
     assert (d_live < 0).sum() > 0
     m = _mate(want, 4)
     assert ((m[:, :, 0] == 1) & (m[:, :, 4] + m[:, :, 5] < 0)).sum() > 0
+
+
+@pytest.mark.parametrize("allow_ambig", [False, True])
+def test_stage12pe_fbm_guard_matches_native(tmp_path, allow_ambig):
+    """The fbm guard of the mating sweep: a max-score tie between
+    concordant pairs whose diff-sums differ goes to the host's sequential
+    replay.  Each designed fragment's end 2 lies on a stretch of period
+    10 whose flanks break the period: one period off, the T-rich end has
+    10 mismatches, so a band of 21 columns, in which it aligns perfectly
+    all the same, and ties the exact hit at diffs 10 against 0.  The rows
+    equal JAX's and flag the tie, and the pairs map as the native engine
+    maps them, with and without -a."""
+    import io
+
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.map.stats import PEStats
+
+    rng = np.random.default_rng(5)
+    n, p = 100_000, 10
+    seq = rng.choice(list("ACGT"), size=n)
+    # a base that differs from `key` once C reads as T
+    other = {"T": "AG", "A": "GT", "G": "AT"}
+    starts = list(range(2_000, 74_000, 3_000))
+    for s0 in starts:
+        e2 = s0 + 200  # end 2 covers [s0 + 200, s0 + 300)
+        unit = rng.choice(list("TTAG"), p)
+        seq[e2 : e2 + 100] = unit[np.arange(100) % p]
+        for j in range(p):
+            seq[e2 - p + j] = rng.choice(list(other[unit[j]]))
+            seq[e2 + 100 + j] = rng.choice(list(other[unit[(100 + j) % p]]))
+    _write_fasta(tmp_path / "t.fa", "chrT", "".join(seq))
+    index = create_index(str(tmp_path / "t.fa"))
+    r1, r2 = [], []
+    for i, s0 in enumerate(starts):
+        frag = "".join(seq[s0 : s0 + 300]).replace("C", "T")
+        r1.append((f"t{i}", frag[:100].encode()))
+        r2.append((f"t{i}", _revcomp(frag[-100:]).encode()))
+    units = _pe_units(r1, r2, False)
+    got, want = _run_both(*_tables(index), units, 60)
+    np.testing.assert_array_equal(got, want)
+    fbm = _mate(want, units[4])[:, :, 9]
+    assert fbm[:, 0].sum() >= len(starts) // 2  # forward orientation
+
+    outs = []
+    for eng in (TorchNativeEngine(index, allow_ambig, unit_batch=128,
+                                  n_threads=2, device="cpu"),
+                NativeMappingEngine(index, allow_ambig, n_threads=2)):
+        out, st = io.StringIO(), PEStats()
+        eng.map_pe_reads(r1, r2, False, False, st, out)
+        outs.append((out.getvalue(), st.tostring(allow_ambig)))
+    assert outs[0] == outs[1]
