@@ -1,12 +1,15 @@
 """Command line of the port: `python -m abismal_tpu_torch map ...` maps
 single-end reads, or read pairs given two FASTQs, with the PyTorch engine
 on --device (default cuda), and scales out as abismal_tpu's CLI does:
---mesh splits each chunk over several devices, --engine hybrid maps a
-share of the reads on the host cores at the same time, and --hosts /
---shard map read ranges in separate processes or on separate machines.
-ABISMAL_TPU_STAGE2=0 takes the event-stream route (the device seeds, the
-native engine decides), and --device-align then scores its alignments on
-the device.  `idx` and `sim` are host-only.  Options accept single- or
+--mesh splits each chunk over several devices, --index-shards splits the
+index over them, --engine hybrid maps a share of the reads on the host
+cores at the same time, and --hosts / --shard map read ranges in separate
+processes or on separate machines.  ABISMAL_TPU_STAGE2=0 takes the
+event-stream route (the device seeds, the native engine decides), and
+--device-align then scores its alignments on the device.  --engine
+native and exact map on the host alone (the C++ engine, the Python
+reference engine), torch-replay replays the device's events in the
+Python engine.  `idx` and `sim` are host-only.  Options accept single- or
 double-dash long names and the reference's short names, and the SAM @PG
 CL: header records argv exactly as the reference does (the subcommand
 plus its arguments)."""
@@ -142,11 +145,17 @@ def cmd_map(argv):
     p.add_argument("--device", default="cuda",
                    help="torch device of the device pipeline (cuda, cuda:N "
                         "or cpu)")
-    p.add_argument("--engine", choices=["torch", "hybrid"], default="torch",
+    p.add_argument("--engine",
+                   choices=["torch", "hybrid", "native", "exact",
+                            "torch-replay"], default="torch",
                    help="torch (device stage-1+2 + native finalize, "
-                        "default) or hybrid (the native engine on the host "
+                        "default), hybrid (the native engine on the host "
                         "cores AND the torch engine, on disjoint read "
-                        "shards at once; their rates add)")
+                        "shards at once; their rates add), native (C++ "
+                        "host engine, no device), exact (Python reference "
+                        "engine, no device) or torch-replay (device "
+                        "stage-1 + Python replay; with -t N the replay "
+                        "runs in N worker processes)")
     p.add_argument("--device-share", dest="device_share", type=float,
                    default=None,
                    help="--engine hybrid: fraction of reads routed to the "
@@ -164,6 +173,12 @@ def cmd_map(argv):
                         "'all', each with its own copy of the index and "
                         "2048 units per chunk (with --device cpu: N CPU "
                         "slots)")
+    p.add_argument("--index-shards", dest="index_shards", default=None,
+                   help="split the index's position lists by bucket-key "
+                        "range over the first N local CUDA devices, or "
+                        "'all'; every device maps every chunk and the host "
+                        "merges their events (the event-stream route; with "
+                        "--device cpu: N CPU slots)")
     p.add_argument("--hosts", type=int, default=0,
                    help="multi-host run: shard the FASTQ by read range over "
                         "N processes (each loads its own index, shard i on "
@@ -188,12 +203,21 @@ def cmd_map(argv):
     if a.lmax < 64:
         print("--lmax must be at least 64", file=sys.stderr)
         return 1
-    if a.mesh is not None and a.engine == "hybrid":
-        print("--mesh cannot be combined with --engine hybrid",
+    for opt, val in (("--mesh", a.mesh), ("--index-shards", a.index_shards)):
+        if val is not None and a.engine != "torch":
+            print(f"{opt} cannot be combined with --engine {a.engine}",
+                  file=sys.stderr)
+            return 1
+        if val is not None and a.device_align:
+            print(f"--device-align cannot be combined with {opt}",
+                  file=sys.stderr)
+            return 1
+    if a.mesh is not None and a.index_shards is not None:
+        print("--index-shards cannot be combined with --mesh",
               file=sys.stderr)
         return 1
-    if a.mesh is not None and a.device_align:
-        print("--device-align cannot be combined with --mesh",
+    if a.device_align and a.engine not in ("torch", "hybrid"):
+        print(f"--device-align cannot be combined with --engine {a.engine}",
               file=sys.stderr)
         return 1
 
@@ -206,31 +230,39 @@ def cmd_map(argv):
             print("--hosts/--shard require a prebuilt index (-i)",
                   file=sys.stderr)
             return 0
-        if a.engine != "torch" or a.mesh is not None:
+        if a.engine != "torch" or a.mesh is not None or a.index_shards:
             print("--hosts/--shard run the torch engine, one device per "
-                  "shard: not with --engine hybrid or --mesh",
-                  file=sys.stderr)
+                  "shard: not with --engine hybrid or --mesh, nor with "
+                  "another --engine or --index-shards", file=sys.stderr)
             return 1
         return _map_sharded(a, reads2, command_line)
 
-    mesh, unit_batch = None, 2048
-    if a.mesh is not None:
+    mesh, shards, unit_batch = None, None, 2048
+    for opt, val in (("--mesh", a.mesh), ("--index-shards", a.index_shards)):
+        if val is None:
+            continue
         from .parallel.mesh import make_mesh
 
         if a.device == "cpu":
-            if a.mesh == "all":
-                print("--mesh all needs CUDA devices", file=sys.stderr)
+            if val == "all":
+                print(f"{opt} all needs CUDA devices", file=sys.stderr)
                 return 1
-            mesh = ["cpu"] * int(a.mesh)
+            slots = ["cpu"] * int(val)
         else:
-            mesh = make_mesh(a.mesh if a.mesh == "all" else int(a.mesh))
-        # every slot maps the one-device chunk of 2048 units
-        unit_batch *= len(mesh)
+            slots = make_mesh(val if val == "all" else int(val))
+        if opt == "--mesh":
+            # every slot maps the one-device chunk of 2048 units
+            mesh, unit_batch = slots, unit_batch * len(slots)
+        else:  # every slot maps every chunk
+            shards = slots
 
     from .index.build import create_index
     from .index.serialize import read_index
     from .map.engine import run_map
-    from .map.pipeline import make_torch_native_engine_factory
+    from .map.host_units import make_native_engine_factory
+    from .map.pipeline import (
+        make_torch_engine_factory, make_torch_native_engine_factory,
+    )
 
     if a.index:
         if a.verbose:
@@ -243,9 +275,17 @@ def cmd_map(argv):
     if a.max_candidates:
         index.max_candidates = a.max_candidates
 
-    factory = make_torch_native_engine_factory(
-        a.device, lmax=a.lmax, unit_batch=unit_batch, n_threads=a.threads,
-        mesh_devices=mesh, device_align=a.device_align)
+    if a.engine == "native":
+        factory = make_native_engine_factory(n_threads=a.threads)
+    elif a.engine == "exact":
+        factory = None  # run_map's default: the exact engine
+    elif a.engine == "torch-replay":
+        factory = make_torch_engine_factory(a.device, lmax=a.lmax)
+    else:
+        factory = make_torch_native_engine_factory(
+            a.device, lmax=a.lmax, unit_batch=unit_batch,
+            n_threads=a.threads, mesh_devices=mesh,
+            device_align=a.device_align, index_shards=shards)
     if a.engine == "hybrid":
         return _map_hybrid(a, index, reads2, command_line, factory)
     run_map(
@@ -338,11 +378,14 @@ def main(argv=None):
               "or read pairs from two FASTQs (-l/-L: fragment\n"
               "            length window), on a torch device (--device, "
               "default cuda);\n"
-              "            --mesh N|all: over N devices; --engine hybrid: "
-              "with the host\n"
-              "            cores (--device-share); --hosts N / --shard I:N: "
-              "in read-range\n"
-              "            shards\n"
+              "            --mesh N|all: over N devices; --index-shards "
+              "N|all: the index\n"
+              "            split over N devices; --engine hybrid: with the "
+              "host cores\n"
+              "            (--device-share); --hosts N / --shard I:N: in "
+              "read-range shards;\n"
+              "            --engine native|exact|torch-replay: the C++ or "
+              "Python engines\n"
               "    idx:    make an index for a FASTA reference genome\n"
               "    sim:    simulate WGBS reads for a FASTA reference genome")
         return 0

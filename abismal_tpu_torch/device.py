@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,11 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def put(a, device) -> torch.Tensor:
+    """A host array as a tensor on device (on the CPU, the array itself)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def card_info() -> str:

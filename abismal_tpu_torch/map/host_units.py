@@ -1,11 +1,12 @@
 """NumPy-only host helpers of the device pipeline (↔ the module-level
 helpers and the static unit-layout helpers of abismal_tpu/map/pipeline.py,
-and read_hashes / get_conv_is_ga of abismal_tpu/map/seeds.py): the static
-limits of the device programs, the candidate-budget estimate from the
-index's counters, genome packing, the stage-1 unit layout
-(prepare_units), the per-unit strand-code and conversion patterns, the
-ASCII read matrices and the pure-native engine factory.
-Nothing here touches a torch device."""
+read_hashes / get_conv_is_ga of abismal_tpu/map/seeds.py and strand_code
+of abismal_tpu/map/engine.py): the static limits of the device programs,
+the candidate-budget estimate from the index's counters, genome packing,
+the sharded index's key ranges and the merge of its shards' event
+streams, the stage-1 unit layout (prepare_units), the per-unit
+strand-code and conversion patterns, the ASCII read matrices and the
+pure-native engine factory.  Nothing here touches a torch device."""
 
 from __future__ import annotations
 
@@ -184,6 +185,60 @@ def ext_iters_for(index) -> int:
         if c.shape[0] > 1:
             mb = max(mb, int(np.diff(c.astype(np.int64)).max()))
     return max(2, int(np.ceil(np.log2(mb + 1))) + 1)
+
+
+def _tp_key_bounds(counter: np.ndarray, n_shards: int) -> np.ndarray:
+    """Key-range boundaries (n_shards + 1) splitting a bucket-offset prefix
+    array into shards of ~equal position count; every bucket lands on
+    exactly one shard."""
+    total = int(counter[-1])
+    targets = (np.arange(n_shards + 1, dtype=np.int64) * total) // n_shards
+    bounds = np.searchsorted(counter, targets, side="left").astype(np.int64)
+    bounds[0] = 0
+    bounds[-1] = counter.shape[0] - 1
+    return bounds
+
+
+def _merge_tp_streams(ev: np.ndarray, cf: np.ndarray):
+    """Merges the per-shard event streams of a sharded-index stage-1 call.
+
+    ev: (2*n_shards, gcap) -- rows (2s, 2s+1) are shard s's compacted
+    (pos, meta) stream; cf: (n_shards, B) count|overflow words, every
+    shard covering the full unit batch.  Returns the rank-merged stream
+    (pos, diffs, rank) plus per-unit (start, count, overflow).  A unit
+    flagged overflow on ANY shard falls back to native re-seeding (its
+    per-shard offsets may point past that shard's truncated stream)."""
+    n_sh = cf.shape[0]
+    B = cf.shape[1]
+    cnt2d = (cf & 0x3FFFFFFF).astype(np.int64)
+    ovf = ((cf >> 30) != 0).any(axis=0)
+    within = np.cumsum(cnt2d, axis=1) - cnt2d
+    take = np.where(ovf[None, :], 0, cnt2d)
+    pos_cat, meta_cat, unit_cat = [], [], []
+    for s in range(n_sh):
+        c = take[s]
+        total = int(c.sum())
+        if total == 0:
+            continue
+        intra = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(c) - c, c)
+        src = np.repeat(within[s], c) + intra
+        pos_cat.append(ev[2 * s][src])
+        meta_cat.append(ev[2 * s + 1][src])
+        unit_cat.append(np.repeat(np.arange(B, dtype=np.int64), c))
+    m_cnt = take.sum(axis=0)
+    m_start = np.cumsum(m_cnt) - m_cnt
+    if not pos_cat:
+        return (np.zeros(0, np.uint32), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), m_start, m_cnt, ovf)
+    pos_all = np.concatenate(pos_cat)
+    meta_all = np.concatenate(meta_cat)
+    unit_all = np.concatenate(unit_cat)
+    rank_all = (meta_all & 0x3FFFFF).astype(np.int32)
+    order = np.lexsort((rank_all, unit_all))
+    return (pos_all[order],
+            (meta_all[order] >> 22).astype(np.int32) - 512,
+            rank_all[order], m_start, m_cnt, ovf)
 
 
 def prepare_units(unit_reads, lmax: int):

@@ -8,10 +8,9 @@ feeds it read batches and, optionally, device stage-1 event streams; the
 companion `TorchNativeEngine` in pipeline.py supplies those events from the
 accelerator.
 
-Semantics are identical to the JAX package's pure-Python `MappingEngine`
-oracle (abismal_tpu/map/engine.py, not carried over), which is
-parity-validated byte-for-byte against the reference
-(src/abismal.cpp:1435-2185)."""
+Semantics are identical to the pure-Python `MappingEngine` oracle
+(map/engine.py), which is parity-validated byte-for-byte against the
+reference (src/abismal.cpp:1435-2185)."""
 
 from __future__ import annotations
 

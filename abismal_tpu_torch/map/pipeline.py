@@ -2,9 +2,11 @@
 candidate core (_make_core), the event-stream program (build_stage1), the
 fused stage-1+2 programs with on-device traceback (build_stage12; JAX's
 build_tb_block is the kernel wrapper kernels.banded_align.banded_trace)
-and build_stage12pe, the engine half that feeds the native engine
-(TorchNativeEngine) and its factory.  Names follow the JAX module so each
-counterpart is easy to find.
+and build_stage12pe, the key-range-sharded index (DeviceIndexTP), the
+engine half that feeds the native engine (TorchNativeEngine) and its
+factory, and the replay engines (TorchMappingEngine, EventReplayEngine:
+the exact engine of map/engine.py seeded from build_stage1's events).
+Names follow the JAX module so each counterpart is easy to find.
 
 The NumPy helpers (budgets, genome packing, unit patterns, constants) are
 in host_units.py beside this module, and the host side -- the C++ native
@@ -32,23 +34,26 @@ from ..constants import (
     KEY_WEIGHT, KEY_WEIGHT_THREE, MIN_FOLD_SIZE, N_SORTING_POSITIONS,
     WINDOW_SIZE,
 )
-from ..device import resolve_device
+from ..device import put, resolve_device
 from ..kernels.banded_align import (
     BW_MAX, banded_score_packed, banded_trace_packed, unpack_nibbles,
 )
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
 from ..parallel.mesh import (
-    make_mesh, replicate_tables, shard_stage1, shard_stage12, shard_stage12pe,
+    make_mesh, replicate_tables, shard_stage1, shard_stage1_tp, shard_stage12,
+    shard_stage12pe,
 )
-from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH
+from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH, revcomp_str
+from .engine import MappingEngine
 from .host_units import (
     DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, _ascii_matrices,
-    _pe_is_ga_pattern, _resolve_cand_budget, _se_scode_pattern,
-    estimate_cand_budget, ext_iters_for, get_conv_is_ga, o_spec_for,
-    pack_genome_u32,
+    _merge_tp_streams, _pe_is_ga_pattern, _resolve_cand_budget,
+    _se_scode_pattern, _tp_key_bounds, estimate_cand_budget, ext_iters_for,
+    get_conv_is_ga, o_spec_for, pack_genome_u32, prepare_units, strand_code,
 )
 from .native_engine import NativeMappingEngine
+from .seeds import pack_read, prep_read, process_seeds
 
 I64 = torch.int64
 INF32 = 0x7FFFFFFF
@@ -120,11 +125,7 @@ class DeviceIndex:
         dev = resolve_device(device)
         if idx.shape[0] == 0:
             idx = np.zeros(1, np.int64)
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        return cls(put(g32.view(np.int32)), put(c2), put(c3), put(idx),
+        return cls(*(put(a, dev) for a in (g32.view(np.int32), c2, c3, idx)),
                    n2, n3, mc, ext_iters)
 
     @classmethod
@@ -159,15 +160,78 @@ class DeviceIndex:
             max_candidates, ext_iters, device)
 
 
+class DeviceIndexTP:
+    """Key-range-sharded index tables (↔ the JAX DeviceIndexTP): each shard
+    owns a contiguous key range of each of the three tables, the bounds
+    chosen so position counts balance.  Host arrays:
+      index_local (n_shards, P2 + 2 P3) int64  each shard's position lists
+          [two | C->T | G->A] at offsets 0, P2 and P2 + P3, zero-padded;
+      shardinfo (n_shards, 9) int64  each shard's key bounds [k2lo, k2hi,
+          k3tlo, k3thi, k3alo, k3ahi] and list bases [pb2, pb3t, pb3a],
+          exact (JAX stores the bases modulo 2^32: the same i32 bits).
+    slots[s] holds slot s's device tensors (genome32, counter2, counter3,
+    index_local[s], shardinfo[s]): the genome and counter tables are
+    uploaded once per distinct device and shared by its slots, the lists
+    and the shard row once per slot."""
+
+    def __init__(self, index, devices):
+        n = len(devices)
+        self.n_shards = n
+        self.ext_iters = ext_iters_for(index)
+        self.max_candidates = int(index.max_candidates)
+        counters = (index.counter, index.counter_t, index.counter_a)
+        lists = (index.index, index.index_t, index.index_a)
+        bounds = [_tp_key_bounds(c, n) for c in counters]
+        bases = [c.astype(np.int64)[b] for c, b in zip(counters, bounds)]
+        self.P2 = max(1, int(np.diff(bases[0]).max()))
+        self.P3 = max(1, int(max(np.diff(bases[1]).max(),
+                                 np.diff(bases[2]).max())))
+        offs = (0, self.P2, self.P2 + self.P3)
+        self.index_local = np.zeros((n, self.P2 + 2 * self.P3), np.int64)
+        for s in range(n):
+            for lst, b, off in zip(lists, bases, offs):
+                part = lst[b[s] : b[s + 1]]
+                self.index_local[s, off : off + part.shape[0]] = part
+        self.shardinfo = np.stack(
+            [bounds[0][:-1], bounds[0][1:], bounds[1][:-1], bounds[1][1:],
+             bounds[2][:-1], bounds[2][1:], bases[0][:-1], bases[1][:-1],
+             bases[2][:-1]], axis=1)
+        host = (pack_genome_u32(index.genome_words).view(np.int32),
+                index.counter.astype(np.int64),
+                np.concatenate(counters[1:]).astype(np.int64))
+        shared = {}
+        self.slots = []
+        for s, dev in enumerate(devices):
+            if dev not in shared:
+                shared[dev] = tuple(put(a, dev) for a in host)
+            self.slots.append(shared[dev] + (
+                put(self.index_local[s], dev), put(self.shardinfo[s], dev)))
+
+    def nbytes(self) -> int:
+        """Bytes of the device tensors, each distinct tensor once."""
+        seen = {id(t): t for slot in self.slots for t in slot}
+        return sum(t.numel() * t.element_size() for t in seen.values())
+
+
 def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
                cand_per_unit: int, ext_iters: int = 31,
-               ext_pool: int | None = None):
-    """Candidate core (↔ JAX _make_core, non-TP): rolling hashes, bucket
-    ranges, pooled k-ary seed extension, check gates, the global candidate
-    list and the K1 compare.  Returns (core, o_spec); core(genome32,
-    counter2, counter3, index_all, pnib, lens, is_ga, uextra) -> dict of
+               ext_pool: int | None = None, tp: bool = False):
+    """Candidate core (↔ JAX _make_core): rolling hashes, bucket ranges,
+    pooled k-ary seed extension, check gates, the global candidate list
+    and the K1 compare.  Returns (core, o_spec); core(genome32, counter2,
+    counter3, index_all, pnib, lens, is_ga, uextra, shard=None) -> dict of
     per-candidate (pos, d, b_of, cell_of, slot, valid, extras) and per-unit
-    (unit_start, unit_total, overflow) tensors."""
+    (unit_start, unit_total, overflow) tensors.
+
+    With tp (the key-range-sharded index, DeviceIndexTP), index_all is
+    one shard's local lists [two | C->T | G->A] at offsets 0, n_index2 and
+    n_index2 + n_index3 (the engine passes P2 and P3), and shard its
+    shardinfo row: cells whose key lies outside the shard's ranges are
+    masked off, and the list offsets of the others are rebased onto the
+    local lists.  Bucket sizes stay the global ones (the fold rule of the
+    sensitive phase compares the two tables, and a shard may own one
+    bucket of a cell and not the other), so the union of the shards'
+    candidates, in rank order, is the unsharded core's."""
     ext_iters = int(os.environ.get("ABISMAL_TPU_EXT_ITERS", ext_iters))
     ways = int(os.environ.get("ABISMAL_TPU_EXT_WAYS", 4))
     o_spec = o_spec_for(lmax)
@@ -242,7 +306,7 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         return lcp, cmp
 
     def core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
-             uextra):
+             uextra, shard=None):
         dev = pnib.device
         B = pnib.shape[0]
         EXT_POOL = int(os.environ.get(
@@ -288,16 +352,38 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         act_sp = ar(o_spec)[None, :] < specific_lim[:, None]
         act_sn = ((ar(o_sens)[None, :] < sens_lim[:, None])
                   & (lens[:, None] > 0))
+        if tp:
+            # the shard's key bounds and list bases (each unit reads the
+            # three-letter table of its conversion)
+            k2lo, k2hi, pb2 = shard[0], shard[1], shard[6]
+            lo3u = torch.where(is_ga, shard[4], shard[2])[:, None]
+            hi3u = torch.where(is_ga, shard[5], shard[3])[:, None]
+            pb3u = torch.where(is_ga, shard[8], shard[7])[:, None]
+
+            def owned(act, keys, lo, hi):
+                return act & (keys >= lo) & (keys < hi)
+
+            act2_sp = owned(act_sp, k2_all[:, :o_spec], k2lo, k2hi)
+            act3_sp = owned(act_sp, k3_all[:, :o_spec], lo3u, hi3u)
+        else:
+            act2_sp = act3_sp = act_sp
+        # the gather is not masked by ownership: sizes are global
         gmask = act_sn.clone()
         gmask[:, :o_spec] |= act_sp
         k2n = torch.where(gmask, k2_all, 0)
         k3n = torch.where(gmask, k3_all, 0) + c3_base[:, None]
         p2s, p2e = counter2[k2n], counter2[k2n + 1]
         p3s, p3e = counter3[k3n], counter3[k3n + 1]
-        s2 = torch.where(act_sp, p2s[:, :o_spec], 0)
-        e2 = torch.where(act_sp, p2e[:, :o_spec], 0)
-        s3 = torch.where(act_sp, p3s[:, :o_spec], 0)
-        e3 = torch.where(act_sp, p3e[:, :o_spec], 0)
+        if tp:  # rebased onto the shard's local lists
+            p2s_sp, p2e_sp = p2s[:, :o_spec] - pb2, p2e[:, :o_spec] - pb2
+            p3s_sp, p3e_sp = p3s[:, :o_spec] - pb3u, p3e[:, :o_spec] - pb3u
+        else:
+            p2s_sp, p2e_sp = p2s[:, :o_spec], p2e[:, :o_spec]
+            p3s_sp, p3e_sp = p3s[:, :o_spec], p3e[:, :o_spec]
+        s2 = torch.where(act2_sp, p2s_sp, 0)
+        e2 = torch.where(act2_sp, p2e_sp, 0)
+        s3 = torch.where(act3_sp, p3s_sp, 0)
+        e3 = torch.where(act3_sp, p3e_sp, 0)
 
         # --- pooled seed extension, LCP-window method (see the JAX core,
         # pipeline.py:513-806): active lanes (bucket > max_candidates)
@@ -305,8 +391,8 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         # finds the class-string match range, and the stop depth falls out
         # of the window LCPs around it
         n_lanes = B * o_spec
-        flat_act = torch.cat([(act_sp & ((e2 - s2) > mc)).reshape(-1),
-                              (act_sp & ((e3 - s3) > mc)).reshape(-1)])
+        flat_act = torch.cat([(act2_sp & ((e2 - s2) > mc)).reshape(-1),
+                              (act3_sp & ((e3 - s3) > mc)).reshape(-1)])
         cum_act = torch.cumsum(flat_act.to(I64), dim=0)
         # nonzero(size=EXT_POOL, fill_value=2 n_lanes) without a host sync
         pdest = torch.where(flat_act & (cum_act <= EXT_POOL), cum_act - 1,
@@ -434,15 +520,22 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
 
         # --- check gates and the two- vs three-letter fold rule
         d2, d3 = e2x - s2x, e3x - s3x
-        check2_sp = act_sp & ((d2 <= mc) | (l2 >= specific_len[:, None]))
-        check3_sp = act_sp & ((d3 <= mc) | (l3 >= specific_len[:, None]))
+        check2_sp = act2_sp & ((d2 <= mc) | (l2 >= specific_len[:, None]))
+        check3_sp = act3_sp & ((d3 <= mc) | (l3 >= specific_len[:, None]))
         s2n = torch.where(act_sn, p2s, 0)
         d2n = torch.where(act_sn, p2e, 0) - s2n
         s3n = torch.where(act_sn, p3s, 0)
         d3n = torch.where(act_sn, p3e, 0) - s3n
-        check2_sn = act_sn & (d2n != 0) & (d2n <= mc) & (
+        if tp:  # sizes global; the offsets owned and rebased
+            act2_sn = owned(act_sn, k2_all, k2lo, k2hi)
+            act3_sn = owned(act_sn, k3_all, lo3u, hi3u)
+            s2n = torch.where(act2_sn, s2n - pb2, 0)
+            s3n = torch.where(act3_sn, s3n - pb3u, 0)
+        else:
+            act2_sn = act3_sn = act_sn
+        check2_sn = act2_sn & (d2n != 0) & (d2n <= mc) & (
             (d3n == 0) | (d2n <= MIN_FOLD_SIZE * d3n))
-        check3_sn = act_sn & (d3n != 0) & (d3n <= mc)
+        check3_sn = act3_sn & (d3n != 0) & (d3n <= mc)
 
         def interleave(a, b):
             return torch.stack([a, b], dim=2).reshape(B, -1)
@@ -495,12 +588,15 @@ _stage1_memo = {}
 def build_stage1(lmax: int, max_candidates: int, n_index2: int,
                  n_index3: int, cand_per_unit: int | None = None,
                  gcap_per_unit: int | None = None, ext_iters: int = 31,
-                 ext_pool: int | None = None):
-    """Stage 1 of the event-stream route (↔ JAX build_stage1, non-TP): the
+                 ext_pool: int | None = None, tp: bool = False):
+    """Stage 1 of the event-stream route (↔ JAX build_stage1): the
     candidate core plus the compaction of accepted events (diffs <= thr,
     the unit's largest cutoff 0.4 len) into one dense stream that the
     native engine replays.  Returns (stage1, o_spec); stage1(genome32,
-    counter2, counter3, index_all, pnib, lens, is_ga, thr) -> (ev, cf):
+    counter2, counter3, index_all, pnib, lens, is_ga, thr, shard=None) ->
+    (ev, cf), with tp one shard's stream (index_all and shard that shard's
+    index_local and shardinfo rows of DeviceIndexTP; n_index2 and n_index3
+    its P2 and P3):
       ev  (2, gcap) i32 of u32 bits: row 0 the positions, row 1 (diffs +
           512) << 22 | rank (rank = cell * SLOT + slot), units in order and
           each unit's events in discovery order; gcap = B * gcap_per_unit
@@ -514,22 +610,22 @@ def build_stage1(lmax: int, max_candidates: int, n_index2: int,
         "ABISMAL_TPU_GCAP_PER_UNIT",
         32 if gcap_per_unit is None else gcap_per_unit))
     key = (lmax, max_candidates, n_index2, n_index3, cand_per_unit,
-           gcap_per_unit, ext_iters, ext_pool)
+           gcap_per_unit, ext_iters, ext_pool, tp)
     if key in _stage1_memo:
         return _stage1_memo[key]
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
                               cand_per_unit, ext_iters=ext_iters,
-                              ext_pool=ext_pool)
+                              ext_pool=ext_pool, tp=tp)
 
     def stage1(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
-               thr):
+               thr, shard=None):
         dev = pnib.device
         B = pnib.shape[0]
         gcap = B * gcap_per_unit
         gflat = B * cand_per_unit
         lens, thr = lens.to(I64), thr.to(I64)
         c = core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
-                 thr[:, None])
+                 thr[:, None], shard)
         d = c["d"].to(I64)
         accept = c["valid"] & (d <= c["extras"][:, 0])
 
@@ -951,6 +1047,25 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
     return stage12pe, o_spec
 
 
+def _slot_streams(ev: np.ndarray, cf: np.ndarray):
+    """The streams of build_stage1 on one device or a mesh (slot s's on
+    rows (2s, 2s + 1), each slot covering its slice of cf), each cut to
+    the length its slot wrote (gcap at most), so that the offsets of later
+    slots hold.  Returns (pos, diffs, rank, start, count, overflow) as
+    _merge_tp_streams does."""
+    cnt = (cf & 0x3FFFFFFF).astype(np.int64)
+    n_sh = ev.shape[0] // 2
+    cnt2d = cnt.reshape(n_sh, -1)
+    within = np.cumsum(cnt2d, axis=1) - cnt2d
+    totals = np.minimum(within[:, -1] + cnt2d[:, -1], ev.shape[1])
+    ustart = (np.concatenate(([0], np.cumsum(totals)[:-1]))[:, None]
+              + within).reshape(-1)
+    pos = np.concatenate([ev[2 * s, : totals[s]] for s in range(n_sh)])
+    meta = np.concatenate([ev[2 * s + 1, : totals[s]] for s in range(n_sh)])
+    return (pos, (meta >> 22).astype(np.int32) - 512,
+            (meta & 0x3FFFFF).astype(np.int32), ustart, cnt, (cf >> 30) != 0)
+
+
 class TorchNativeEngine:
     """The JAX TpuNativeEngine on a torch device.  Implements the
     dispatch/finish pipeline interface of run_map_pipelined, by one of two
@@ -975,7 +1090,13 @@ class TorchNativeEngine:
     replica of the tables, in place of the one device; unit_batch must
     divide by the mesh size.  With a mesh, device_decisions adds up the
     fused route's SE decision counts [unmapped, exact, aligned, fallback]
-    of every read, and no phase marks are kept."""
+    of every read, and no phase marks are kept.
+
+    index_shards (the same forms; not with mesh_devices) splits the index
+    instead: each slot holds the position lists of one key range
+    (DeviceIndexTP) and runs build_stage1 on the whole chunk, and the
+    host merges the slots' streams by rank (_merge_tp_streams).  It takes
+    the event route, without device_align."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -986,22 +1107,26 @@ class TorchNativeEngine:
                  device="cuda", mesh_devices=None, index_shards=None,
                  device_stage2=None, device_align=None,
                  align_jcap: int = 8192):
-        if index_shards:
-            raise NotImplementedError(
-                "index_shards: the key-range-sharded index is not ported "
-                "yet (ROADMAP.md section 1 item 4)")
+        if mesh_devices and index_shards:
+            raise ValueError(
+                "mesh_devices (data parallel) and index_shards (sharded "
+                "index) are alternative mesh layouts; pick one")
         if index.genome_size > POS_EMPTY - 1:
             # positions are u32 and POS_EMPTY marks a dead PE slot
             raise ValueError(f"genome of {index.genome_size} bases exceeds "
                              f"the device path's {POS_EMPTY - 1}")
         self.mesh = None
         self.n_shards = 1
+        self.tp = None  # the sharded index (DeviceIndexTP)
         if mesh_devices:
             self.mesh = make_mesh(mesh_devices)
             self.n_shards = len(self.mesh)
             if unit_batch % self.n_shards:
                 raise ValueError("unit_batch must divide by mesh size")
             self.device = self.mesh[0]
+        elif index_shards:
+            tp_mesh = make_mesh(index_shards)
+            self.device = tp_mesh[0]
         else:
             self.device = resolve_device(device)
         self.native = NativeMappingEngine(index, allow_ambig, valid_frac,
@@ -1011,7 +1136,15 @@ class TorchNativeEngine:
         self.valid_frac = valid_frac
         self.unit_batch = unit_batch
         self.device_tb = os.environ.get("ABISMAL_TPU_DEVTB", "1") == "1"
-        if self.mesh is None:
+        if index_shards:
+            # the position lists split by key range over the slots, every
+            # slot maps the whole chunk; the host merges the streams
+            self.tp = DeviceIndexTP(index, tp_mesh)
+            self.dev = None
+            self._stage1_tp = shard_stage1_tp(build_stage1(
+                lmax, self.tp.max_candidates, self.tp.P2, self.tp.P3,
+                ext_iters=self.tp.ext_iters, tp=True)[0], tp_mesh)
+        elif self.mesh is None:
             self.dev = DeviceIndex.from_index(index, self.device)
         else:
             self.replicas = replicate_tables(index, self.mesh)
@@ -1019,11 +1152,14 @@ class TorchNativeEngine:
         if device_stage2 is None:
             device_stage2 = bool(int(os.environ.get("ABISMAL_TPU_STAGE2",
                                                     "1")))
-        self.device_stage2 = bool(device_stage2)
+        # the sharded index runs the event route: candidate lists span
+        # the shards, so only the host sees a unit's whole stream
+        self.device_stage2 = bool(device_stage2) and not index_shards
         if device_align is None:
             device_align = bool(int(os.environ.get(
                 "ABISMAL_TPU_DEVICE_ALIGN", "0")))
-        self.device_align = bool(device_align) and self.mesh is None
+        self.device_align = (bool(device_align) and self.mesh is None
+                             and not index_shards)
         self.align_jcap = int(align_jcap)
         self.n_device_aligned = 0
         self.device_decisions = np.zeros(4, dtype=np.int64)
@@ -1124,7 +1260,7 @@ class TorchNativeEngine:
         return pnib, lens_u, per, oversized
 
     def _put(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return put(a, self.device)
 
     def close(self):
         """Stops the event route's collector threads, once the batches in
@@ -1158,13 +1294,14 @@ class TorchNativeEngine:
         ev, cf, the chunk's unit rows on the device)."""
         per = is_ga_pat.shape[0]
         t1 = time.perf_counter()
-        prog = self._stage1_prog(self._budget_for((pnib_all, lens_all),
-                                                  is_ga_pat, per))
+        if self.tp is None:
+            prog = self._stage1_prog(self._budget_for((pnib_all, lens_all),
+                                                      is_ga_pat, per))
         n = wanted.shape[0]  # per units a read (the rows pad an empty batch)
         resident = lens_all[:n] > 0
         B = max(self.n_shards, self.unit_batch - self.unit_batch
                 % self.n_shards)
-        if self.mesh is None:
+        if self.dev is not None and self.mesh is None:
             tables = self.dev.tables()
         pending = []
         for u0 in range(0, n, B):
@@ -1177,9 +1314,12 @@ class TorchNativeEngine:
                 lens = np.pad(lens, (0, B - nu))
             is_ga = is_ga_pat[(u0 + np.arange(B)) % per]
             thr = ((2 * lens.astype(np.int64)) // 5).astype(np.int32)
-            if self.mesh is not None:
+            pn = None
+            if self.tp is not None:
+                ev, cf = self._stage1_tp(self.tp.slots, preads, lens, is_ga,
+                                         thr)
+            elif self.mesh is not None:
                 ev, cf, _total = prog(self.replicas, preads, lens, is_ga, thr)
-                pn = None
             else:
                 pn = self._put(preads)
                 ev, cf = prog(*tables, pn, self._put(lens), self._put(is_ga),
@@ -1198,31 +1338,23 @@ class TorchNativeEngine:
         _collect_flat): ((pos u32, diffs i32, rank i32, start i64, count
         i64, boundary), (unit_chunk, unit_row)).  count -1 sends a unit to
         the native seeding: overflowed units, and those that are not
-        resident.  Each slot's stream is cut to the length it wrote (gcap
-        at most), so the offsets of later slots and chunks hold.  Runs on
-        a collector thread: the shared counters are guarded."""
+        resident.  A sharded index's streams are merged by rank
+        (_merge_tp_streams); a mesh's are cut each to the length its slot
+        wrote (_slot_streams).  Runs on a collector thread: the shared
+        counters are guarded."""
         n = resident.shape[0]
         start = np.zeros(n, dtype=np.int64)
         count = np.full(n, -1, dtype=np.int64)
         unit_chunk = np.full(n, -1, dtype=np.int32)  # -1: not on the device
         unit_row = np.zeros(n, dtype=np.int32)
-        pos_parts, meta_parts = [], []
+        parts = []
         base = n_fb = 0
         for ci, (u0, nu, ev_t, cf_t, _pn) in enumerate(pending):
             ev = ev_t.cpu().numpy().view(np.uint32)
             cf = cf_t.cpu().numpy()
-            cnt = (cf & 0x3FFFFFFF).astype(np.int64)
-            overflow = (cf >> 30) != 0
-            # a mesh stacks each slot's stream: slot s on rows (2s, 2s+1)
-            n_sh = ev.shape[0] // 2
-            cnt2d = cnt.reshape(n_sh, -1)
-            within = np.cumsum(cnt2d, axis=1) - cnt2d
-            totals = np.minimum(within[:, -1] + cnt2d[:, -1], ev.shape[1])
-            ustart = (np.concatenate(([0], np.cumsum(totals)[:-1]))[:, None]
-                      + within).reshape(-1)
-            for sh in range(n_sh):
-                pos_parts.append(ev[2 * sh, : totals[sh]])
-                meta_parts.append(ev[2 * sh + 1, : totals[sh]])
+            streams = _merge_tp_streams if cf.ndim == 2 else _slot_streams
+            pos, diffs, rank, ustart, cnt, overflow = streams(ev, cf)
+            parts.append((pos, diffs, rank))
             res = resident[u0 : u0 + nu]
             ok = res & ~overflow[:nu]
             start[u0 : u0 + nu] = np.where(ok, base + ustart[:nu], 0)
@@ -1230,17 +1362,16 @@ class TorchNativeEngine:
             unit_chunk[u0 : u0 + nu] = np.where(res, ci, -1)
             unit_row[u0 : u0 + nu] = np.arange(nu)
             n_fb += int((res & overflow[:nu]).sum())
-            base += int(totals.sum())
+            base += pos.shape[0]
         with self._counter_lock:
             self.n_units += int(wanted.sum())
             self.n_fallback += n_fb + int((wanted & ~resident).sum())
-        if pos_parts:
-            ev_pos = np.concatenate(pos_parts)
-            meta = np.concatenate(meta_parts)
+        if parts:
+            ev_pos, diffs, rank = (np.concatenate(c) for c in zip(*parts))
         else:
-            ev_pos = meta = np.zeros(1, dtype=np.uint32)
-        events = (ev_pos, (meta >> 22).astype(np.int32) - 512,
-                  (meta & 0x3FFFFF).astype(np.int32), start, count,
+            ev_pos = np.zeros(1, dtype=np.uint32)
+            diffs = rank = np.zeros(1, dtype=np.int32)
+        events = (ev_pos, diffs, rank, start, count,
                   o_spec_for(self.lmax) * 2 * SLOT)
         return events, (unit_chunk, unit_row)
 
@@ -1540,8 +1671,14 @@ _engine_memo = {}
 def release_engines():
     """Closes and drops every memoized engine, and with it its tables."""
     for _index, eng in _engine_memo.values():
-        eng.close()
+        if isinstance(eng, TorchNativeEngine):  # its collector threads
+            eng.close()
     _engine_memo.clear()
+
+
+def _mesh_key(spec):
+    return (tuple(str(d) for d in spec) if isinstance(spec, (list, tuple))
+            else spec)
 
 
 def make_torch_native_engine_factory(device, lmax: int = 128,
@@ -1549,19 +1686,19 @@ def make_torch_native_engine_factory(device, lmax: int = 128,
                                      n_threads: int = 1, mesh_devices=None,
                                      device_align=None,
                                      align_jcap: int = 8192,
-                                     device_stage2=None):
-    """run_map engine factory for TorchNativeEngine on `device`, or over
-    the mesh mesh_devices, memoized per index (the device tables are ~1 GB
-    at any genome size).  device_stage2 and device_align pick the route
-    (None: the environment's default; see TorchNativeEngine)."""
-    mesh_key = (tuple(str(d) for d in mesh_devices)
-                if isinstance(mesh_devices, (list, tuple)) else mesh_devices)
+                                     device_stage2=None, index_shards=None):
+    """run_map engine factory for TorchNativeEngine on `device`, over the
+    mesh mesh_devices or over the index shards index_shards, memoized per
+    index (the device tables are ~1 GB at any genome size).  device_stage2
+    and device_align pick the route (None: the environment's default; see
+    TorchNativeEngine)."""
 
     def factory(index, allow_ambig, valid_frac, pe_min_dist, pe_max_dist):
         key = ("torch-native", id(index), int(index.max_candidates),
                allow_ambig, valid_frac, pe_min_dist, pe_max_dist, lmax,
-               unit_batch, str(device), mesh_key, device_align, align_jcap,
-               device_stage2)
+               unit_batch, str(device), _mesh_key(mesh_devices),
+               device_align, align_jcap, device_stage2,
+               _mesh_key(index_shards))
         hit = _engine_memo.get(key)
         if hit is not None and hit[0] is index:
             hit[1].n_threads = n_threads
@@ -1572,9 +1709,230 @@ def make_torch_native_engine_factory(device, lmax: int = 128,
                                 mesh_devices=mesh_devices,
                                 device_align=device_align,
                                 align_jcap=align_jcap,
-                                device_stage2=device_stage2)
+                                device_stage2=device_stage2,
+                                index_shards=index_shards)
         _engine_memo[key] = (index, eng)
         return eng
 
     factory.is_native = True
+    return factory
+
+
+# --- the replay engines: the exact engine on device candidates -------------
+
+def replay_events(res, sc: int, ev_pos, ev_diffs, ev_rank, count: int,
+                  o_spec: int) -> None:
+    """Replays process_seeds' sequential candidate-set updates
+    (abismal.cpp:1269-1375) over device-computed events.  Events arrive in
+    discovery order; rank encodes (phase, offset, table, slot)."""
+    boundary = o_spec * 2 * SLOT
+    res.set_specific()
+    i = 0
+    while i < count and ev_rank[i] < boundary:
+        if res.sure_ambig:
+            break
+        d = int(ev_diffs[i])
+        if d <= res.cutoff:
+            res.update(True, d, sc, int(ev_pos[i]))
+        i += 1
+    # skip remaining specific events after a sure-ambig abort
+    while i < count and ev_rank[i] < boundary:
+        i += 1
+    if not res.should_do_sensitive():
+        return
+    res.set_sensitive()
+    while i < count:
+        if res.sure_ambig:
+            break
+        d = int(ev_diffs[i])
+        if d <= res.cutoff:
+            res.update(True, d, sc, int(ev_pos[i]))
+        i += 1
+
+
+class EventReplayEngine(MappingEngine):
+    """The exact engine seeded from event caches handed to it (↔ JAX
+    EventReplayEngine): run_map_hybrid's workers, which touch no device,
+    replay the events the parent's TorchMappingEngine collected.  A cache
+    maps a unit's key to (pos, diffs, rank, count), NumPy arrays, or to
+    None: that unit, and any unit not in it, is seeded on the host."""
+
+    def __init__(self, *args, **kwargs):
+        MappingEngine.__init__(self, *args, **kwargs)
+        self._cache = {}
+        self.o_spec = o_spec_for(128)
+
+    def set_cache(self, cache, o_spec):
+        self._cache = cache
+        self.o_spec = o_spec
+
+    def _seeds(self, pread, sc, res, key=None):
+        ev = self._cache.get(key, None) if key is not None else None
+        if ev is None:
+            process_seeds(self.view, pread, pack_read(pread), sc, res)
+            return
+        ev_pos, ev_diffs, ev_rank, c = ev
+        replay_events(res, sc, ev_pos, ev_diffs, ev_rank, c, self.o_spec)
+
+
+class TorchMappingEngine(EventReplayEngine):
+    """The exact engine with its candidates from the device (↔ JAX
+    TpuMappingEngine, `--engine torch-replay`): before each batch every
+    read's units go through build_stage1 (K1) on `device`, unit_batch
+    units a chunk, and the sequential decision logic replays each unit's
+    events; units flagged overflow, and those longer than lmax, are
+    seeded on the host.  The output is the exact engine's.  The streams
+    are copied to the host when a batch is collected (_collect_units)."""
+
+    def __init__(self, index, allow_ambig=False, valid_frac=0.1,
+                 pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
+                 unit_batch: int = 1024, device="cuda"):
+        self.device = resolve_device(device)
+        if index.genome_size > POS_EMPTY - 1:
+            raise ValueError(f"genome of {index.genome_size} bases exceeds "
+                             f"the device path's {POS_EMPTY - 1}")
+        EventReplayEngine.__init__(self, index, allow_ambig, valid_frac,
+                                   pe_min_dist, pe_max_dist)
+        self.lmax = lmax
+        self.unit_batch = unit_batch
+        self.dev = DeviceIndex.from_index(index, self.device)
+        self.stage1, self.o_spec = build_stage1(
+            lmax, self.dev.max_candidates, self.dev.n_index2,
+            self.dev.n_index3, ext_iters=self.dev.ext_iters)
+        self.n_fallback = 0
+        self.n_units = 0
+
+    def _dispatch_units(self, units):
+        """units: list of (key, pread nibbles, is_ga).  Enqueues stage 1 on
+        every unit_batch units; returns the handle of _collect_units:
+        (keys seeded on the host, [(chunk, ev, cf)])."""
+        pre_cache = {}
+        pending = []
+        B = self.unit_batch
+        for start in range(0, len(units), B):
+            chunk = units[start : start + B]
+            for u in chunk:
+                if u[1].shape[0] > self.lmax:  # seeded on the host
+                    pre_cache[u[0]] = None
+            chunk = [u for u in chunk if u[1].shape[0] <= self.lmax]
+            if not chunk:
+                continue
+            preads, lens = prepare_units([u[1] for u in chunk], self.lmax)
+            pad = B - len(chunk)
+            if pad:
+                preads = np.pad(preads, ((0, pad), (0, 0)))
+                lens = np.pad(lens, (0, pad))
+            is_ga = np.zeros(B, dtype=bool)
+            is_ga[: len(chunk)] = [u[2] for u in chunk]
+            thr = ((2 * lens.astype(np.int64)) // 5).astype(np.int32)
+            ev, cf = self.stage1(*self.dev.tables(), *(
+                put(a, self.device) for a in (preads, lens, is_ga, thr)))
+            pending.append((chunk, ev, cf))
+        return pre_cache, pending
+
+    def _collect_units(self, dispatched):
+        """Copies the dispatched streams to the host: the event cache
+        {unit key: (pos, diffs, rank, count), or None to seed on the
+        host}."""
+        pre_cache, pending = dispatched
+        cache = dict(pre_cache)
+        for chunk, ev_t, cf_t in pending:
+            gpos, gmeta = ev_t.cpu().numpy().view(np.uint32)
+            cf = cf_t.cpu().numpy()
+            count = cf & 0x3FFFFFFF
+            overflow = (cf >> 30) != 0
+            prefix = np.concatenate(([0], np.cumsum(count)))
+            diffs_all = (gmeta >> 22).astype(np.int32) - 512
+            rank_all = (gmeta & 0x3FFFFF).astype(np.int32)
+            for i, u in enumerate(chunk):
+                self.n_units += 1
+                if overflow[i]:
+                    self.n_fallback += 1
+                    cache[u[0]] = None
+                else:
+                    s, e = int(prefix[i]), int(prefix[i + 1])
+                    cache[u[0]] = (gpos[s:e], diffs_all[s:e], rank_all[s:e],
+                                   e - s)
+        return cache
+
+    def _run_units(self, units):
+        self._cache = self._collect_units(self._dispatch_units(units))
+
+    def _se_units(self, reads, a_rich_mode, random_pbat):
+        """The units of a batch of reads, keyed as map_se_reads asks."""
+        units = []
+        for ri, (_, read) in enumerate(reads):
+            if not read:
+                continue
+            rc = revcomp_str(read.decode()).encode()
+            if not random_pbat:
+                conv = a_rich_mode
+                units.append((
+                    (ri, "f", conv), prep_read(read, conv),
+                    get_conv_is_ga(strand_code("+", conv))))
+                units.append((
+                    (ri, "r", not conv), prep_read(rc, not conv),
+                    get_conv_is_ga(strand_code("-", conv))))
+            else:
+                units.append(((ri, "f", False), prep_read(read, False),
+                              get_conv_is_ga(strand_code("+", False))))
+                units.append(((ri, "f", True), prep_read(read, True),
+                              get_conv_is_ga(strand_code("+", True))))
+                units.append(((ri, "r", False), prep_read(rc, False),
+                              get_conv_is_ga(strand_code("-", True))))
+                units.append(((ri, "r", True), prep_read(rc, True),
+                              get_conv_is_ga(strand_code("-", False))))
+        return units
+
+    def _prepare_batch_se(self, reads, a_rich_mode, random_pbat):
+        self._run_units(self._se_units(reads, a_rich_mode, random_pbat))
+
+    def _pe_units(self, reads1, reads2, a_rich_mode, random_pbat):
+        """The units of a batch of pairs, keyed as map_pe_reads asks."""
+        units = []
+
+        def add(ri, end, orient, enc, read_bytes, sc):
+            if not read_bytes:
+                return
+            seq = read_bytes
+            if orient == "r":
+                seq = revcomp_str(read_bytes.decode()).encode()
+            units.append(((ri, end, orient, enc), prep_read(seq, enc),
+                          get_conv_is_ga(sc)))
+
+        convs = [a_rich_mode] if not random_pbat else [False, True]
+        for ri, ((_, r1), (_, r2)) in enumerate(zip(reads1, reads2)):
+            for conv in convs:
+                add(ri, 1, "f", conv, r1, strand_code("+", conv))
+                add(ri, 2, "r", conv, r2, strand_code("-", not conv))
+                add(ri, 2, "f", not conv, r2, strand_code("+", not conv))
+                add(ri, 1, "r", not conv, r1, strand_code("-", conv))
+        return units
+
+    def _prepare_batch_pe(self, reads1, reads2, a_rich_mode, random_pbat):
+        self._run_units(self._pe_units(reads1, reads2, a_rich_mode,
+                                       random_pbat))
+
+
+def make_torch_engine_factory(device="cuda", lmax: int = 128,
+                              unit_batch: int = 1024):
+    """run_map engine factory for TorchMappingEngine on `device`, memoized
+    per index.  It is a replay factory (factory.is_replay): run_map with
+    threads > 1 runs its engine's stage 1 in the calling process and the
+    replay in worker processes (runner.run_map_hybrid)."""
+
+    def factory(index, allow_ambig, valid_frac, pe_min_dist, pe_max_dist):
+        key = ("torch-replay", id(index), int(index.max_candidates),
+               allow_ambig, valid_frac, pe_min_dist, pe_max_dist, lmax,
+               unit_batch, str(device))
+        hit = _engine_memo.get(key)
+        if hit is not None and hit[0] is index:
+            return hit[1]
+        eng = TorchMappingEngine(index, allow_ambig, valid_frac, pe_min_dist,
+                                 pe_max_dist, lmax=lmax,
+                                 unit_batch=unit_batch, device=device)
+        _engine_memo[key] = (index, eng)
+        return eng
+
+    factory.is_replay = True
     return factory

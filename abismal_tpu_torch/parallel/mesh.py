@@ -13,16 +13,19 @@ A mesh may name a device more than once: two slots on one card, or on the
 CPU, run the same split as two cards do (the port's form of the JAX
 tests' virtual CPU mesh), and slots on one device share its replica.  One
 Python thread drives the slots in turn, so their launches serialize on
-the host."""
+the host.
+
+The key-range-sharded index (shard_stage1_tp, ↔ the JAX TP option) runs
+over the same kind of mesh: there each slot holds one shard of the
+position lists and gets the whole chunk."""
 
 from __future__ import annotations
 
 import contextlib
 
-import numpy as np
 import torch
 
-from ..device import require_cuda, resolve_device
+from ..device import put, require_cuda, resolve_device
 
 
 def make_mesh(devices="all") -> list[torch.device]:
@@ -85,9 +88,7 @@ def _run_slices(prog, devices, replicas, args, shared=()):
                                       (s + 1) * (a.shape[0] // n)]
               for i, a in enumerate(args)]
         with _on(dev):
-            outs.append(prog(*rep.tables(), *(
-                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in sl)))
+            outs.append(prog(*rep.tables(), *(put(a, dev) for a in sl)))
     if isinstance(outs[0], tuple):
         return tuple(torch.cat([o[k].cpu() for o in outs])
                      for k in range(len(outs[0])))
@@ -106,6 +107,31 @@ def shard_stage1(stage1, devices):
         ev, cf = _run_slices(stage1, devices, replicas,
                              (pnib, lens, is_ga, thr))
         return ev, cf, int((cf & 0x3FFFFFFF).sum())
+
+    return wrapped
+
+
+def shard_stage1_tp(stage1, devices):
+    """The event-stream program over a key-range-sharded index (↔ JAX
+    shard_stage1_tp; stage1 built with tp=True): wrapped(slots, pnib,
+    lens, is_ga, thr), slots the DeviceIndexTP's per-slot tensors.  Every
+    slot probes the buckets it owns for the WHOLE unit batch (uploaded
+    once per distinct device); all slots are enqueued before any result
+    is copied back.  Returns (ev, cf) on the CPU: slot s's (2, gcap)
+    stream on rows (2s, 2s + 1), and cf (n_slots, B), every slot's count
+    | overflow words of every unit (map.host_units._merge_tp_streams
+    merges them)."""
+
+    def wrapped(slots, pnib, lens, is_ga, thr):
+        units, outs = {}, []
+        for dev, (g32, c2, c3, index_local, shard) in zip(devices, slots):
+            if dev not in units:
+                units[dev] = [put(a, dev) for a in (pnib, lens, is_ga, thr)]
+            with _on(dev):
+                outs.append(stage1(g32, c2, c3, index_local, *units[dev],
+                                   shard=shard))
+        return (torch.cat([ev.cpu() for ev, _ in outs]),
+                torch.stack([cf.cpu() for _, cf in outs]))
 
     return wrapped
 

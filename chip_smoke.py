@@ -56,7 +56,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal; the SE reads also through the event route with
               device_align (reads/s beside the native control, fallback,
               jobs scored on the device);
-  8. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
+  8. shards_replay  the key-range-sharded index (--index-shards) over two
+              slots of the card (and over every card, given two): small,
+              reads, small_pe, reads_pe give the goldens' SAM and mstats,
+              and the 1 Gb SE set of phase 7 the native engine's SAM; the
+              replay engine (--engine torch-replay) on small and small_pe
+              gives the goldens in this process (-t 1) and through three
+              forked workers (-t 3); K1 must launch in every run, and
+              every run prints its rate beside this call's native rate;
+  9. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
               mesh      two slots on cuda:0 (unit_batch 4096: each slot
                         maps 2048 units, the one-card chunk): small, reads,
                         small_pe, reads_pe give the goldens' SAM and mstats
@@ -1072,7 +1080,117 @@ def phase_scale(dev, threads):
     return res, sets
 
 
-# --- phase 7 -------------------------------------------------------------------
+# --- phase 8 -------------------------------------------------------------------
+
+SHARD_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
+REPLAY_GOLDENS = ("small", "small_pe")
+
+
+def phase_shards_replay(dev, threads, card, trex, sets, rates):
+    """The key-range-sharded index and the replay engines on the card:
+    --index-shards over two slots of dev (and over every card, given two)
+    on the goldens and on the 1 Gb SE set against the native engine's
+    SAM; TorchMappingEngine (torch-replay) on the small goldens, in this
+    process and through run_map_hybrid's three forked workers.  K1's
+    counter must move in every run; every rate stands beside this call's
+    native rate on the same reads."""
+    import torch
+
+    from abismal_tpu_torch.host import make_native_engine_factory
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_engine_factory, make_torch_native_engine_factory,
+    )
+
+    k1 = pc.popcount_compare
+    native = make_native_engine_factory(n_threads=threads)
+    out = {"card": card}
+    n_k1 = 0
+
+    def native_rate(prefix):
+        """This call's native rate on a golden set (reads/s or pairs/s)."""
+        if prefix not in rates:
+            fq1, fq2 = golden_fastqs(prefix)
+            secs = map_with(native, trex, fq1, os.path.join(
+                WORK, "native_sr.sam"), None, "native", threads, fq2)
+            rates[prefix] = (None, n_reads_of(fq1) / secs)
+        return rates[prefix][1]
+
+    def counted(st, k0):
+        nonlocal n_k1
+        st["k1_launches"] = k1.launches - k0
+        check(st["k1_launches"] > 0, "popcount_compare was not launched")
+        n_k1 += st["k1_launches"]
+        return st
+
+    facs = {"slots2": make_torch_native_engine_factory(
+        dev, n_threads=threads, index_shards=[dev, dev])}
+    if torch.cuda.device_count() >= 2:
+        facs["all"] = make_torch_native_engine_factory(
+            dev, n_threads=threads, index_shards="all")
+    k1.launches = 0
+    for name, fac in facs.items():
+        for prefix in SHARD_GOLDENS:
+            fq1, fq2 = golden_fastqs(prefix)
+            sam = os.path.join(WORK, f"shards_{prefix}.sam")
+            mst = os.path.join(WORK, f"shards_{prefix}.mstats")
+            k0 = k1.launches
+            st = port_map(fac, trex, fq1, sam, mst, golden_cl(prefix),
+                          threads, fq2)
+            sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+            st.update(sam_identical=sam_ok, mstats_identical=mst_ok,
+                      native_per_s=native_rate(prefix))
+            check(sam_ok and mst_ok, f"index shards {name} {prefix}: output "
+                  "differs from the golden")
+            out[f"shards_{name}_{prefix}"] = counted(st, k0)
+    # the 1 Gb SE set of the scale phase, two shards on one card
+    fq, _, sam_native, cl = sets["se"]
+    big = sets["index"]
+    t0 = time.perf_counter()
+    eng = facs["slots2"](big, False, 0.1, 32, 3000)
+    st = {"engine_s": time.perf_counter() - t0,
+          "table_bytes": eng.tp.nbytes(), "P2": eng.tp.P2, "P3": eng.tp.P3}
+    sam = os.path.join(WORK, "shards_scale_se.sam")
+    for run in ("first", "warm"):
+        k0 = k1.launches
+        st[run] = counted(port_map(facs["slots2"], big, fq, sam, None, cl,
+                                   threads), k0)
+        check(open(sam, "rb").read() == open(sam_native, "rb").read(),
+              f"index shards 1 Gb SE ({run}): SAM differs from the native "
+              "engine's")
+    st.update(sam_identical=True, native_per_s=rates["se"][1],
+              fused_per_s=rates["se"][0])
+    out["shards_slots2_scale_se"] = st
+
+    # torch-replay: stage 1 on the card, the replay in Python, in this
+    # process (-t 1) and in three forked workers (-t 3, run_map_hybrid)
+    replay = make_torch_engine_factory(dev)
+    for prefix in REPLAY_GOLDENS:
+        fq1, fq2 = golden_fastqs(prefix)
+        for t in (1, 3):
+            sam = os.path.join(WORK, f"replay_{prefix}_t{t}.sam")
+            mst = os.path.join(WORK, f"replay_{prefix}_t{t}.mstats")
+            k0 = k1.launches
+            eng = replay(trex, False, 0.1, 32, 3000)
+            u0, f0 = eng.n_units, eng.n_fallback
+            secs = map_with(replay, trex, fq1, sam, mst, golden_cl(prefix),
+                            t, fq2)
+            sam_ok, mst_ok = golden_identical(prefix, sam, mst)
+            check(sam_ok and mst_ok, f"torch-replay -t {t} {prefix}: output "
+                  "differs from the golden")
+            unit = "pairs" if fq2 else "reads"
+            n = n_reads_of(fq1)
+            out[f"replay_{prefix}_t{t}"] = counted({
+                unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
+                "native_per_s": native_rate(prefix),
+                "fallback_frac": (eng.n_fallback - f0)
+                / max(1, eng.n_units - u0),
+                "sam_identical": sam_ok, "mstats_identical": mst_ok}, k0)
+    out["launches"] = {"popcount_compare": n_k1}
+    return out, out["launches"]
+
+
+# --- phase 9 -------------------------------------------------------------------
 
 MESH_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
 SPLIT_GOLDENS = ("reads", "reads_pe")  # the server split
@@ -1160,7 +1278,7 @@ def hybrid_map(eng, index, fq1, fq2, sam, cl, share, threads, mstats=None,
 
 
 def phase_scaleout(dev, threads, card, trex, sets, rates):
-    """Phase 7: the mesh, the hybrid split and multi-host sharding.  trex
+    """Phase 9: the mesh, the hybrid split and multi-host sharding.  trex
     is the tRex1 index of the goldens phases (its port engine is warm),
     rates this call's (port-only, native-only) rates by set."""
     import torch
@@ -1405,6 +1523,11 @@ def main():
                            gres["native_reads_per_s"]),
                  "reads_pe": (pres["reads_pe"]["pairs_per_s"],
                               pres["reads_pe"]["native_pairs_per_s"])}
+        t0 = time.perf_counter()
+        rres, launches_sr = phase_shards_replay(
+            dev, threads, card, index, sets, {**rates, **sets["rates"]})
+        emit("shards_replay", seconds=time.perf_counter() - t0, **rres)
+
         ores, launches_out = phase_scaleout(dev, threads, card, index, sets,
                                             rates)
         emit("scaleout", **ores)
@@ -1413,7 +1536,7 @@ def main():
                    if m == "abismal_tpu" or m.startswith("abismal_tpu.")],
               "the port loaded the JAX package abismal_tpu")
         line = kernels_line(kres, (launches, launches_pe, launches_ev,
-                                   launches_out))
+                                   launches_sr, launches_out))
     except Exception:
         traceback.print_exc()
         return 1

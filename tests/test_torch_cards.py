@@ -1,7 +1,8 @@
 """The port's mesh on the card: two slots on one card, and every card of
 a machine with two or more.  The fused programs and the event-stream
-route (shard_stage12(pe), shard_stage1 on one slot each) map the small
-goldens byte for byte.  Every case needs a card (the "all" cases two)
+route (shard_stage12(pe), shard_stage1 on one slot each), and the
+key-range-sharded index (shard_stage1_tp), map the small goldens byte
+for byte.  Every case needs a card (the "all" cases two)
 and skips without.  Nothing here imports the JAX package or another
 module of tests/ (a machine with cards may have an installed package
 named `tests` that shadows this directory), so the cases run where
@@ -55,15 +56,8 @@ def card_mesh(request):
     return "all", torch.cuda.device_count()
 
 
-@pytest.mark.parametrize("stage2", [True, False], ids=["fused", "events"])
-@pytest.mark.parametrize("prefix", ["small", "small_pe"])
-def test_card_mesh_gives_the_goldens(tmp_path, trex1, card_mesh, prefix,
-                                     stage2):
-    """run_map over the mesh, 128 units a slot."""
+def _map_golden(tmp_path, trex1, prefix, fac):
     from abismal_tpu_torch.map.engine import run_map
-    from abismal_tpu_torch.map.pipeline import (
-        make_torch_native_engine_factory,
-    )
 
     index, goldens = trex1
     paired = prefix.endswith("_pe")
@@ -71,10 +65,6 @@ def test_card_mesh_gives_the_goldens(tmp_path, trex1, card_mesh, prefix,
             else f"tests/{prefix}_1.fq")
     cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
           f"-i tests/tRex1.idx {tail}")
-    spec, slots = card_mesh
-    fac = make_torch_native_engine_factory(
-        "cuda", unit_batch=128 * slots, n_threads=2, mesh_devices=spec,
-        device_stage2=stage2)
     sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
     run_map(index, _gunzip(prefix + "_1.fq", goldens),
             _gunzip(prefix + "_2.fq", goldens) if paired else None, str(sam),
@@ -82,4 +72,39 @@ def test_card_mesh_gives_the_goldens(tmp_path, trex1, card_mesh, prefix,
     for path, ext in ((sam, ".sam.gz"), (mst, ".mstats.gz")):
         with gzip.open(os.path.join(GOLDEN, prefix + ext), "rt") as f:
             assert path.read_text() == f.read()
-    assert fac(index, False, 0.1, 32, 3000).n_shards == slots
+    return fac(index, False, 0.1, 32, 3000)
+
+
+@pytest.mark.parametrize("stage2", [True, False], ids=["fused", "events"])
+@pytest.mark.parametrize("prefix", ["small", "small_pe"])
+def test_card_mesh_gives_the_goldens(tmp_path, trex1, card_mesh, prefix,
+                                     stage2):
+    """run_map over the mesh, 128 units a slot."""
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    spec, slots = card_mesh
+    fac = make_torch_native_engine_factory(
+        "cuda", unit_batch=128 * slots, n_threads=2, mesh_devices=spec,
+        device_stage2=stage2)
+    assert _map_golden(tmp_path, trex1, prefix, fac).n_shards == slots
+
+
+@pytest.mark.parametrize("prefix", ["small", "small_pe"])
+def test_card_index_shards_give_the_goldens(tmp_path, trex1, card_mesh,
+                                            prefix):
+    """run_map with the index split over the mesh's slots, every slot
+    mapping every chunk of 128 units; the genome and counters once per
+    card."""
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    spec, slots = card_mesh
+    fac = make_torch_native_engine_factory(
+        "cuda", unit_batch=128, n_threads=2, index_shards=spec)
+    eng = _map_golden(tmp_path, trex1, prefix, fac)
+    assert eng.tp.n_shards == slots
+    counters = {id(slot[1]) for slot in eng.tp.slots}
+    assert len(counters) == (1 if spec != "all" else slots)

@@ -246,13 +246,26 @@ def test_native_engine_reused_with_fewer_threads(port_index):
     assert vars(se2) == vars(se)
 
 
-def test_run_map_refuses_other_engines(port_index):
-    """The port's run_map takes native-library engines only; the JAX
-    package's pure-Python reference engine is not carried over."""
+@pytest.mark.parametrize("engine", ["tpu", "tpu-replay", "jax"])
+def test_run_map_refuses_other_engines(port_index, tmp_path, capsys,
+                                       engine):
+    """The port's `map` refuses an --engine of its own list's outside
+    (torch, hybrid, native, exact, torch-replay: the JAX package's tpu
+    and tpu-replay are torch and torch-replay here), while run_map runs
+    every engine the JAX package's does: without a factory the exact
+    Python engine (MappingEngine) maps the reads."""
+    from abismal_tpu_torch.cli import main
     from abismal_tpu_torch.map.engine import run_map
 
-    with pytest.raises(ValueError, match="native engine factory"):
-        run_map(port_index, "r.fq", None, "o.sam", None, "cl")
+    with pytest.raises(SystemExit):
+        main(["map", "--engine", engine, "-o", "o.sam", "-i", "x.idx",
+              "r.fq"])
+    assert "invalid choice" in capsys.readouterr().err
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r1\n" + "ACGT" * 25 + "\n+\n" + "I" * 100 + "\n")
+    stats = run_map(port_index, str(fq), None, str(tmp_path / "o.sam"),
+                    None, "cl")
+    assert stats.total_reads == 1
 
 
 def test_shard_helpers_agree(tmp_path):

@@ -2,9 +2,10 @@
 chip_smoke.py, nor the two timing scripts beside it) imports jax or
 anything of the JAX package abismal_tpu, importing every module of the port loads neither, chip_smoke.py imports
 only the port, whole `map`, `idx` and `sim` runs through the port's CLI
-(map also over a mesh and as a hybrid split) work while `import
-abismal_tpu` is made to fail, and chip_smoke.py refuses to run without a
-card."""
+(map also over a mesh, over index shards, as a hybrid split and with
+every --engine) work while `import abismal_tpu` is made to fail, the
+device entry points do not fall back to the CPU without a card, and
+chip_smoke.py refuses to run without a card."""
 
 import ast
 import os
@@ -58,7 +59,9 @@ def test_port_modules_import_without_jax():
         if parts[0] == "abismal_tpu_torch" and parts[-1] != "__main__":
             mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
                                  else parts))
-    assert "abismal_tpu_torch.parallel.multihost" in mods
+    for m in ("parallel.multihost", "map.align", "map.candidates",
+              "map.seeds", "map.engine", "map.runner"):
+        assert "abismal_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "sys.modules['abismal_tpu'] = None\n"
             "for m in sys.argv[1:]:\n"
@@ -119,7 +122,13 @@ def _sam_body(text):
     (False, []), (True, []),
     (False, ["--engine", "hybrid", "--device-share", "0.4"]),
     (True, ["--mesh", "2"]),
-], ids=["se", "pe", "se-hybrid", "pe-mesh"])
+    (False, ["--index-shards", "2"]),
+    (False, ["--engine", "native", "-t", "2"]),
+    (True, ["--engine", "exact"]),
+    (False, ["--engine", "torch-replay"]),
+    (False, ["--engine", "torch-replay", "-t", "3"]),
+], ids=["se", "pe", "se-hybrid", "pe-mesh", "se-index-shards", "se-native",
+        "pe-exact", "se-torch-replay", "se-torch-replay-t3"])
 def test_cli_map_never_loads_jax(tmp_path, port_index, ref_index, paired,
                                  extra):
     """`python -m abismal_tpu_torch map --device cpu` with abismal_tpu
@@ -127,7 +136,9 @@ def test_cli_map_never_loads_jax(tmp_path, port_index, ref_index, paired,
     the golden's (small_1.fq) or, for pairs with -l 40 -L 500, the JAX
     package's native engine's on the same concordance window (small_pe);
     so too with --engine hybrid (its host shard in a process of its own, as -i is
-    given) and over a 2-slot CPU mesh."""
+    given), over a 2-slot CPU mesh, with the index split over 2 CPU slots,
+    and with the native, exact and torch-replay engines (the last also
+    through its forked workers)."""
     sam = tmp_path / "o.sam"
     if paired:
         args = ["-l", "40", "-L", "500", golden_file("small_pe_1.fq"),
@@ -200,6 +211,28 @@ def test_cli_sim_alone_gives_the_golden(tmp_path):
     for end in ("_1.fq", "_2.fq"):
         assert md5_file(str(tmp_path / ("reads_pe" + end))) == md5_file(
             golden_file("reads_pe" + end))
+
+
+def test_no_cpu_fallback_without_card(tmp_path, port_index):
+    """Without a card the device entry points raise instead of running on
+    the CPU: TorchMappingEngine at its default device, the replay factory's
+    engine, and `map --index-shards` without --device cpu."""
+    import torch
+
+    from abismal_tpu_torch.cli import main
+    from abismal_tpu_torch.map.pipeline import (
+        TorchMappingEngine, make_torch_engine_factory,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchMappingEngine(port_index)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_torch_engine_factory()(port_index, False, 0.1, 32, 3000)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["map", "--index-shards", "2", "-o", str(tmp_path / "o.sam"),
+              "-i", PORT_IDX, golden_file("small_1.fq")])
 
 
 @pytest.mark.parametrize("alone", [False, True])

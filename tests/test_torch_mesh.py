@@ -191,14 +191,6 @@ def test_mesh_unit_batch_must_divide(port_index):
                           mesh_devices=["cpu"] * 2)
 
 
-def test_index_shards_not_ported(port_index):
-    """The key-range-sharded index is refused, never ignored."""
-    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
-
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TorchNativeEngine(port_index, device="cpu", index_shards=2)
-
-
 @pytest.mark.parametrize("spec", [2, "all", ["cuda:0", "cuda:0"]],
                          ids=["n", "all", "list"])
 def test_cuda_mesh_without_card_raises(spec):

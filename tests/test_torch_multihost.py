@@ -114,9 +114,20 @@ def test_shard_without_card_raises(tmp_path, call):
      "--mesh all needs CUDA devices"),
     (["--mesh", "2", "--device-align", "-i", "x.idx"], 1,
      "--device-align cannot be combined with --mesh"),
+    (["--index-shards", "2", "--mesh", "2", "-i", "x.idx"], 1,
+     "--index-shards cannot be combined with --mesh"),
+    (["--index-shards", "2", "--device-align", "-i", "x.idx"], 1,
+     "--device-align cannot be combined with --index-shards"),
+    (["--index-shards", "all", "--device", "cpu", "-i", "x.idx"], 1,
+     "--index-shards all needs CUDA devices"),
+    (["--index-shards", "2", "--engine", "exact", "-i", "x.idx"], 1,
+     "--index-shards cannot be combined with --engine exact"),
+    (["--shard", "0:2", "--index-shards", "2", "-i", "x.idx"], 1,
+     "nor with another --engine or --index-shards"),
 ], ids=["hosts-no-index", "shard-no-index", "hosts-hybrid", "shard-mesh",
         "mesh-hybrid", "shard-range", "shard-format", "mesh-all-cpu",
-        "mesh-device-align"])
+        "mesh-device-align", "shards-mesh", "shards-device-align",
+        "shards-all-cpu", "shards-exact", "shard-index-shards"])
 def test_cli_scaleout_refusals(capsys, argv, code, msg):
     """The JAX CLI's checks on the scale-out options, made before any
     index is read."""
