@@ -36,7 +36,8 @@ from ..constants import (
 )
 from ..device import put, resolve_device
 from ..kernels.banded_align import (
-    BW_MAX, banded_score_packed, banded_trace_packed, unpack_nibbles,
+    BW_MAX, QOFF, banded_score_packed, banded_trace_packed, unpack_nibbles,
+    win_start, window_nibbles,
 )
 from ..kernels.popcount_compare import M32, genome_words, popcount32
 from ..kernels.popcount_compare import popcount_compare
@@ -213,15 +214,47 @@ class DeviceIndexTP:
         return sum(t.numel() * t.element_size() for t in seen.values())
 
 
+def _cut_sums(*xs) -> torch.Tensor:
+    """(len(xs),) i32: the sum of each tensor, wrapped to 32 bits as the JAX
+    programs' i32 sums wrap (u32 values count by their i32 bits)."""
+    return u32_to_i32(torch.stack([x.to(I64).sum() for x in xs]))
+
+
+# the profiling and diagnostic cuts of the candidate core (↔ JAX CORE_CUTS)
+# that the fused programs forward to it; "extdbg" is the core's alone
+CORE_CUTS = ("hash", "ranges", "extend", "list", "unitstats")
+SE_CUTS = CORE_CUTS + ("core", "compact", "decide", "jobs", "score",
+                       "fbstats")
+PE_CUTS = CORE_CUTS + ("pegate", "pescan", "pecompact", "pejobs", "pescore",
+                       "pesort", "pegrid")
+
+
+def _check_cut(cut, allowed):
+    if cut is not None and cut not in allowed:
+        raise ValueError(f"unknown cut {cut!r}; one of {allowed}")
+
+
 def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
                cand_per_unit: int, ext_iters: int = 31,
-               ext_pool: int | None = None, tp: bool = False):
+               ext_pool: int | None = None, tp: bool = False,
+               cut: str | None = None):
     """Candidate core (↔ JAX _make_core): rolling hashes, bucket ranges,
     pooled k-ary seed extension, check gates, the global candidate list
     and the K1 compare.  Returns (core, o_spec); core(genome32, counter2,
     counter3, index_all, pnib, lens, is_ga, uextra, shard=None) -> dict of
     per-candidate (pos, d, b_of, cell_of, slot, valid, extras) and per-unit
     (unit_start, unit_total, overflow) tensors.
+
+    cut (profiling and diagnostics, as in JAX; None for the whole core)
+    ends the core early with dict(cut=...) of JAX's values, i32: "hash",
+    "ranges", "extend" and "list" the sums of the stage's outputs (packed
+    read words, hashes and word masks; the specific bucket ranges; the
+    extended ranges; positions, units, slots and unit totals),
+    "unitstats" the (2, B) candidates and overflow flag of each unit;
+    "extdbg" returns the per-cell extension arrays (l2, s2x, e2x, l3,
+    s3x, e3x, ext_fb, s2, e2, s3, e3) instead.  ABISMAL_TPU_NOEXT, read
+    here, skips the seed extension (profiling only: it changes the
+    output).
 
     With tp (the key-range-sharded index, DeviceIndexTP), index_all is
     one shard's local lists [two | C->T | G->A] at offsets 0, n_index2 and
@@ -248,6 +281,8 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
     BIGI = 0x3FFFFFFF
     NPRB = ways - 1
     kary_iters = -(-ext_iters // max(1, int(np.log2(ways)))) + 1
+    noext = bool(os.environ.get("ABISMAL_TPU_NOEXT"))
+    _check_cut(cut, CORE_CUTS + ("extdbg",))
 
     def windowed_full(sym, width, radix):
         """Sliding-window polynomial values (msd first) by width doubling:
@@ -305,91 +340,22 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         cmp = torch.where(mis < D, torch.where(gv < qv, -1, 1), 0)
         return lcp, cmp
 
-    def core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
-             uextra, shard=None):
-        dev = pnib.device
-        B = pnib.shape[0]
-        EXT_POOL = int(os.environ.get(
-            "ABISMAL_TPU_EXT_POOL",
-            max(512, B // 4) if ext_pool is None else ext_pool))
-        gflat = B * cand_per_unit
+    def extension(genome32, index_all, ip, lens, is_ga, base3, act2_sp,
+                  act3_sp, s2, e2, s3, e3, EXT_POOL):
+        """The pooled seed extension, LCP-window method (see the JAX core,
+        pipeline.py:513-806): active lanes (bucket > max_candidates)
+        compact into EXT_POOL slots, a k-ary lower/upper-bound search
+        finds the class-string match range, and the stop depth falls out
+        of the window LCPs around it.  Returns the extended cells (l2,
+        s2x, e2x, l3, s3x, e3x) and ext_fb, the units whose lanes spilled
+        from the pool or reach past the sort depth."""
+        dev = ip.device
+        B, stride = ip.shape
         n_idx = index_all.shape[0]
-        lens = lens.to(I64)
-        is_ga = is_ga.to(torch.bool)
 
         def ar(n):
             return torch.arange(n, device=dev)
 
-        ip = unpack_nibbles(pnib)  # (B, stride)
-        stride = ip.shape[1]
-
-        # --- read words, tail padded with 0xF match-any (abismal.cpp:1388)
-        base = ar(n_words * 8)[None, :]
-        pad16 = ((lens + 15) // 16) * 16
-        nibv = torch.where(base < lens[:, None], ip[:, : n_words * 8],
-                           torch.where(base < pad16[:, None], 0xF, 0))
-        nibv = nibv.reshape(B, n_words, 8)
-        packed = nibv[:, :, 0]
-        for k in range(1, 8):
-            packed = packed | (nibv[:, :, k] << (4 * k))
-
-        # --- rolling hashes for every offset (AbismalIndex.hpp:271-305)
-        bits = ((ip & 5) == 0).to(I64)
-        k2_all = windowed_full(bits, KEY_WEIGHT, 2)[:, :o_sens]
-        tct = (((ip & 4) != 0).to(I64) << 1) | ((ip & 1) != 0).to(I64)
-        tga = (((ip & 8) != 0).to(I64) << 1) | ((ip & 2) != 0).to(I64)
-        k3t = windowed_full(tct, KEY_WEIGHT_THREE, 3)[:, :o_sens]
-        k3a = windowed_full(tga, KEY_WEIGHT_THREE, 3)[:, :o_sens]
-        k3_all = torch.where(is_ga[:, None], k3a % HASH3_MOD, k3t % HASH3_MOD)
-
-        # --- bucket ranges for all cells (both phases share the gather)
-        specific_len = torch.minimum(lens - WINDOW_SIZE, lens >> 1)
-        specific_lim = torch.where(
-            lens > 0, torch.clamp(lens >> 1, min=WINDOW_SIZE), 0)
-        sens_lim = lens - KEY_WEIGHT + 1
-        base3 = n_index2 + is_ga.to(I64) * n_index3  # into index_all
-        c3_base = is_ga.to(I64) * (counter3.shape[0] // 2)
-        act_sp = ar(o_spec)[None, :] < specific_lim[:, None]
-        act_sn = ((ar(o_sens)[None, :] < sens_lim[:, None])
-                  & (lens[:, None] > 0))
-        if tp:
-            # the shard's key bounds and list bases (each unit reads the
-            # three-letter table of its conversion)
-            k2lo, k2hi, pb2 = shard[0], shard[1], shard[6]
-            lo3u = torch.where(is_ga, shard[4], shard[2])[:, None]
-            hi3u = torch.where(is_ga, shard[5], shard[3])[:, None]
-            pb3u = torch.where(is_ga, shard[8], shard[7])[:, None]
-
-            def owned(act, keys, lo, hi):
-                return act & (keys >= lo) & (keys < hi)
-
-            act2_sp = owned(act_sp, k2_all[:, :o_spec], k2lo, k2hi)
-            act3_sp = owned(act_sp, k3_all[:, :o_spec], lo3u, hi3u)
-        else:
-            act2_sp = act3_sp = act_sp
-        # the gather is not masked by ownership: sizes are global
-        gmask = act_sn.clone()
-        gmask[:, :o_spec] |= act_sp
-        k2n = torch.where(gmask, k2_all, 0)
-        k3n = torch.where(gmask, k3_all, 0) + c3_base[:, None]
-        p2s, p2e = counter2[k2n], counter2[k2n + 1]
-        p3s, p3e = counter3[k3n], counter3[k3n + 1]
-        if tp:  # rebased onto the shard's local lists
-            p2s_sp, p2e_sp = p2s[:, :o_spec] - pb2, p2e[:, :o_spec] - pb2
-            p3s_sp, p3e_sp = p3s[:, :o_spec] - pb3u, p3e[:, :o_spec] - pb3u
-        else:
-            p2s_sp, p2e_sp = p2s[:, :o_spec], p2e[:, :o_spec]
-            p3s_sp, p3e_sp = p3s[:, :o_spec], p3e[:, :o_spec]
-        s2 = torch.where(act2_sp, p2s_sp, 0)
-        e2 = torch.where(act2_sp, p2e_sp, 0)
-        s3 = torch.where(act3_sp, p3s_sp, 0)
-        e3 = torch.where(act3_sp, p3e_sp, 0)
-
-        # --- pooled seed extension, LCP-window method (see the JAX core,
-        # pipeline.py:513-806): active lanes (bucket > max_candidates)
-        # compact into EXT_POOL slots, a k-ary lower/upper-bound search
-        # finds the class-string match range, and the stop depth falls out
-        # of the window LCPs around it
         n_lanes = B * o_spec
         flat_act = torch.cat([(act2_sp & ((e2 - s2) > mc)).reshape(-1),
                               (act3_sp & ((e3 - s3) > mc)).reshape(-1)])
@@ -518,6 +484,108 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         l3, s3x, e3x = (put_back(kw3, d_t3, l_out), put_back(s3, d_t3, lo_f),
                         put_back(e3, d_t3, hi_f))
 
+        return l2, s2x, e2x, l3, s3x, e3x, ext_fb
+
+    def core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
+             uextra, shard=None):
+        dev = pnib.device
+        B = pnib.shape[0]
+        EXT_POOL = int(os.environ.get(
+            "ABISMAL_TPU_EXT_POOL",
+            max(512, B // 4) if ext_pool is None else ext_pool))
+        gflat = B * cand_per_unit
+        lens = lens.to(I64)
+        is_ga = is_ga.to(torch.bool)
+
+        def ar(n):
+            return torch.arange(n, device=dev)
+
+        ip = unpack_nibbles(pnib)  # (B, stride)
+
+        # --- read words, tail padded with 0xF match-any (abismal.cpp:1388)
+        base = ar(n_words * 8)[None, :]
+        pad16 = ((lens + 15) // 16) * 16
+        nibv = torch.where(base < lens[:, None], ip[:, : n_words * 8],
+                           torch.where(base < pad16[:, None], 0xF, 0))
+        nibv = nibv.reshape(B, n_words, 8)
+        packed = nibv[:, :, 0]
+        for k in range(1, 8):
+            packed = packed | (nibv[:, :, k] << (4 * k))
+
+        # --- rolling hashes for every offset (AbismalIndex.hpp:271-305)
+        bits = ((ip & 5) == 0).to(I64)
+        k2_all = windowed_full(bits, KEY_WEIGHT, 2)[:, :o_sens]
+        tct = (((ip & 4) != 0).to(I64) << 1) | ((ip & 1) != 0).to(I64)
+        tga = (((ip & 8) != 0).to(I64) << 1) | ((ip & 2) != 0).to(I64)
+        k3t = windowed_full(tct, KEY_WEIGHT_THREE, 3)[:, :o_sens]
+        k3a = windowed_full(tga, KEY_WEIGHT_THREE, 3)[:, :o_sens]
+        k3_all = torch.where(is_ga[:, None], k3a % HASH3_MOD, k3t % HASH3_MOD)
+        if cut == "hash":  # + read words and rolling hashes
+            wmask = ar(n_words)[None, :] < (2 * ((lens + 15) // 16))[:, None]
+            return dict(cut=_cut_sums(packed, k2_all, k3_all, wmask))
+
+        # --- bucket ranges for all cells (both phases share the gather)
+        specific_len = torch.minimum(lens - WINDOW_SIZE, lens >> 1)
+        specific_lim = torch.where(
+            lens > 0, torch.clamp(lens >> 1, min=WINDOW_SIZE), 0)
+        sens_lim = lens - KEY_WEIGHT + 1
+        base3 = n_index2 + is_ga.to(I64) * n_index3  # into index_all
+        c3_base = is_ga.to(I64) * (counter3.shape[0] // 2)
+        act_sp = ar(o_spec)[None, :] < specific_lim[:, None]
+        act_sn = ((ar(o_sens)[None, :] < sens_lim[:, None])
+                  & (lens[:, None] > 0))
+        if tp:
+            # the shard's key bounds and list bases (each unit reads the
+            # three-letter table of its conversion)
+            k2lo, k2hi, pb2 = shard[0], shard[1], shard[6]
+            lo3u = torch.where(is_ga, shard[4], shard[2])[:, None]
+            hi3u = torch.where(is_ga, shard[5], shard[3])[:, None]
+            pb3u = torch.where(is_ga, shard[8], shard[7])[:, None]
+
+            def owned(act, keys, lo, hi):
+                return act & (keys >= lo) & (keys < hi)
+
+            act2_sp = owned(act_sp, k2_all[:, :o_spec], k2lo, k2hi)
+            act3_sp = owned(act_sp, k3_all[:, :o_spec], lo3u, hi3u)
+        else:
+            act2_sp = act3_sp = act_sp
+        # the gather is not masked by ownership: sizes are global
+        gmask = act_sn.clone()
+        gmask[:, :o_spec] |= act_sp
+        k2n = torch.where(gmask, k2_all, 0)
+        k3n = torch.where(gmask, k3_all, 0) + c3_base[:, None]
+        p2s, p2e = counter2[k2n], counter2[k2n + 1]
+        p3s, p3e = counter3[k3n], counter3[k3n + 1]
+        if tp:  # rebased onto the shard's local lists
+            p2s_sp, p2e_sp = p2s[:, :o_spec] - pb2, p2e[:, :o_spec] - pb2
+            p3s_sp, p3e_sp = p3s[:, :o_spec] - pb3u, p3e[:, :o_spec] - pb3u
+        else:
+            p2s_sp, p2e_sp = p2s[:, :o_spec], p2e[:, :o_spec]
+            p3s_sp, p3e_sp = p3s[:, :o_spec], p3e[:, :o_spec]
+        s2 = torch.where(act2_sp, p2s_sp, 0)
+        e2 = torch.where(act2_sp, p2e_sp, 0)
+        s3 = torch.where(act3_sp, p3s_sp, 0)
+        e3 = torch.where(act3_sp, p3e_sp, 0)
+        if cut == "ranges":  # + the specific phase's bucket ranges
+            return dict(cut=_cut_sums(s2, e2, s3, e3))
+
+        if noext:
+            # ABISMAL_TPU_NOEXT, profiling only (as in JAX): no extension,
+            # which changes the output; no mapping path sets it
+            l2, s2x, e2x = torch.full_like(s2, KEY_WEIGHT), s2, e2
+            l3, s3x, e3x = torch.full_like(s3, KEY_WEIGHT_THREE), s3, e3
+            ext_fb = torch.zeros(B, dtype=torch.bool, device=dev)
+        else:
+            l2, s2x, e2x, l3, s3x, e3x, ext_fb = extension(
+                genome32, index_all, ip, lens, is_ga, base3, act2_sp,
+                act3_sp, s2, e2, s3, e3, EXT_POOL)
+        if cut == "extend":  # + the seed extension
+            return dict(cut=_cut_sums(l2, s2x, l3, e3x))
+        if cut == "extdbg":  # the extension's per-cell arrays
+            out = dict(l2=l2, s2x=s2x, e2x=e2x, l3=l3, s3x=s3x, e3x=e3x,
+                       ext_fb=ext_fb, s2=s2, e2=e2, s3=s3, e3=e3)
+            return {k: v if v.dtype == torch.bool else u32_to_i32(v)
+                    for k, v in out.items()}
         # --- check gates and the two- vs three-letter fold rule
         d2, d3 = e2x - s2x, e3x - s3x
         check2_sp = act2_sp & ((d2 <= mc) | (l2 >= specific_len[:, None]))
@@ -571,6 +639,11 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
                            (cell_of - 2 * o_spec) >> 1)
         pos = (index_all[torch.where(valid, lo_flat + slot, 0)] - coff) & M32
         pos = torch.where(valid, pos, 0)
+        if cut == "list":  # + the global candidate list
+            return dict(cut=_cut_sums(pos, b_of, slot, unit_total))
+        if cut == "unitstats":  # each unit's candidates and overflow flag
+            return dict(cut=u32_to_i32(torch.stack([unit_total,
+                                                    overflow.to(I64)])))
 
         # --- K1 popcount compare over the genome windows
         d = popcount_compare(genome32, pos, u32_to_i32(packed), b_of,
@@ -609,8 +682,10 @@ def build_stage1(lmax: int, max_candidates: int, n_index2: int,
     gcap_per_unit = int(os.environ.get(
         "ABISMAL_TPU_GCAP_PER_UNIT",
         32 if gcap_per_unit is None else gcap_per_unit))
+    # the NOEXT variant is another program: never under the product's key
     key = (lmax, max_candidates, n_index2, n_index3, cand_per_unit,
-           gcap_per_unit, ext_iters, ext_pool, tp)
+           gcap_per_unit, ext_iters, ext_pool, tp,
+           bool(os.environ.get("ABISMAL_TPU_NOEXT")))
     if key in _stage1_memo:
         return _stage1_memo[key]
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
@@ -661,11 +736,21 @@ def build_stage1(lmax: int, max_candidates: int, n_index2: int,
     return stage1, o_spec
 
 
+def _job_operand_sums(genome32, pnib, junit, jpos, jbw, jqsz, lmax):
+    """The "jobs" cuts' sums of the J job rows (unit, pos, bw, qsz): every
+    query nibble of the job's unit row, the lmax + QOFF genome nibbles of
+    its window, bw and qsz (JAX builds these operands for its scorer; K2
+    reads them itself from the packed rows and genome)."""
+    q = unpack_nibbles(pnib[junit])
+    win = window_nibbles(genome32, win_start(jpos, jbw) & M32, lmax + QOFF)
+    return _cut_sums(q, win, jbw, jqsz)
+
+
 def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                   n_index3: int, per: int, cand_per_unit: int | None = None,
                   k_slots: int = 50, jobs_per_read: int = 8,
                   ext_iters: int = 31, device_tb: bool | None = None,
-                  ext_pool: int | None = None):
+                  ext_pool: int | None = None, cut: str | None = None):
     """Fused stage-1+2 for single-end mapping (↔ JAX build_stage12; the
     exactness argument is in that docstring).  Returns (stage12, o_spec);
     stage12(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
@@ -673,7 +758,16 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
     [rec(4) | cig_meta(4) | cig_ops(TB_NOPS)] (only rec with device_tb
     off).  marks, a list, collects (name, CUDA event) pairs at the
     program's phase boundaries: start, core, decide, score (K2 done),
-    select (winners and records done), end (traceback done)."""
+    select (winners and records done), end (traceback done).
+
+    cut (profiling and diagnostics, as in JAX; one of SE_CUTS) ends the
+    program early with JAX's i32 values: a core cut (CORE_CUTS) the
+    core's; "core", "compact", "decide", "jobs" and "score" the (4,) sums
+    of the stage's outputs (candidates; the slot table; the sorted
+    window; the job rows and their operands; K2's scores), "fbstats" the
+    (R, 8) fallback causes of each read [unit_fb, heap_would_fill,
+    heap_fb, job_fb, bw_over, ex_over_fb, has_ex, ex_ambig].  The marks
+    past the cut are not recorded."""
     cand_per_unit = _resolve_cand_budget(cand_per_unit, n_index2, n_index3,
                                          lmax)
     K = int(os.environ.get("ABISMAL_TPU_K_SLOTS", k_slots))
@@ -681,9 +775,11 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                                        jobs_per_read))
     if device_tb is None:
         device_tb = os.environ.get("ABISMAL_TPU_DEVTB", "1") == "1"
+    _check_cut(cut, SE_CUTS)
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
                               cand_per_unit, ext_iters=ext_iters,
-                              ext_pool=ext_pool)
+                              ext_pool=ext_pool,
+                              cut=cut if cut in CORE_CUTS else None)
     K2 = ((K + 14 + 15) // 16) * 16
 
     def stage12(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
@@ -707,6 +803,8 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                               scode.to(I64).repeat(R)], dim=1)
         c = core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
                  uextra)
+        if "cut" in c:
+            return c["cut"]
         mark("core")
         pos, b_of = c["pos"], c["b_of"]
         cell_of, valid = c["cell_of"], c["valid"]
@@ -714,6 +812,8 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         unit_total, overflow, extras = (c["unit_total"], c["overflow"],
                                         c["extras"])
         ncand = pos.shape[0]
+        if cut == "core":  # the candidate core alone
+            return _cut_sums(pos, d, valid, unit_total)
         r_of = b_of // per
 
         # --- decision gates (constant per phase while the heap is not full)
@@ -746,6 +846,11 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         scd = (extras[:, 2] << 10) | ((d + 512) & 1023)
         slots = torch.full((R * K2 + 1, 4), INF32, dtype=I64, device=dev)
         slots[dest] = torch.stack([pos, scd, r_of, ar(ncand)], dim=1)
+        if cut == "compact":  # + gates, prefixes and the slot table
+            # JAX's slot of every candidate, kept or not
+            dest_all = r_of * K2 + wslot.clamp(max=K2 - 1)
+            return _cut_sums(slots[: R * K2], dest_all, total_ex,
+                             heap_would_fill)
         st = slots[: R * K2].reshape(R, K2, 4)
         wocc = st[:, :, 2] < R
         wpos, wscd, wcidx = st[:, :, 0], st[:, :, 1], st[:, :, 3]
@@ -781,6 +886,8 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         dup[:, 1:] = (posK[:, 1:] == posK[:, :-1]) & (sK[:, 1:] == sK[:, :-1])
         vh = ((posK != POS_EMPTY) & ~dup & (dK < sens_gate[:, None])
               & (dK != 0))
+        if cut == "decide":  # + the window reductions and the dedup sort
+            return _cut_sums(posK, dK, vh, has_ex)
         mark("decide")
 
         # --- job build and the banded scorer (K2)
@@ -807,6 +914,8 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         jrows[:, torch.where(job_ok, jexc, J)] = torch.stack(
             [qrowK.reshape(-1), posK.reshape(-1), bwK.reshape(-1),
              rlen.repeat_interleave(K2)])
+        if cut == "jobs":  # + the job rows; K2 reads its operands itself
+            return _job_operand_sums(genome32, pnib, *jrows[:, :J], lmax)
         if J:
             scores_j = banded_score_packed(genome32, pnib, *jrows[:, :J],
                                            lmax).to(I64)
@@ -814,7 +923,9 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
                                scores_j[jexc.clamp(max=J - 1)].reshape(R, K2),
                                0)
         else:
-            scrK = torch.zeros((R, K2), dtype=I64, device=dev)
+            scores_j = scrK = torch.zeros((R, K2), dtype=I64, device=dev)
+        if cut == "score":  # + K2
+            return _cut_sums(scores_j, jrows[2, :J], jrows[3, :J], vh)
         mark("score")
 
         # --- winner selection (align_se_candidates, abismal.cpp:1435-1497)
@@ -833,6 +944,10 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         # --- per-read records
         ex_over_fb = ex_over & ~(has_ex & ex_ambig)
         unit_fb = overflow.reshape(R, per).any(dim=1)
+        if cut == "fbstats":  # each read's fallback causes
+            return torch.stack([unit_fb, heap_would_fill, heap_fb, job_fb,
+                                bw_over, ex_over_fb, has_ex, ex_ambig],
+                               dim=1).to(torch.int32)
         fb = (unit_fb | heap_fb | job_fb | bw_over | ex_over_fb
               | ((rlen > 0) & (rlen < DEVICE_MIN_LEN)))
         aligned = ~has_ex & (M > 0)
@@ -872,7 +987,7 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
                     n_index3: int, per: int = 4,
                     cand_per_unit: int | None = None, k_slots: int = 32,
                     jobs_per_unit: int = 8, ext_iters: int = 31,
-                    ext_pool: int | None = None):
+                    ext_pool: int | None = None, cut: str | None = None):
     """Fused stage-1+2 for paired-end mapping (↔ JAX build_stage12pe; the
     exactness argument is in that docstring).  Returns (stage12pe,
     o_spec); stage12pe(genome32, counter2, counter3, index_all, pnib,
@@ -884,14 +999,24 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
       mate  unit per r + u carries mate[r, 5u : 5u + 5] of the (B / per,
             O 10) per-orientation mating sweep records.
     pe_dist (2,) int = (pe_min, pe_max).  marks, a list, collects (name,
-    CUDA event) pairs at the program's phase boundaries."""
+    CUDA event) pairs at the program's phase boundaries.
+
+    cut (profiling, as in JAX; one of PE_CUTS) ends the program early with
+    JAX's (4,) i32 sums: a core cut (CORE_CUTS) the core's, "pegate",
+    "pescan", "pecompact", "pejobs", "pescore", "pesort" and "pegrid"
+    those of the stage's outputs (gates and unit spans; the slot ranks;
+    the job rows and their operands; K2's scores; the slot grid's ranks
+    and dedup; the mating records).  The marks past the cut are not
+    recorded."""
     cand_per_unit = _resolve_cand_budget(cand_per_unit, n_index2, n_index3,
                                          lmax)
     jobs_per_unit = int(os.environ.get("ABISMAL_TPU_JOBS_PER_UNIT",
                                        jobs_per_unit))
+    _check_cut(cut, PE_CUTS)
     core, o_spec = _make_core(lmax, max_candidates, n_index2, n_index3,
                               cand_per_unit, ext_iters=ext_iters,
-                              ext_pool=ext_pool)
+                              ext_pool=ext_pool,
+                              cut=cut if cut in CORE_CUTS else None)
     K = k_slots
 
     def stage12pe(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
@@ -907,6 +1032,8 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
                               max_diffs_u.to(I64), lens], dim=1)
         c = core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
                  uextra)
+        if "cut" in c:
+            return c["cut"]
         mark("core")
         pos, b_of = c["pos"], c["b_of"]
         cell_of, valid = c["cell_of"], c["valid"]
@@ -928,8 +1055,15 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         base = c_at[ust_c]
         n_acc = c_at[uend_at] - base
         heap_fb = n_acc > K - 1  # insert #32 fills the heap
+        if cut == "pegate":  # + gates, prefixes and unit spans
+            return _cut_sums(c_exc, n_acc, heap_fb, base)
         base_of = _unit_base(ust_c, base, ncand)
-        keep = gate & (c_exc - base_of < K - 1)
+        slot_u = c_exc - base_of
+        keep = gate & (slot_u < K - 1)
+        if cut == "pescan":  # + each candidate's unit base
+            return _cut_sums(base_of, slot_u, keep, n_acc)
+        if cut == "pecompact":  # + the slot ranks
+            return _cut_sums(slot_u, n_acc, heap_fb, keep)
         mark("decide")
 
         # --- job build and the banded scorer (K2).  Bands are not
@@ -954,8 +1088,13 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         jrows[:, jdest] = torch.stack(
             [b_of, pos, bw_c.clamp(max=BW_MAX), (d << 16) | extras[:, 3]])
         junit, jpos, jbw, jqd = jrows[:, :J]
+        if cut == "pejobs":  # + the job rows; K2 reads its operands itself
+            return _job_operand_sums(genome32, pnib, junit, jpos, jbw,
+                                     jqd & 0xFFFF, lmax)
         scores_j = banded_score_packed(genome32, pnib, junit, jpos, jbw,
                                        jqd & 0xFFFF, lmax).to(I64)
+        if cut == "pescore":  # + K2
+            return _cut_sums(scores_j, jbw, jqd & 0xFFFF, n_acc)
         mark("score")
 
         # --- slot (u, k): the unit's k-th kept candidate, gathered from
@@ -983,7 +1122,10 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         jlt = kidx < kidx.reshape(K, 1)  # [i, j]: slot j before slot i
         eqp = pi == pj
         rank = ((pj < pi) | (eqp & jlt)).sum(dim=2)
-        vM = live & ~(eqp & jlt).any(dim=2)
+        dup = (eqp & jlt).any(dim=2)
+        vM = live & ~dup
+        if cut == "pesort":  # + the slot grid's ranks and dedup
+            return _cut_sums(posM, rank, vM, dup)
         posP, dP, sP = (x.reshape(Rp, per, K) for x in (posM, dKm, scrK))
         vP, rP = vM.reshape(Rp, per, K), rank.reshape(Rp, per, K)
         lensP = lens.reshape(Rp, per)
@@ -1039,6 +1181,8 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
                 sel(d1, r1, r1_w), sel(d2, r2, r2_w), sel(s1, r1, r1_c),
                 sel(s2, r2, r2_w), eq_after.to(I64), fbm.to(I64)], dim=1))
         mate = torch.cat(recs, dim=1)  # (Rp, O 10)
+        if cut == "pegrid":  # + the mating grids of every orientation
+            return _cut_sums(mate, cnt, torch.zeros(1), n_acc)
         out = u32_to_i32(torch.cat([posKm, ds, cnt[:, None],
                                     mate.reshape(B, 5)], dim=1))
         mark("end")

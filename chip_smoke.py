@@ -56,7 +56,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal; the SE reads also through the event route with
               device_align (reads/s beside the native control, fallback,
               jobs scored on the device);
-  8. shards_replay  the key-range-sharded index (--index-shards) over two
+  8. profile  the profiling and diagnostic cuts of the fused programs
+              through the port's tools (abismal_tpu_torch/tools/): the
+              single-end and paired-end cut bisections (profile_stage12,
+              profile_stage12pe: each cut's ms a 2048-unit chunk and its
+              delta) on the 10k golden reads and pairs; "fbstats" on
+              every chunk of the 10k reads, its fallback causes equal to
+              the uncut program's fallback flags; cut programs run with
+              the phase marks on; "unitstats" (candidates a unit, the
+              overflow share) and the single-end bisection on the 1 Gb
+              SE set, on the scale phase's tables; trace_ops' top 10
+              CUDA kernels of a tRex1 chunk;
+              K1-K3 must launch in the phase;
+  9. shards_replay  the key-range-sharded index (--index-shards) over two
               slots of the card (and over every card, given two): small,
               reads, small_pe, reads_pe give the goldens' SAM and mstats,
               and the 1 Gb SE set of phase 7 the native engine's SAM; the
@@ -64,7 +76,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               gives the goldens in this process (-t 1) and through three
               forked workers (-t 3); K1 must launch in every run, and
               every run prints its rate beside this call's native rate;
-  9. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
+  10. scaleout the scale-out paths, on the goldens and the 1 Gb sets:
               mesh      two slots on cuda:0 (unit_batch 4096: each slot
                         maps 2048 units, the one-card chunk): small, reads,
                         small_pe, reads_pe give the goldens' SAM and mstats
@@ -95,7 +107,6 @@ Usage: python3 chip_smoke.py
 
 import gzip
 import hashlib
-import importlib.util
 import json
 import os
 import subprocess
@@ -978,16 +989,6 @@ def phase_events(dev, threads, index):
     return out, launches
 
 
-def gen_genome(path, total):
-    """tools/scale_test.py:gen_genome, loaded from its file so that tools/
-    does not go on sys.path."""
-    spec = importlib.util.spec_from_file_location(
-        "scale_test", os.path.join(ROOT, "tools", "scale_test.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.gen_genome(path, total)
-
-
 def phase_scale(dev, threads):
     import torch
 
@@ -996,13 +997,13 @@ def phase_scale(dev, threads):
         SimConfig, create_index, make_native_engine_factory, simulate_reads,
     )
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+    from abismal_tpu_torch.tools._workload import gen_genome
 
     size = SCALE_MB * 1_000_000
     fa = os.path.join(WORK, f"scale_{size}.fa")
     t0 = time.perf_counter()
     if not os.path.exists(fa):
-        gen_genome(fa + ".tmp", size)
-        os.replace(fa + ".tmp", fa)
+        gen_genome(fa, size)
     t1 = time.perf_counter()
     index = create_index(fa, n_threads=threads)
     t2 = time.perf_counter()
@@ -1080,7 +1081,123 @@ def phase_scale(dev, threads):
     return res, sets
 
 
-# --- phase 8 -------------------------------------------------------------------
+# --- phase 8 (profile) ------------------------------------------------------
+
+PROFILE_REPS = 10  # executions a cut is timed over, after a warm one
+PROFILE_CHUNK_READS = 1024  # a chunk: 2048 units of single-end reads
+
+
+def fallback_flags(rows, chunk):
+    """Per read of chunk: the uncut program's REC_FALLBACK status."""
+    from abismal_tpu_torch.map.host_units import REC_FALLBACK
+
+    R = chunk.n_units // chunk.per
+    return (rows[:R, 0] & 7) == REC_FALLBACK
+
+
+def fbstats_causes(fbs, chunk):
+    """Per read of chunk: the fallback that the "fbstats" columns decide,
+    the causes unit_fb, heap_fb, job_fb, bw_over and ex_over_fb (columns
+    0, 2, 3, 4, 5), or reads of 0 < length < DEVICE_MIN_LEN.  The other
+    three columns (heap_would_fill, before the sure-ambig refinement that
+    gives heap_fb, and the exact-match state has_ex and ex_ambig) are
+    context, not causes."""
+    from abismal_tpu_torch.map.host_units import DEVICE_MIN_LEN
+
+    R = chunk.n_units // chunk.per
+    rlen = chunk.args[1].reshape(-1, chunk.per).max(axis=1)[:R]
+    return (fbs[:R][:, [0, 2, 3, 4, 5]].any(axis=1)
+            | ((rlen > 0) & (rlen < DEVICE_MIN_LEN)))
+
+
+def phase_profile(dev, threads, card, trex, sets):
+    """The profiling and diagnostic cuts on the card through the port's
+    tools: the single-end and paired-end cut bisections (profile_stage12,
+    profile_stage12pe) on the first 2048-unit chunk of the 10k golden reads
+    and pairs; "fbstats" on every chunk of the 10k reads, its causes equal
+    to the uncut program's fallback flags; a cut program run with phase
+    marks on; "unitstats" and the single-end bisection on the 1 Gb SE set
+    with the scale phase's tables; trace_ops' top 10 CUDA kernels of a
+    tRex1 chunk.  K1-K3 must launch in the phase."""
+    import numpy as np
+
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
+    from abismal_tpu_torch.tools import _workload as W
+    from abismal_tpu_torch.tools import profile_stage12, profile_stage12pe
+    from abismal_tpu_torch.tools import trace_ops
+    from abismal_tpu_torch.tools.scale_device import unit_stats
+
+    def quiet(*_args):
+        pass
+
+    kernels = (pc.popcount_compare, ba.banded_score_packed,
+               ba.banded_trace_packed)
+    for k in kernels:
+        k.launches = 0
+    factory = make_torch_native_engine_factory(dev, n_threads=threads)
+    eng = factory(trex, False, 0.1, 32, 3000)  # the goldens' engine
+    out = dict(card=card, reps=PROFILE_REPS, unit_batch=eng.unit_batch)
+    reads = W.load_reads(golden_fastqs("reads")[0], 10**6)
+    se = W.se_chunk(eng, reads[:PROFILE_CHUNK_READS])
+    out["se_cuts"] = profile_stage12.bisect(
+        eng, se, profile_stage12.CUTS, PROFILE_REPS, out=quiet)
+    fq1, fq2 = golden_fastqs("reads_pe")
+    n_pairs = eng.unit_batch // 4
+    pe = W.pe_chunk(eng, W.load_reads(fq1, n_pairs),
+                    W.load_reads(fq2, n_pairs))
+    out["pe_cuts"] = profile_stage12pe.bisect(
+        eng, pe, profile_stage12pe.CUTS, PROFILE_REPS, paired=True,
+        out=quiet)
+
+    # a cut with the phase marks on: the marks past it are absent
+    for chunk, cut, paired, want in ((se, "decide", False, ["start", "core"]),
+                                     (pe, "pescore", True, ["start", "core",
+                                                            "decide"])):
+        marks = []
+        W.stage12_prog(eng, chunk, cut, paired)(
+            *eng.dev.tables(), *chunk.on(eng), marks=marks)
+        check([m for m, _ in marks] == want, f"{cut}: marks {marks}")
+
+    # fbstats chunk by chunk against the uncut program's fallback flags
+    n_fb = n_reads = 0
+    for r0 in range(0, len(reads), PROFILE_CHUNK_READS):
+        chunk = W.se_chunk(eng, reads[r0 : r0 + PROFILE_CHUNK_READS])
+        args, tables = chunk.on(eng), eng.dev.tables()
+        fbs = W.stage12_prog(eng, chunk, "fbstats")(*tables, *args)
+        rows = W.stage12_prog(eng, chunk)(*tables, *args)
+        flags = fallback_flags(rows.cpu().numpy(), chunk)
+        check(np.array_equal(fbstats_causes(fbs.cpu().numpy(), chunk), flags),
+              f"fbstats: chunk at read {r0} disagrees with the fallback "
+              "flags of the uncut program")
+        n_fb += int(flags.sum())
+        n_reads += flags.shape[0]
+    out["fbstats_10k"] = dict(chunks=-(-len(reads) // PROFILE_CHUNK_READS),
+                              reads=n_reads, fallback_reads=n_fb,
+                              causes_equal_flags=True)
+
+    # unitstats at 1 Gb, on the tables the scale phase left on the card
+    eng_g = factory(sets["index"], False, 0.1, 32, 3000)
+    g = W.se_chunk(eng_g, W.load_reads(sets["se"][0], PROFILE_CHUNK_READS))
+    out["unitstats_1gb"] = dict(
+        auto_budget=unit_stats(eng_g, g),
+        engine_budget=dict(unit_stats(eng_g, g, g.budget),
+                           cand_budget=g.budget))
+    out["se_cuts_1gb"] = profile_stage12.bisect(
+        eng_g, g, profile_stage12.CUTS, PROFILE_REPS, out=quiet)
+    # the seed extension's depth: its 4-way search takes ceil(ext_iters /
+    # 2) + 1 rounds
+    out["ext_iters"] = dict(trex1=eng.dev.ext_iters, g1=eng_g.dev.ext_iters)
+    tr = trace_ops.run(eng, se, reps=5, top_n=10, out=quiet)
+    out["trace_ops"] = dict(steady_ms=tr["steady_ms"],
+                            kernel_us_per_exec=tr["total_us_per_exec"],
+                            top10=tr["top"])
+    out["launches"] = launches_moved(kernels, "profile")
+    return out, out["launches"]
+
+
+# --- phase 9 -------------------------------------------------------------------
 
 SHARD_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
 REPLAY_GOLDENS = ("small", "small_pe")
@@ -1190,7 +1307,7 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
     return out, out["launches"]
 
 
-# --- phase 9 -------------------------------------------------------------------
+# --- phase 10 ------------------------------------------------------------------
 
 MESH_GOLDENS = ("small", "reads", "small_pe", "reads_pe")
 SPLIT_GOLDENS = ("reads", "reads_pe")  # the server split
@@ -1519,6 +1636,10 @@ def main():
         sres, sets = phase_scale(dev, threads)
         emit("scale", **sres)
 
+        t0 = time.perf_counter()
+        fres, launches_prof = phase_profile(dev, threads, card, index, sets)
+        emit("profile", seconds=time.perf_counter() - t0, **fres)
+
         rates = {"reads": (gres["reads"]["reads_per_s"],
                            gres["native_reads_per_s"]),
                  "reads_pe": (pres["reads_pe"]["pairs_per_s"],
@@ -1535,8 +1656,14 @@ def main():
         check(not [m for m in sys.modules
                    if m == "abismal_tpu" or m.startswith("abismal_tpu.")],
               "the port loaded the JAX package abismal_tpu")
+        # nor the JAX tools' entry module, nor the tests (an installed
+        # `tests` package shadows them on the card machine)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("__graft_entry__", "tests")]
+        check(not loaded, f"the port loaded {loaded}")
         line = kernels_line(kres, (launches, launches_pe, launches_ev,
-                                   launches_sr, launches_out))
+                                   launches_prof, launches_sr,
+                                   launches_out))
     except Exception:
         traceback.print_exc()
         return 1

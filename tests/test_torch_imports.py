@@ -82,6 +82,49 @@ def test_chip_smoke_imports_only_the_port():
                 if m == "abismal_tpu" or m.startswith("abismal_tpu.")]
 
 
+TOOLS = sorted(f[:-3] for f in os.listdir(os.path.join(PORT, "tools"))
+               if f.endswith(".py") and f != "__init__.py")
+# names a tool may not import: on the card machine an installed package
+# named `tests` shadows the repository's, and the JAX tools (tools/) and
+# __graft_entry__ import the JAX package
+NOT_FOR_TOOLS = ("jax", "abismal_tpu", "__graft_entry__", "tests", "tools")
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_imports_only_the_port(name):
+    """No import of jax, the JAX package, __graft_entry__, tests or the
+    JAX tools' directory at any depth of a tool's file."""
+    path = os.path.join(PORT, "tools", name + ".py")
+    mods = list(_imported_modules(path))
+    assert not [m for m in mods if m.split(".")[0] in NOT_FOR_TOOLS], mods
+
+
+def test_tools_run_alone(tmp_path):
+    """Every tool module imports, and debug_ext runs, in a fresh
+    interpreter where the JAX package, __graft_entry__, tests and tools
+    cannot be imported, and none of the forbidden names ends up in
+    sys.modules."""
+    code = ("import importlib, sys\n"
+            "for m in ('abismal_tpu', '__graft_entry__', 'tests', 'tools'):\n"
+            "    sys.modules[m] = None\n"
+            "mods = [importlib.import_module('abismal_tpu_torch.tools.' + t)\n"
+            "        for t in sys.argv[1:]]\n"
+            "from abismal_tpu_torch.tools import _workload, debug_ext\n"
+            f"_workload.CACHE = {str(tmp_path)!r}\n"
+            "debug_ext.main(['--device', 'cpu', '--threads', '1'])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            f"       {NOT_FOR_TOOLS!r} and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "print('ALONE_OK')\n")
+    res = subprocess.run([sys.executable, "-c", code, *TOOLS],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=ROOT,
+                                  OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr
+    assert "ALONE_OK" in res.stdout and "nbad: 0" in res.stdout
+
+
 # runs `python -m abismal_tpu_torch <argv>` with `import abismal_tpu` made
 # to fail (a None entry in sys.modules raises ImportError)
 ALONE = (

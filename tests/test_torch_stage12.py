@@ -106,6 +106,36 @@ def test_make_core_matches_jax(tables, max_cand, ext_pool):
         assert int(np.asarray(want["overflow"]).sum()) > 0
 
 
+def test_make_core_noext_matches_jax(tables, monkeypatch):
+    """ABISMAL_TPU_NOEXT, the profiling variant without the seed
+    extension, read when the core is built: the port's core equals JAX's
+    NOEXT core, and with max_candidates 2, where the extension runs on
+    many cells, differs from the port's extended core."""
+    from abismal_tpu.map.pipeline import _make_core as jax_core
+    from abismal_tpu_torch.map.pipeline import _make_core
+
+    jdev, tdev = tables
+    pnib, lens, is_ga, _, _, _ = _units(0, 64)
+    uextra = np.zeros((pnib.shape[0], 3), np.int32)
+    args = (LMAX, 2, jdev.n_index2, jdev.n_index3, 64)
+    monkeypatch.setenv("ABISMAL_TPU_NOEXT", "1")
+    core_j, _ = jax_core(*args, tp=False, ext_iters=jdev.ext_iters)
+    want = jax.jit(core_j)(*jdev.tables(), pnib, lens, is_ga, uextra)
+    core_t, _ = _make_core(*args, ext_iters=jdev.ext_iters)
+    monkeypatch.delenv("ABISMAL_TPU_NOEXT")
+    ext_t, _ = _make_core(*args, ext_iters=jdev.ext_iters)
+    targs = (*tdev.tables(), *_t(pnib, lens, is_ga, uextra))
+    got, ext = core_t(*targs), ext_t(*targs)
+    for k in ("pos", "d", "valid", "unit_total", "overflow", "b_of",
+              "cell_of", "slot", "unit_start"):
+        w = np.asarray(want[k]).astype(np.int64)
+        if k == "pos":
+            w &= 0xFFFFFFFF
+        np.testing.assert_array_equal(got[k].numpy().astype(np.int64), w,
+                                      err_msg=k)
+    assert not torch.equal(got["unit_total"], ext["unit_total"])
+
+
 @pytest.mark.parametrize("first,a_rich,random_pbat", [
     (0, False, False),
     (64, True, False),
@@ -134,3 +164,70 @@ def test_stage12_packed_rows_match_jax(tables, first, a_rich, random_pbat):
     np.testing.assert_array_equal(got, want)
     status = want[:, 0] & 7
     assert (status == 2).sum() > 0 and (want[:, 4] > 0).sum() > 0
+
+
+CUT_INPUTS = {"plain": (0, False, False), "a_rich": (64, True, False),
+              "random_pbat": (128, False, True)}
+# the core's extension arrays, with the extension through a pool that
+# spills: max_candidates 2, a pool of 16 lanes (ext_fb fallback flags)
+SPILL = (2, 16)
+
+
+def _cut_cases():
+    from abismal_tpu_torch.map.pipeline import SE_CUTS
+
+    cases = [(cut, inputs, False) for cut in SE_CUTS + ("extdbg",)
+             for inputs in CUT_INPUTS]
+    return cases + [(cut, "plain", True)
+                    for cut in ("extend", "extdbg", "unitstats", "fbstats")]
+
+
+@pytest.mark.parametrize("cut,inputs,spill", _cut_cases())
+def test_stage12_cuts_match_jax(tables, cut, inputs, spill):
+    """Every profiling and diagnostic cut of build_stage12 (the core's
+    through it, and extdbg through _make_core, as JAX's tools reach them)
+    returns the JAX program's i32 values on a 128-unit chunk, exactly."""
+    from abismal_tpu.map.pipeline import _make_core as jax_core
+    from abismal_tpu.map.pipeline import build_stage12 as jax_stage12
+    from abismal_tpu_torch.map.pipeline import _make_core, build_stage12
+
+    jdev, tdev = tables
+    first, a_rich, random_pbat = CUT_INPUTS[inputs]
+    n_reads = 32 if random_pbat else 64
+    pnib, lens, is_ga, scode, md, per = _units(first, n_reads, a_rich,
+                                               random_pbat)
+    mc, ext_pool = SPILL if spill else (jdev.max_candidates, None)
+    cand = 60  # a budget no other test of this module builds
+    if cut == "extdbg":
+        uextra = np.zeros((pnib.shape[0], 3), np.int32)
+        core_j, _ = jax_core(LMAX, mc, jdev.n_index2, jdev.n_index3, cand,
+                             tp=False, cut=cut, ext_iters=jdev.ext_iters,
+                             ext_pool=ext_pool)
+        want = jax.jit(core_j)(*jdev.tables(), pnib, lens, is_ga, uextra)
+        core_t, _ = _make_core(LMAX, mc, jdev.n_index2, jdev.n_index3, cand,
+                               ext_iters=jdev.ext_iters, ext_pool=ext_pool,
+                               cut=cut)
+        got = core_t(*tdev.tables(), *_t(pnib, lens, is_ga, uextra))
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert got[k].dtype == (torch.bool if k == "ext_fb"
+                                    else torch.int32), k
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
+                                          err_msg=k)
+        if spill:
+            assert np.asarray(want["ext_fb"]).any()
+        return
+    prog_j, _ = jax_stage12(LMAX, mc, jdev.n_index2, jdev.n_index3, per,
+                            cand_per_unit=cand, interpret=True, cut=cut,
+                            ext_iters=jdev.ext_iters, ext_pool=ext_pool)
+    want = np.asarray(prog_j(*jdev.tables(), pnib, lens, is_ga, scode, md))
+    prog_t, _ = build_stage12(LMAX, mc, jdev.n_index2, jdev.n_index3, per,
+                              cand_per_unit=cand, ext_iters=jdev.ext_iters,
+                              ext_pool=ext_pool, cut=cut)
+    got = prog_t(*tdev.tables(), *_t(pnib, lens, is_ga, scode, md)).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if cut != "fbstats":  # a_rich reads, T-rich, decide nothing here
+        assert want.any()
+    elif spill:  # the pool's spills reach fbstats as unit fallbacks
+        assert want[:, 0].any()

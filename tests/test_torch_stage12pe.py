@@ -218,3 +218,46 @@ def test_stage12pe_fbm_guard_matches_native(tmp_path, allow_ambig):
         eng.map_pe_reads(r1, r2, False, False, st, out)
         outs.append((out.getvalue(), st.tostring(allow_ambig)))
     assert outs[0] == outs[1]
+
+
+# golden pairs of the cut tests: (prefix, first pair, pairs, PBAT, random
+# PBAT); 128 units a chunk
+CUT_PAIRS = {"small_pe": ("small_pe", 0, 32, False, False),
+             "small_pbat_pe": ("small_pbat_pe", 200, 32, True, False),
+             "small_rpbat_pe": ("small_rpbat_pe", 100, 16, False, True)}
+
+
+def _pe_cut_cases():
+    from abismal_tpu_torch.map.pipeline import PE_CUTS
+
+    return [(cut, pairs) for cut in PE_CUTS for pairs in CUT_PAIRS]
+
+
+@pytest.mark.parametrize("cut,pairs", _pe_cut_cases())
+def test_stage12pe_cuts_match_jax(tables, cut, pairs):
+    """Every profiling cut of build_stage12pe (the core's through it)
+    returns the JAX program's i32 sums on a chunk of golden pairs,
+    exactly."""
+    from abismal_tpu.map.pipeline import build_stage12pe as jax_stage12pe
+    from abismal_tpu_torch.map.pipeline import build_stage12pe
+
+    jdev, tdev = tables
+    prefix, first, n_pairs, pbat, random_pbat = CUT_PAIRS[pairs]
+    r1, r2 = _golden_pairs(prefix, first, n_pairs)
+    pnib, lens, is_ga, md, per = _pe_units(r1, r2, random_pbat, pbat)
+    dist = np.array((32, 3000), np.int32)
+    cand = 48  # a budget no other test of this module builds
+    prog_j, _ = jax_stage12pe(LMAX, jdev.max_candidates, jdev.n_index2,
+                              jdev.n_index3, per=per, cand_per_unit=cand,
+                              interpret=True, ext_iters=jdev.ext_iters,
+                              cut=cut)
+    want = np.asarray(prog_j(*jdev.tables(), pnib, lens, is_ga, md, dist))
+    prog_t, _ = build_stage12pe(LMAX, jdev.max_candidates, jdev.n_index2,
+                                jdev.n_index3, per=per, cand_per_unit=cand,
+                                ext_iters=jdev.ext_iters, cut=cut)
+    got = prog_t(*tdev.tables(), *(torch.from_numpy(np.ascontiguousarray(a))
+                                   for a in (pnib, lens, is_ga, md, dist)))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert want.shape == ((2, 128) if cut == "unitstats" else (4,))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
