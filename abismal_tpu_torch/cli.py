@@ -181,10 +181,11 @@ def cmd_map(argv):
                         "--device cpu: N CPU slots)")
     p.add_argument("--hosts", type=int, default=0,
                    help="multi-host run: shard the FASTQ by read range over "
-                        "N processes (each loads its own index, shard i on "
-                        "cuda:i mod the card count) and gather the shard "
-                        "SAMs in rank order; output is byte-identical to a "
-                        "one-process run (requires -i)")
+                        "N processes (each loads its own index; --engine "
+                        "torch puts shard i on cuda:i mod the card count, "
+                        "--engine native maps on the host cores) and "
+                        "gather the shard SAMs in rank order; output is "
+                        "byte-identical to a one-process run (requires -i)")
     p.add_argument("--shard", default="",
                    help="map only read-range shard I:N of the input (one "
                         "host of a real multi-host run; shard 0 alone "
@@ -230,10 +231,12 @@ def cmd_map(argv):
             print("--hosts/--shard require a prebuilt index (-i)",
                   file=sys.stderr)
             return 0
-        if a.engine != "torch" or a.mesh is not None or a.index_shards:
+        if (a.engine not in ("torch", "native") or a.mesh is not None
+                or a.index_shards):
             print("--hosts/--shard run the torch engine, one device per "
-                  "shard: not with --engine hybrid or --mesh, nor with "
-                  "another --engine or --index-shards", file=sys.stderr)
+                  "shard, or the native engine: not with --engine hybrid "
+                  "or --mesh, nor with another --engine or --index-shards",
+                  file=sys.stderr)
             return 1
         return _map_sharded(a, reads2, command_line)
 
@@ -329,8 +332,9 @@ def _map_hybrid(a, index, reads2, command_line, factory):
 
 def _map_sharded(a, reads2, command_line):
     """--hosts N (N spawned shard processes, gathered here) or --shard I:N
-    (this process maps shard I alone).  --device cuda puts shard i on
-    cuda:i mod the card count; any other device takes every shard."""
+    (this process maps shard I alone), with --engine torch or native.
+    --device cuda puts torch shard i on cuda:i mod the card count; any
+    other device takes every shard; native shards use no device."""
     from .map.engine import _write_stats as write_stats
     from .map.stats import PEStats, SEStats
     from .parallel.multihost import (
@@ -342,7 +346,8 @@ def _map_sharded(a, reads2, command_line):
     kw = dict(a_rich=a.a_rich, pbat=a.pbat, random_pbat=a.random_pbat,
               allow_ambig=a.ambig, valid_frac=a.max_distance,
               pe_min_dist=a.min_frag, pe_max_dist=a.max_frag, bam=a.bam,
-              verbose=a.verbose, lmax=a.lmax, device=device)
+              verbose=a.verbose, lmax=a.lmax, device=device,
+              engine=a.engine)
     paired = reads2 is not None
     if a.hosts:
         if a.hosts < 0:

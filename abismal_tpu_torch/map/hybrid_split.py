@@ -23,10 +23,8 @@ def _shard_server_main(conn, index_path, allow_ambig, valid_frac,
                        pe_min_dist, pe_max_dist, threads):
     """Worker process: load an index replica once, then serve map-range
     requests until the pipe closes."""
-    import numpy as np
-
     from ..index.serialize import read_index
-    from .native_engine import NativeMappingEngine, _ptr
+    from .native_engine import NativeMappingEngine
 
     index = read_index(index_path)
     eng = NativeMappingEngine(index, allow_ambig, valid_frac, pe_min_dist,
@@ -38,25 +36,12 @@ def _shard_server_main(conn, index_path, allow_ambig, valid_frac,
             return
         (fq1, fq2, out, hdr, a_rich_mode, rpbat, skip, count, bam,
          verbose) = req
-        raw = np.zeros(18 if fq2 else 6, dtype=np.int64)
         try:
-            if not fq2:
-                n = eng.lib.engine_run_se(
-                    eng._ctx, fq1.encode(), out.encode(), hdr, len(hdr),
-                    int(a_rich_mode), int(rpbat), 1000, eng.n_threads,
-                    _ptr(raw), int(verbose), int(skip), int(count),
-                    int(bam))
-            else:
-                n = eng.lib.engine_run_pe(
-                    eng._ctx, fq1.encode(), fq2.encode(), out.encode(),
-                    hdr, len(hdr), int(a_rich_mode), int(rpbat), 1000,
-                    eng.n_threads, _ptr(raw), int(verbose), int(skip),
-                    int(count), int(bam))
-            err = (eng.lib.engine_error_ptr(eng._ctx).decode()
-                   if n < 0 else None)
-        except Exception as e:  # pragma: no cover - relayed to parent
-            n, err = -1, str(e)
-        conn.send((n, raw.tolist(), err))
+            raw = eng.run_range(fq1, fq2 or None, out, hdr, a_rich_mode,
+                                rpbat, skip, count, bam, verbose)
+            conn.send((0, raw.tolist(), None))
+        except Exception as e:  # relayed to the parent, which raises
+            conn.send((-1, [], str(e)))
 
 
 class NativeShardServer:
@@ -117,16 +102,10 @@ def run_map_hybrid_split(index, reads_file1: str, reads_file2,
     on [k, n) concurrently; k is set so the native share is
     (1 - device_share).  Returns merged stats; output at out_path is
     byte-identical to a single-engine run."""
-    import numpy as np
-
     from ..io.bam import bam_header_payload
     from ..io.sam import make_sam_header
     from ..parallel.multihost import _apply_stats, count_reads, gather
-    from .native_engine import (
-        NativeMappingEngine,
-        _ptr,
-        run_map_pipelined,
-    )
+    from .native_engine import NativeMappingEngine, run_map_pipelined
     from .pipeline import TorchNativeEngine
 
     paired = reads_file2 is not None
@@ -170,26 +149,13 @@ def run_map_hybrid_split(index, reads_file1: str, reads_file2,
     nat = native_engine or NativeMappingEngine(
         index, allow_ambig, valid_frac, pe_min_dist, pe_max_dist,
         n_threads=threads)
-    raw = np.zeros(18 if paired else 6, dtype=np.int64)
-    errors = []
+    raw, errors = [], []
 
     def native_work():
         try:
-            if not paired:
-                n = nat.lib.engine_run_se(
-                    nat._ctx, reads_file1.encode(), shard0.encode(), hdr,
-                    len(hdr), int(a_rich_mode), int(random_pbat), 1000,
-                    nat.n_threads, _ptr(raw), int(verbose), 0, int(k),
-                    int(bam))
-            else:
-                n = nat.lib.engine_run_pe(
-                    nat._ctx, reads_file1.encode(), reads_file2.encode(),
-                    shard0.encode(), hdr, len(hdr), int(a_rich_mode),
-                    int(random_pbat), 1000, nat.n_threads, _ptr(raw),
-                    int(verbose), 0, int(k), int(bam))
-            if n < 0:
-                errors.append(RuntimeError(
-                    nat.lib.engine_error_ptr(nat._ctx).decode()))
+            raw.extend(nat.run_range(reads_file1, reads_file2, shard0, hdr,
+                                     a_rich_mode, random_pbat, 0, k, bam,
+                                     verbose).tolist())
         except Exception as e:  # surfaced after join
             errors.append(e)
 
@@ -204,7 +170,7 @@ def run_map_hybrid_split(index, reads_file1: str, reads_file2,
         t.join()
     if errors:
         raise errors[0]
-    _apply_stats(raw.tolist(), paired, stats)
+    _apply_stats(raw, paired, stats)
     gather([shard0, shard1], out_path)
     os.unlink(shard0)
     os.unlink(shard1)

@@ -300,6 +300,33 @@ class NativeMappingEngine:
     # SAM-text output (BAM goes through the Python BGZF writer).
     supports_streaming = True
 
+    def run_range(self, reads_file1, reads_file2, out_path, hdr: bytes,
+                  a_rich_mode, random_pbat, skip_reads=0, max_reads=-1,
+                  bam=False, verbose=False, batch_size=1000) -> np.ndarray:
+        """The library's streaming loop (engine_run_se / engine_run_pe) over
+        reads [skip_reads, skip_reads + max_reads) of the FASTQ(s)
+        (max_reads < 0: to the end) into out_path, hdr (the SAM header,
+        or BAM header payload, as bytes; may be empty) written first.
+        Returns the raw stats counters (6 SE, 18 PE); raises on the
+        library's error."""
+        if reads_file2 is None:
+            raw = np.zeros(6, dtype=np.int64)
+            n = self.lib.engine_run_se(
+                self._ctx, reads_file1.encode(), out_path.encode(), hdr,
+                len(hdr), int(a_rich_mode), int(random_pbat),
+                int(batch_size), self.n_threads, _ptr(raw), int(verbose),
+                int(skip_reads), int(max_reads), int(bam))
+        else:
+            raw = np.zeros(18, dtype=np.int64)
+            n = self.lib.engine_run_pe(
+                self._ctx, reads_file1.encode(), reads_file2.encode(),
+                out_path.encode(), hdr, len(hdr), int(a_rich_mode),
+                int(random_pbat), int(batch_size), self.n_threads, _ptr(raw),
+                int(verbose), int(skip_reads), int(max_reads), int(bam))
+        if n < 0:
+            raise RuntimeError(self.lib.engine_error_ptr(self._ctx).decode())
+        return raw
+
     def run_streaming(self, reads_file1, reads_file2, out_path, header: str,
                       a_rich_mode, random_pbat, stats, batch_size=1000,
                       verbose=False, skip_reads=0, max_reads=-1, bam=False):
@@ -311,33 +338,14 @@ class NativeMappingEngine:
             hdr = bam_header_payload(header)
         else:
             hdr = header.encode()
-        if reads_file2 is None:
-            st = np.zeros(6, dtype=np.int64)
-            n = self.lib.engine_run_se(
-                self._ctx, reads_file1.encode(), out_path.encode(), hdr,
-                len(hdr), int(a_rich_mode), int(random_pbat),
-                int(batch_size), self.n_threads, _ptr(st), int(verbose),
-                int(skip_reads), int(max_reads), int(bam))
-            if n < 0:
-                raise RuntimeError(
-                    self.lib.engine_error_ptr(self._ctx).decode())
+        st = self.run_range(reads_file1, reads_file2, out_path, hdr,
+                            a_rich_mode, random_pbat, skip_reads, max_reads,
+                            bam, verbose, batch_size)
+        blocks = ((stats,) if reads_file2 is None else
+                  (stats.read_pair_stats, stats.end1_stats, stats.end2_stats))
+        for blk, dst in enumerate(blocks):
             for i, f in enumerate(_SE_FIELDS):
-                setattr(stats, f, getattr(stats, f) + int(st[i]))
-        else:
-            st = np.zeros(18, dtype=np.int64)
-            n = self.lib.engine_run_pe(
-                self._ctx, reads_file1.encode(), reads_file2.encode(),
-                out_path.encode(), hdr, len(hdr), int(a_rich_mode),
-                int(random_pbat), int(batch_size), self.n_threads, _ptr(st),
-                int(verbose), int(skip_reads), int(max_reads), int(bam))
-            if n < 0:
-                raise RuntimeError(
-                    self.lib.engine_error_ptr(self._ctx).decode())
-            for blk, dst in enumerate((stats.read_pair_stats,
-                                       stats.end1_stats, stats.end2_stats)):
-                for i, f in enumerate(_SE_FIELDS):
-                    setattr(dst, f, getattr(dst, f) + int(st[6 * blk + i]))
-        return int(n)
+                setattr(dst, f, getattr(dst, f) + int(st[6 * blk + i]))
 
     # ---- pipelined interface (dispatch/finish; no-op split here) -----------
     def dispatch_se(self, reads, a_rich_mode, random_pbat):

@@ -1,7 +1,8 @@
-"""Multi-host mapping with the port's engine (↔ abismal_tpu/parallel/
-multihost.py): the FASTQ splits into contiguous read-range shards, one
-process per shard loads its own index replica and maps its range with
-TorchNativeEngine, and the shard SAMs are concatenated in rank order, so
+"""Multi-host mapping (↔ abismal_tpu/parallel/multihost.py): the FASTQ
+splits into contiguous read-range shards, one process per shard loads
+its own index replica and maps its range, with TorchNativeEngine on a
+card (engine "torch") or with the native C++ engine on the host cores
+(engine "native"), and the shard SAMs are concatenated in rank order, so
 the output equals a one-process run byte for byte.
 
 The same code runs on separate machines: `map --shard I:N` on each host,
@@ -67,17 +68,35 @@ def map_shard(index_path: str, reads_file1: str, reads_file2,
               pbat=False, random_pbat=False, allow_ambig=False,
               valid_frac=0.1, pe_min_dist=32, pe_max_dist=3000,
               threads: int = 1, bam: bool = False, verbose: bool = False,
-              lmax: int = 128, device=None):
-    """One host's work (↔ the device branch of the JAX map_shard): load
-    the index, map reads [skip, skip + count) with TorchNativeEngine on
-    device, by default cuda:{shard_i % device_count}, and write the
-    records (shard 0 also writes the header).  Returns the shard's raw
-    stats counters (6 ints SE, 18 PE).  Without a card a CUDA device
-    raises; nothing falls back to the CPU."""
+              lmax: int = 128, device=None, engine: str = "torch"):
+    """One host's work: load the index, map reads [skip, skip + count) and
+    write the records (shard 0 also writes the header).  Returns the
+    shard's raw stats counters (6 ints SE, 18 PE).
+
+    engine="torch" (↔ the JAX map_shard's device branch) maps with
+    TorchNativeEngine on device, by default cuda:{shard_i %
+    device_count}; without a card a CUDA device raises and nothing falls
+    back to the CPU.  engine="native" (↔ its native branch) maps with the
+    native C++ engine's streaming loop on the host cores and touches no
+    device; lmax and device do not apply to it.
+
+    BAM shards are each a complete BGZF stream (shard 0 also starts with
+    the compressed header): the shards concatenated in rank order are a
+    BAM whose decompressed payload equals a one-process run's."""
+    from ..index.serialize import read_index
+
+    if engine == "native":
+        return _map_shard_native(
+            read_index(index_path), reads_file1, reads_file2, out_shard,
+            shard_i, command_line, skip, count, a_rich, pbat, random_pbat,
+            allow_ambig, valid_frac, pe_min_dist, pe_max_dist, threads, bam,
+            verbose)
+    if engine != "torch":
+        raise ValueError(f"engine must be torch or native, not {engine!r}")
+
     import torch
 
     from ..device import require_cuda
-    from ..index.serialize import read_index
     from ..map.native_engine import run_map_pipelined
     from ..map.pipeline import TorchNativeEngine
     from ..map.stats import PEStats
@@ -101,25 +120,54 @@ def map_shard(index_path: str, reads_file1: str, reads_file2,
     return [int(getattr(stats, f)) for f in _SE_FIELDS]
 
 
+def _map_shard_native(index, reads_file1, reads_file2, out_shard, shard_i,
+                      command_line, skip, count, a_rich, pbat, random_pbat,
+                      allow_ambig, valid_frac, pe_min_dist, pe_max_dist,
+                      threads, bam, verbose):
+    """map_shard's native branch: the native engine's streaming loop over
+    [skip, skip + count), its raw counters returned."""
+    from ..io.bam import bam_header_payload
+    from ..io.sam import make_sam_header
+    from ..map.native_engine import NativeMappingEngine
+
+    eng = NativeMappingEngine(index, allow_ambig, valid_frac, pe_min_dist,
+                              pe_max_dist, n_threads=threads)
+    header = (make_sam_header(index.cl, command_line) if shard_i == 0
+              else "")
+    hdr = (bam_header_payload(header) if bam and shard_i == 0
+           else header.encode())
+    paired = reads_file2 is not None
+    a_rich_mode = pbat if paired else (a_rich or pbat)
+    return eng.run_range(reads_file1, reads_file2, out_shard, hdr,
+                         a_rich_mode, random_pbat, skip, count, bam,
+                         verbose).tolist()
+
+
 def run_map_multihost(index_path: str, reads_file1: str, reads_file2,
                       out_path: str, command_line: str, n_hosts: int,
-                      threads_per_host: int = 1, device=None, **map_kwargs):
+                      threads_per_host: int = 1, device=None,
+                      engine: str = "torch", **map_kwargs):
     """Coordinator (↔ the JAX run_map_multihost): shards the reads by
-    count, maps each shard in its own spawned process with map_shard on
-    device (by default shard i on cuda:{i % device_count}), gathers the
-    shard SAMs in rank order and returns the merged stats.  For CUDA the
-    kernel library is built here once, before the processes start."""
+    count, maps each shard in its own spawned process with map_shard
+    (engine "torch": on device, by default shard i on cuda:{i %
+    device_count}; engine "native": on the host cores), gathers the shard
+    SAMs in rank order and returns the merged stats.  For CUDA the kernel
+    library is built here once, before the processes start."""
     import multiprocessing as mp
 
-    import torch
-
-    from ..device import require_cuda
-    from ..kernels import _build
     from ..map.stats import PEStats, SEStats
 
-    if device is None or torch.device(device).type == "cuda":
-        require_cuda()
-        _build.load()
+    if engine == "torch":
+        import torch
+
+        from ..device import require_cuda
+        from ..kernels import _build
+
+        if device is None or torch.device(device).type == "cuda":
+            require_cuda()
+            _build.load()
+    elif engine != "native":
+        raise ValueError(f"engine must be torch or native, not {engine!r}")
     paired = reads_file2 is not None
     shards = shard_bounds(count_reads(reads_file1), n_hosts)
     shard_paths = [f"{out_path}.shard{i}" for i in range(n_hosts)]
@@ -133,7 +181,7 @@ def run_map_multihost(index_path: str, reads_file1: str, reads_file2,
                  n_hosts, command_line, skip, cnt),
                 # progress from rank 0 only: the shards' stderr interleaves
                 dict(threads=threads_per_host, verbose=(verbose and i == 0),
-                     device=device, **map_kwargs))
+                     device=device, engine=engine, **map_kwargs))
             for i, (skip, cnt) in enumerate(shards)
         ]
         raws = [r.get() for r in results]

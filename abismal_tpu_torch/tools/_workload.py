@@ -1,8 +1,10 @@
 """The device tools' shared inputs, made with the port's own code (↔ the
 JAX tools' __graft_entry__._tiny_index and their inline read set-up): the
 tRex1 index, or a GB-scale one named by ABISMAL_PROFILE_INDEX and
-ABISMAL_PROFILE_GENOME; reads simulated from the profiled genome; one
-chunk of them laid out as TorchNativeEngine lays it out; device timing.
+ABISMAL_PROFILE_GENOME; the tRex1 index as a file, for the tools whose
+shard processes load it; reads simulated from the profiled genome; one
+chunk of them laid out as TorchNativeEngine lays it out; timed maps of
+them, each with its SAM's md5; device timing.
 Files go under build/abismal_tpu_torch/tools/ of the checkout."""
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import importlib.util
 import os
+import resource
 import time
 from dataclasses import dataclass
 
@@ -55,6 +58,21 @@ def profile_index(threads: int = 1):
     if path:
         return read_index(path), os.environ["ABISMAL_PROFILE_GENOME"]
     return create_index(TREX1_FA, n_threads=threads), TREX1_FA
+
+
+def trex1_index_file(threads: int = 1) -> str:
+    """Path of the tRex1 index file in the cache, made on first use with
+    create_index and write_index: written to a name of this process and
+    moved into place, so a reader never sees half a file."""
+    path = cache_path("tRex1.idx")
+    if not os.path.exists(path):
+        from ..index.build import create_index
+        from ..index.serialize import write_index
+
+        tmp = f"{path}.tmp{os.getpid()}"
+        write_index(create_index(TREX1_FA, n_threads=threads), tmp)
+        os.replace(tmp, path)
+    return path
 
 
 def gen_genome(path: str, total: int):
@@ -109,6 +127,78 @@ def engine(index, device, unit_batch: int = 2048, lmax: int = 128,
 
     return TorchNativeEngine(index, lmax=lmax, unit_batch=unit_batch,
                              n_threads=threads, device=device)
+
+
+# upstream's SAM of the 10k golden reads (tests/golden/reads.sam.gz),
+# which the simulator's seed-1 reads equal, and the argv its @PG line holds
+GOLDEN_SAM_MD5 = "8126d46074213ad3674181f4ea4f8bd1"
+GOLDEN_CL = ("map -s tests/reads.mstats -o tests/reads.sam -i "
+             "tests/tRex1.idx tests/reads_1.fq")
+
+
+def md5(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()
+
+
+def truth_md5(index, fq1, fq2, sam, threads: int, golden: bool) -> str:
+    """The md5 that a verified SAM of fq1 (and fq2), mapped with command
+    line GOLDEN_CL, has: upstream's golden (golden: the 10k seed-1 reads on
+    tRex1), else the native engine's output on the same reads, which it
+    writes to sam."""
+    from ..map.engine import run_map
+    from ..map.host_units import make_native_engine_factory
+
+    if golden:
+        return GOLDEN_SAM_MD5
+    run_map(index, fq1, fq2, sam, None, GOLDEN_CL,
+            engine_factory=make_native_engine_factory(n_threads=threads),
+            threads=threads)
+    return md5(sam)
+
+
+def cpu_s() -> float:
+    """This process's CPU seconds so far, user and system (getrusage)."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
+def timed_maps(index, fq1, fq2, sam, factory, threads: int, reps: int,
+               before=None):
+    """A warm map of fq1 (and fq2) into sam by factory's engine, command
+    line GOLDEN_CL, then reps timed ones, before() called ahead of each:
+    (the warm map's seconds, one (wall seconds, process CPU seconds, the
+    SAM's md5) a timed map)."""
+    from ..map.engine import run_map
+
+    def once():
+        run_map(index, fq1, fq2, sam, None, GOLDEN_CL,
+                engine_factory=factory, threads=threads)
+
+    t0 = time.perf_counter()
+    once()  # warm: engine tables, the kernels' build, first copies
+    warm = time.perf_counter() - t0
+    runs = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        c0, t0 = cpu_s(), time.perf_counter()
+        once()
+        wall, cpu = time.perf_counter() - t0, cpu_s() - c0
+        runs.append((wall, cpu, md5(sam)))
+    return warm, runs
+
+
+def engine_factory(eng):
+    """A run_map engine factory that hands out eng for every run, so its
+    counters and timers add up over the runs, and that holds no memo: eng
+    goes when the caller drops it."""
+
+    def factory(*_args):
+        return eng
+
+    factory.is_native = True
+    return factory
 
 
 @dataclass

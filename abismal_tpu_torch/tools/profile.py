@@ -39,10 +39,7 @@ def run(index, genome, engine: str = "native", reads: int = 10000,
         eng = make_native_engine_factory(n_threads=threads)(
             index, False, 0.1, 32, 3000)
 
-    def factory(*_args):  # one engine over every run: its timers add up
-        return eng
-
-    factory.is_native = True
+    factory = W.engine_factory(eng)  # one engine: its timers add up
 
     def run_once():
         run_map(index, fq, None, sam, None, "profile run",

@@ -72,10 +72,7 @@ def engine_rates(index, eng, fq1, fq2, n, threads, tag, res, out=W.say):
     nat = NativeMappingEngine(index, n_threads=threads)
     unit = "pairs" if fq2 else "reads"
     for name, engine in (("tpu", eng), ("native", nat)):
-        def fac(*_args, e=engine):
-            return e
-
-        fac.is_native = True
+        fac = W.engine_factory(engine)
 
         def once():
             run_map(index, fq1, fq2, sam, None, "map scale",

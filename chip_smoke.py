@@ -95,7 +95,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
                         give the golden but for the @PG line;
               K1-K3 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
-              native-only rates.
+              native-only rates;
+  11. tools   the port's bench and tuning tools (abismal_tpu_torch/tools/):
+              the bench over its five modes (native, torch, split,
+              pe_native, pe_torch; each in a child process, two
+              repetitions), every mode's best rate verified (> 0), the
+              torch mode's fallback fraction equal to the goldens phase's
+              on `reads` (the same 10k reads); tune_stage2 2048 (every
+              repetition verified), sweep_unit_batch 2048 8192 (SAMs
+              equal to the golden), tune_hybrid 2048, multihost_scale
+              --hosts 1 2 --per-host 10000 --reps 1 with native and with
+              torch shards, and `map --hosts 2 --engine native` on reads,
+              equal to the golden but for the @PG line; K1-K3 must launch
+              in the phase's in-process tools.
 It imports only the port (abismal_tpu_torch), which has its own host
 side; nothing of JAX and nothing of the JAX package (checked at the end).
 The line before the last is the kernels' JSON summary, the last line
@@ -1562,6 +1574,84 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
                  for name in launches["mesh"]}
 
 
+TOOLS_REPS = 2  # the bench's repetitions of each mode
+
+
+def phase_tools(dev, threads, gres):
+    """Phase 11: the port's bench and tuning and scaling tools, through
+    their entry points, on the card; gres is the goldens phase's result."""
+    from abismal_tpu_torch.cli import main as cli_main
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.tools import (
+        bench, multihost_scale, sweep_unit_batch, tune_hybrid, tune_stage2,
+    )
+
+    kernels = (pc.popcount_compare, ba.banded_score_packed,
+               ba.banded_trace_packed)
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    line = timed("bench", lambda: bench.main(
+        ["--reps", str(TOOLS_REPS), "--threads", str(threads)]))
+    out["bench"] = line
+    for mode in bench.N_REPS:
+        check(line["modes"][mode]["best"] > 0,
+              f"bench {mode}: no repetition verified")
+    want = round(gres["reads"]["fallback_frac"], 5)
+    check(line["modes"]["torch"]["fallback_frac"] == want,
+          f"bench torch: fallback {line['modes']['torch']['fallback_frac']}"
+          f", the goldens phase's {want} on the same reads")
+
+    for k in kernels:
+        k.launches = 0
+    rows = timed("tune_stage2", lambda: tune_stage2.main(
+        ["2048", "--threads", str(threads)]))
+    check(all(r["verified"] == r["reps"] for r in rows),
+          "tune_stage2: a repetition was not verified")
+    out["tune_stage2"] = rows
+    rows = timed("sweep_unit_batch", lambda: sweep_unit_batch.main(
+        ["2048", "8192", "--threads", str(threads)]))
+    check(all(r["md5"] == bench.GOLDEN_SAM_MD5 for r in rows),
+          "sweep_unit_batch: a SAM differs from the golden")
+    out["sweep_unit_batch"] = rows
+    out["tune_hybrid"] = timed("tune_hybrid", lambda: tune_hybrid.main(
+        ["2048", "--threads", str(threads)]))
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the tools")
+    out["launches"] = launches
+
+    for engine in ("native", "torch"):
+        out[f"multihost_scale_{engine}"] = timed(
+            f"multihost_scale_{engine}", lambda: multihost_scale.main(
+                ["--hosts", "1", "2", "--per-host", "10000", "--reps", "1",
+                 "--engine", engine]))
+
+    fq = os.path.join(WORK, "reads_1.fq")
+    sam = os.path.join(WORK, "hosts_native.sam")
+    mst = os.path.join(WORK, "hosts_native.mstats")
+    rc = timed("hosts_native", lambda: cli_main(
+        ["map", "--hosts", "2", "--engine", "native", "-t",
+         str(max(1, threads // 2)), "-s", mst, "-o", sam, "-i",
+         os.path.join(WORK, "tRex1.idx"), fq]))
+    check(rc == 0, f"map --hosts 2 --engine native: rc {rc}")
+    same = (sam_body(open(sam, "rb").read())
+            == sam_body(open(os.path.join(WORK, "reads.sam"), "rb").read()))
+    _, mst_ok = golden_identical("reads", sam, mst)
+    check(same and mst_ok, "map --hosts 2 --engine native: output differs "
+          "from the golden")
+    out["hosts_native"] = dict(sam_identical_but_pg=same,
+                               mstats_identical=mst_ok)
+    out["tool_seconds"] = secs
+    return out, launches
+
+
 def kernels_line(kres, phase_launches):
     """The kernels' summary: one entry per entry point, its launches
     summed over the main paths' phases (each phase's counts were taken
@@ -1652,6 +1742,10 @@ def main():
         ores, launches_out = phase_scaleout(dev, threads, card, index, sets,
                                             rates)
         emit("scaleout", **ores)
+
+        t0 = time.perf_counter()
+        tres, launches_tools = phase_tools(dev, threads, gres)
+        emit("tools", seconds=time.perf_counter() - t0, **tres)
         check("jax" not in sys.modules, "the port loaded jax")
         check(not [m for m in sys.modules
                    if m == "abismal_tpu" or m.startswith("abismal_tpu.")],
@@ -1663,7 +1757,7 @@ def main():
         check(not loaded, f"the port loaded {loaded}")
         line = kernels_line(kres, (launches, launches_pe, launches_ev,
                                    launches_prof, launches_sr,
-                                   launches_out))
+                                   launches_out, launches_tools))
     except Exception:
         traceback.print_exc()
         return 1

@@ -1,7 +1,8 @@
 """The port stands alone: no module of abismal_tpu_torch (nor
 chip_smoke.py, nor the two timing scripts beside it) imports jax or
 anything of the JAX package abismal_tpu, importing every module of the port loads neither, chip_smoke.py imports
-only the port, whole `map`, `idx` and `sim` runs through the port's CLI
+only the port, the tools (the bench and the scaling tool among them) run
+without it, whole `map`, `idx` and `sim` runs through the port's CLI
 (map also over a mesh, over index shards, as a hybrid split and with
 every --engine) work while `import abismal_tpu` is made to fail, the
 device entry points do not fall back to the CPU without a card, and
@@ -123,6 +124,38 @@ def test_tools_run_alone(tmp_path):
                                   OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr
     assert "ALONE_OK" in res.stdout and "nbad: 0" in res.stdout
+
+
+def test_bench_and_scaling_run_alone(tmp_path, port_index):
+    """The bench's native mode and the weak-scaling tool's native shards
+    (spawned processes) run in a fresh interpreter where the JAX package,
+    __graft_entry__, tests and tools cannot be imported, and none of the
+    forbidden names ends up in sys.modules."""
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    os.symlink(PORT_IDX, cache / "tRex1.idx")
+    code = ("import sys\n"
+            "for m in ('abismal_tpu', '__graft_entry__', 'tests', 'tools'):\n"
+            "    sys.modules[m] = None\n"
+            "from abismal_tpu_torch.tools import (\n"
+            "    _workload, bench, multihost_scale)\n"
+            f"_workload.CACHE = {str(cache)!r}\n"
+            "r = bench.run_mode('native', 'cpu', 200, 1, 1)\n"
+            "assert r['best'] > 0, r\n"
+            "multihost_scale.main(['--per-host', '100', '--hosts', '2',\n"
+            "                      '--reps', '1', '--threads', '1',\n"
+            "                      '--engine', 'native'])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            f"       {NOT_FOR_TOOLS!r} and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "print('ALONE_OK')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=ROOT,
+                                  OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr
+    assert "ALONE_OK" in res.stdout
+    assert "weak-scaling efficiency at 2 host(s)" in res.stdout
 
 
 # runs `python -m abismal_tpu_torch <argv>` with `import abismal_tpu` made
