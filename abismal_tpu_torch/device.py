@@ -4,6 +4,7 @@ the port takes an explicit device; a CUDA device without a card raises
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import numpy as np
@@ -28,6 +29,15 @@ def resolve_device(device) -> torch.device:
 def put(a, device) -> torch.Tensor:
     """A host array as a tensor on device (on the CPU, the array itself)."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def device_context(dev):
+    """Makes a CUDA device current (the runtime launches, captures and
+    allocates on the calling thread's current device); nothing on the
+    CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def card_info() -> str:

@@ -35,6 +35,7 @@ from ..constants import (
     WINDOW_SIZE,
 )
 from ..device import put, resolve_device
+from ..graphs import use_graphs
 from ..kernels.banded_align import (
     BW_MAX, QOFF, banded_score_packed, banded_trace_packed, unpack_nibbles,
     win_start, window_nibbles,
@@ -736,6 +737,14 @@ def build_stage1(lmax: int, max_candidates: int, n_index2: int,
     return stage1, o_spec
 
 
+def _fill_job_rows(n: int, dev) -> torch.Tensor:
+    """(4, n) int64 job rows (unit, pos, bw, qsz) of fill jobs, which score
+    0: unit 0, pos 32767, bw 1, qsz 0; made on the device, with no copy
+    from the host (a captured program may not make one)."""
+    return torch.stack([torch.full((n,), v, dtype=I64, device=dev)
+                        for v in (0, 32767, 1, 0)])
+
+
 def _job_operand_sums(genome32, pnib, junit, jpos, jbw, jqsz, lmax):
     """The "jobs" cuts' sums of the J job rows (unit, pos, bw, qsz): every
     query nibble of the job's unit row, the lmax + QOFF genome nibbles of
@@ -909,8 +918,7 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         job_fb = ((jm != 0) & (jexc >= J)).reshape(R, K2).any(dim=1)
         # job columns (unit, pos, bw, qsz) as rows, so that each is one
         # contiguous tensor for K2, which reads the packed rows and genome
-        jrows = torch.tensor([[0], [32767], [1], [0]], dtype=I64,
-                             device=dev).repeat(1, J + 1)
+        jrows = _fill_job_rows(J + 1, dev)
         jrows[:, torch.where(job_ok, jexc, J)] = torch.stack(
             [qrowK.reshape(-1), posK.reshape(-1), bwK.reshape(-1),
              rlen.repeat_interleave(K2)])
@@ -1083,8 +1091,7 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         # d rides the high half of the qsz column, as in the JAX rows; the
         # columns are rows, so that each is one contiguous tensor for K2,
         # which reads the packed rows and genome
-        jrows = torch.tensor([[0], [32767], [1], [0]], dtype=I64,
-                             device=dev).repeat(1, J + 1)
+        jrows = _fill_job_rows(J + 1, dev)
         jrows[:, jdest] = torch.stack(
             [b_of, pos, bw_c.clamp(max=BW_MAX), (d << 16) | extras[:, 3]])
         junit, jpos, jbw, jqd = jrows[:, :J]
@@ -1240,7 +1247,13 @@ class TorchNativeEngine:
     instead: each slot holds the position lists of one key range
     (DeviceIndexTP) and runs build_stage1 on the whole chunk, and the
     host merges the slots' streams by rank (_merge_tp_streams).  It takes
-    the event route, without device_align."""
+    the event route, without device_align.
+
+    On a CUDA device every device program of every route runs as a CUDA
+    graph captured once per shape key and device (graphs.Graphs, the
+    counterpart of jax.jit); graphs=False, or the CPU, runs the programs
+    eagerly, op by op (graphs.Eager).  With graphs and profile on, a
+    chunk's marks are one ("start", "end") pair around its replay."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -1250,7 +1263,7 @@ class TorchNativeEngine:
                  unit_batch: int = 2048, n_threads: int = 1,
                  device="cuda", mesh_devices=None, index_shards=None,
                  device_stage2=None, device_align=None,
-                 align_jcap: int = 8192):
+                 align_jcap: int = 8192, graphs: bool = True):
         if mesh_devices and index_shards:
             raise ValueError(
                 "mesh_devices (data parallel) and index_shards (sharded "
@@ -1273,6 +1286,7 @@ class TorchNativeEngine:
             self.device = tp_mesh[0]
         else:
             self.device = resolve_device(device)
+        self.graphs = use_graphs(graphs, self.device)
         self.native = NativeMappingEngine(index, allow_ambig, valid_frac,
                                           pe_min_dist, pe_max_dist,
                                           n_threads=n_threads)
@@ -1287,7 +1301,8 @@ class TorchNativeEngine:
             self.dev = None
             self._stage1_tp = shard_stage1_tp(build_stage1(
                 lmax, self.tp.max_candidates, self.tp.P2, self.tp.P3,
-                ext_iters=self.tp.ext_iters, tp=True)[0], tp_mesh)
+                ext_iters=self.tp.ext_iters, tp=True)[0], tp_mesh,
+                self.graphs)
         elif self.mesh is None:
             self.dev = DeviceIndex.from_index(index, self.device)
         else:
@@ -1371,7 +1386,7 @@ class TorchNativeEngine:
                 ext_iters=self.dev.ext_iters, device_tb=self.device_tb,
                 ext_pool=ext_pool)
             if self.mesh is not None:
-                prog = shard_stage12(prog, self.mesh)
+                prog = shard_stage12(prog, self.mesh, self.graphs)
             self._stage12_progs[key] = prog
         return prog
 
@@ -1424,7 +1439,7 @@ class TorchNativeEngine:
                 self.dev.n_index3, cand_per_unit=cand_budget,
                 ext_iters=self.dev.ext_iters, ext_pool=ext_pool)
             if self.mesh is not None:
-                prog = shard_stage1(prog, self.mesh)
+                prog = shard_stage1(prog, self.mesh, self.graphs)
             self._stage12_progs[key] = prog
         return prog
 
@@ -1435,7 +1450,7 @@ class TorchNativeEngine:
         threads.  Empty and oversized reads' rows have length 0: their
         units are not resident and re-seed natively.  Returns (pending,
         future of (events, unit_loc)); pending holds (first unit, units,
-        ev, cf, the chunk's unit rows on the device)."""
+        ev, cf, the chunk's unit rows on the device for device_align)."""
         per = is_ga_pat.shape[0]
         t1 = time.perf_counter()
         if self.tp is None:
@@ -1465,9 +1480,10 @@ class TorchNativeEngine:
             elif self.mesh is not None:
                 ev, cf, _total = prog(self.replicas, preads, lens, is_ga, thr)
             else:
-                pn = self._put(preads)
-                ev, cf = prog(*tables, pn, self._put(lens), self._put(is_ga),
-                              self._put(thr))
+                ev, cf = self.graphs.run(prog, tables,
+                                         (preads, lens, is_ga, thr))
+                if self.device_align:
+                    pn = self._put(preads)
             pending.append((u0, nu, ev, cf, pn))
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=self.pipeline_depth)
@@ -1596,7 +1612,7 @@ class TorchNativeEngine:
         B = max(q, self.unit_batch - (self.unit_batch % q))
         rpc = B // per  # reads per chunk
         if self.mesh is None:
-            scode, tables = self._put(scode_pat), self.dev.tables()
+            tables = self.dev.tables()
         pending = []
         for start in range(0, len(reads), rpc):
             n = min(rpc, len(reads) - start)
@@ -1617,9 +1633,9 @@ class TorchNativeEngine:
                                     scode_pat, max_diffs_r)
             else:
                 marks = [] if self.profile else None
-                rows = prog(*tables, self._put(preads), self._put(lens),
-                            self._put(is_ga), scode, self._put(max_diffs_r),
-                            marks=marks)
+                rows = self.graphs.run(
+                    prog, tables, (preads, lens, is_ga, scode_pat,
+                                   max_diffs_r), marks)
                 if marks is not None:
                     self.chunk_marks.append(marks)
             pending.append((start, n, rows, counts))
@@ -1679,7 +1695,7 @@ class TorchNativeEngine:
                 self.dev.n_index3, per=per, cand_per_unit=cand_budget,
                 ext_iters=self.dev.ext_iters, ext_pool=ext_pool)
             if self.mesh is not None:
-                prog = shard_stage12pe(prog, self.mesh)
+                prog = shard_stage12pe(prog, self.mesh, self.graphs)
             self._stage12_progs[key] = prog
         return prog
 
@@ -1746,7 +1762,6 @@ class TorchNativeEngine:
                             self.native.pe_max_dist], np.int32)
         is_ga = np.tile(is_ga_pat, ppc)
         if self.mesh is None:
-            pe_dist_d, is_ga_d = self._put(pe_dist), self._put(is_ga)
             tables = self.dev.tables()
         pending = []
         for start in range(0, len(reads1), ppc):
@@ -1764,9 +1779,9 @@ class TorchNativeEngine:
                                max_diffs_u, pe_dist)
             else:
                 marks = [] if self.profile else None
-                rows = prog(*tables, self._put(preads), self._put(lens),
-                            is_ga_d, self._put(max_diffs_u), pe_dist_d,
-                            marks=marks)
+                rows = self.graphs.run(
+                    prog, tables, (preads, lens, is_ga, max_diffs_u,
+                                   pe_dist), marks)
                 if marks is not None:
                     self.chunk_marks.append(marks)
             pending.append((start, nu, rows))
@@ -1926,12 +1941,14 @@ class TorchMappingEngine(EventReplayEngine):
     units a chunk, and the sequential decision logic replays each unit's
     events; units flagged overflow, and those longer than lmax, are
     seeded on the host.  The output is the exact engine's.  The streams
-    are copied to the host when a batch is collected (_collect_units)."""
+    are copied to the host when a batch is collected (_collect_units).
+    graphs as for TorchNativeEngine."""
 
     def __init__(self, index, allow_ambig=False, valid_frac=0.1,
                  pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
-                 unit_batch: int = 1024, device="cuda"):
+                 unit_batch: int = 1024, device="cuda", graphs: bool = True):
         self.device = resolve_device(device)
+        self.graphs = use_graphs(graphs, self.device)
         if index.genome_size > POS_EMPTY - 1:
             raise ValueError(f"genome of {index.genome_size} bases exceeds "
                              f"the device path's {POS_EMPTY - 1}")
@@ -1969,8 +1986,8 @@ class TorchMappingEngine(EventReplayEngine):
             is_ga = np.zeros(B, dtype=bool)
             is_ga[: len(chunk)] = [u[2] for u in chunk]
             thr = ((2 * lens.astype(np.int64)) // 5).astype(np.int32)
-            ev, cf = self.stage1(*self.dev.tables(), *(
-                put(a, self.device) for a in (preads, lens, is_ga, thr)))
+            ev, cf = self.graphs.run(self.stage1, self.dev.tables(),
+                                     (preads, lens, is_ga, thr))
             pending.append((chunk, ev, cf))
         return pre_cache, pending
 

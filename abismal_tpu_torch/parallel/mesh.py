@@ -13,7 +13,11 @@ A mesh may name a device more than once: two slots on one card, or on the
 CPU, run the same split as two cards do (the port's form of the JAX
 tests' virtual CPU mesh), and slots on one device share its replica.  One
 Python thread drives the slots in turn, so their launches serialize on
-the host.
+the host.  Each wrapper runs a slot's program through the engine's
+runner (graphs.Graphs or graphs.Eager): on a card, as the CUDA graph of
+its device and shapes (slots on one device with one replica share it, as
+JAX's shard_map shares one executable), replayed with that device
+current.
 
 The key-range-sharded index (shard_stage1_tp, ↔ the JAX TP option) runs
 over the same kind of mesh: there each slot holds one shard of the
@@ -21,11 +25,10 @@ position lists and gets the whole chunk."""
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-from ..device import put, require_cuda, resolve_device
+from ..device import require_cuda, resolve_device
+from ..graphs import Eager
 
 
 def make_mesh(devices="all") -> list[torch.device]:
@@ -63,20 +66,13 @@ def replicate_tables(index, devices):
     return [made[d] for d in devices]
 
 
-def _on(dev):
-    """Makes a CUDA slot's device current while its program is enqueued."""
-    if dev.type == "cuda":
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
-
-
-def _run_slices(prog, devices, replicas, args, shared=()):
-    """Runs prog on every slot with the host arrays args, in the
-    program's order: those at the positions in shared whole, the others
-    cut into len(devices) contiguous slices along their first axis.  All
-    slots are enqueued before any result is copied back; returns the
-    rows concatenated in slot order, on the CPU (for a program that
-    returns a tuple, a tuple of them)."""
+def _run_slices(prog, devices, replicas, args, shared, runner):
+    """Runs prog through runner on every slot with the host arrays args,
+    in the program's order: those at the positions in shared whole, the
+    others cut into len(devices) contiguous slices along their first
+    axis.  All slots are enqueued before any result is copied back;
+    returns the rows concatenated in slot order, on the CPU (for a
+    program that returns a tuple, a tuple of them)."""
     n = len(devices)
     for i, a in enumerate(args):
         if i not in shared and a.shape[0] % n:
@@ -87,15 +83,14 @@ def _run_slices(prog, devices, replicas, args, shared=()):
         sl = [a if i in shared else a[s * (a.shape[0] // n) :
                                       (s + 1) * (a.shape[0] // n)]
               for i, a in enumerate(args)]
-        with _on(dev):
-            outs.append(prog(*rep.tables(), *(put(a, dev) for a in sl)))
+        outs.append(runner.run(prog, rep.tables(), sl))
     if isinstance(outs[0], tuple):
         return tuple(torch.cat([o[k].cpu() for o in outs])
                      for k in range(len(outs[0])))
     return torch.cat([o.cpu() for o in outs])
 
 
-def shard_stage1(stage1, devices):
+def shard_stage1(stage1, devices, runner=Eager()):
     """The event-stream program (build_stage1) over the mesh (↔ JAX
     shard_stage1): wrapped(replicas, pnib, lens, is_ga, thr), host arrays
     split by unit.  Returns (ev, cf, total_events) on the CPU: each slot's
@@ -105,38 +100,35 @@ def shard_stage1(stage1, devices):
 
     def wrapped(replicas, pnib, lens, is_ga, thr):
         ev, cf = _run_slices(stage1, devices, replicas,
-                             (pnib, lens, is_ga, thr))
+                             (pnib, lens, is_ga, thr), (), runner)
         return ev, cf, int((cf & 0x3FFFFFFF).sum())
 
     return wrapped
 
 
-def shard_stage1_tp(stage1, devices):
+def shard_stage1_tp(stage1, devices, runner=Eager()):
     """The event-stream program over a key-range-sharded index (↔ JAX
     shard_stage1_tp; stage1 built with tp=True): wrapped(slots, pnib,
     lens, is_ga, thr), slots the DeviceIndexTP's per-slot tensors.  Every
-    slot probes the buckets it owns for the WHOLE unit batch (uploaded
-    once per distinct device); all slots are enqueued before any result
-    is copied back.  Returns (ev, cf) on the CPU: slot s's (2, gcap)
-    stream on rows (2s, 2s + 1), and cf (n_slots, B), every slot's count
-    | overflow words of every unit (map.host_units._merge_tp_streams
-    merges them)."""
+    slot probes the buckets it owns for the WHOLE unit batch; all slots
+    are enqueued, through runner, before any result is copied back.
+    Returns (ev, cf) on the CPU: slot s's (2, gcap) stream on rows
+    (2s, 2s + 1), and cf (n_slots, B), every slot's count | overflow
+    words of every unit (map.host_units._merge_tp_streams merges
+    them)."""
 
     def wrapped(slots, pnib, lens, is_ga, thr):
-        units, outs = {}, []
-        for dev, (g32, c2, c3, index_local, shard) in zip(devices, slots):
-            if dev not in units:
-                units[dev] = [put(a, dev) for a in (pnib, lens, is_ga, thr)]
-            with _on(dev):
-                outs.append(stage1(g32, c2, c3, index_local, *units[dev],
-                                   shard=shard))
+        # a graph per slot on a card: each slot binds its own lists
+        outs = [runner.run(stage1, (g32, c2, c3, index_local),
+                           (pnib, lens, is_ga, thr), shard=shard)
+                for g32, c2, c3, index_local, shard in slots]
         return (torch.cat([ev.cpu() for ev, _ in outs]),
                 torch.stack([cf.cpu() for _, cf in outs]))
 
     return wrapped
 
 
-def shard_stage12(stage12, devices):
+def shard_stage12(stage12, devices, runner=Eager()):
     """The fused SE program (build_stage12) over the mesh (↔ JAX
     shard_stage12): wrapped(replicas, pnib, lens, is_ga, scode,
     max_diffs_r), host arrays; pnib, lens and is_ga split by unit,
@@ -147,14 +139,15 @@ def shard_stage12(stage12, devices):
 
     def wrapped(replicas, pnib, lens, is_ga, scode, max_diffs_r):
         rows = _run_slices(stage12, devices, replicas,
-                           (pnib, lens, is_ga, scode, max_diffs_r), (3,))
+                           (pnib, lens, is_ga, scode, max_diffs_r), (3,),
+                           runner)
         counts = torch.bincount((rows[:, 0] & 7).long(), minlength=4)[:4]
         return rows, counts
 
     return wrapped
 
 
-def shard_stage12pe(stage12pe, devices):
+def shard_stage12pe(stage12pe, devices, runner=Eager()):
     """The fused PE program (build_stage12pe) over the mesh (↔ JAX
     shard_stage12pe): wrapped(replicas, pnib, lens, is_ga, max_diffs_u,
     pe_dist), host arrays split by unit, pe_dist replicated.  Returns
@@ -163,7 +156,8 @@ def shard_stage12pe(stage12pe, devices):
 
     def wrapped(replicas, pnib, lens, is_ga, max_diffs_u, pe_dist):
         rows = _run_slices(stage12pe, devices, replicas,
-                           (pnib, lens, is_ga, max_diffs_u, pe_dist), (4,))
+                           (pnib, lens, is_ga, max_diffs_u, pe_dist), (4,),
+                           runner)
         # packed row layout: [pos(K) | ds(K) | cnt | mate(5)]
         cnt = rows[:, (rows.shape[1] - 6) // 2 * 2]
         return rows, int((cnt < 0).sum())

@@ -96,10 +96,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
               K1-K3 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
               native-only rates;
-  11. tools   the port's bench and tuning tools (abismal_tpu_torch/tools/):
+  11. graphs  every route's device programs as CUDA graphs (the default on
+              the card, as in every phase from 4 on) against the eager
+              programs (graphs=False): fused SE and PE, the event route
+              with device_align, --index-shards over two slots, the mesh
+              of two slots (fused SE and PE, the event route), the
+              replay engine's stage 1; each route's outputs on a batch of
+              4096 reads or pairs bit-equal, the chunk span and the
+              dispatch's host time in turns (eager, graphed, graphed,
+              eager), launches a chunk (torch.profiler), capture seconds
+              and pool bytes of every key; whole-path rates of both in
+              turns with the native engine once, on the 10k golden reads
+              and pairs and the 1 Gb SE set, each SAM checked, with the
+              peak device memory of a map; each route's K1-K3 runs on
+              the card, counted by name in torch.profiler, must equal
+              the launch counters' growth, graphed and eager alike;
+              K1-K3 must launch in the phase;
+  12. tools   the port's bench and tuning tools (abismal_tpu_torch/tools/):
               the bench over its five modes (native, torch, split,
-              pe_native, pe_torch; each in a child process, two
-              repetitions), every mode's best rate verified (> 0), the
+              pe_native, pe_torch; each in a child process, one
+              repetition), every mode's best rate verified (> 0), the
               torch mode's fallback fraction equal to the goldens phase's
               on `reads` (the same 10k reads); tune_stage2 2048 (every
               repetition verified), sweep_unit_batch 2048 8192 (SAMs
@@ -121,6 +137,7 @@ import gzip
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -723,9 +740,17 @@ def chunk_device_ms(eng, first, last="traceback_ms"):
     """Per-chunk device times (ms) between the program's phase marks; the
     last interval is the SE traceback (winner selection and records
     included; trace_only_ms is what follows them, K3 and its few
-    operands) or the PE mating sweep (mate_ms)."""
+    operands) or the PE mating sweep (mate_ms).  A graphed engine marks
+    a chunk's replay (or a key's warm run) alone: total_ms only."""
     import numpy as np
 
+    from abismal_tpu_torch.graphs import Graphs
+
+    if isinstance(eng.graphs, Graphs):
+        spans = [dict(m)["start"].elapsed_time(dict(m)["end"])
+                 for m in eng.chunk_marks[first:]]
+        return ({"total_ms": float(np.mean(spans)), "chunks": len(spans),
+                 "graphed": True} if spans else {})
     rows = []
     for marks in eng.chunk_marks[first:]:
         ev = dict(marks)
@@ -778,6 +803,16 @@ def port_map(factory, index, fq, sam, mstats, cl, threads, fq2=None, **kw):
           "host_s": {k: v - t0[k] for k, v in eng.stage_time.items()}}
     st.update(chunk_device_ms(eng, c0, "mate_ms" if fq2 else "traceback_ms"))
     return st
+
+
+def eager_engine(dev, index, **kw):
+    """A run_map factory of one TorchNativeEngine with graphs=False, the
+    eager programs, held by the factory alone (not memoized)."""
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.tools._workload import engine_factory
+
+    return engine_factory(TorchNativeEngine(index, device=dev, graphs=False,
+                                            **kw))
 
 
 class BandRecorder:
@@ -859,12 +894,14 @@ def phase_goldens(dev, threads):
     out["launches"] = launches
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    # the bands K2 gets on `reads`, from a run of its own: the recorder
-    # adds a scatter per chunk, which the timed runs above do not carry
+    # the bands K2 gets on `reads`, from a run of its own on the eager
+    # programs (a graph replays what it captured, without the recorder):
+    # the recorder adds a scatter per chunk, which the timed runs above do
+    # not carry
     fq = os.path.join(WORK, "reads_1.fq")
     with BandRecorder(pipeline, "banded_score_packed") as rec:
-        map_with(factory, index, fq, os.path.join(WORK, "bands.sam"), None,
-                 "bands", threads)
+        map_with(eager_engine(dev, index, n_threads=threads), index, fq,
+                 os.path.join(WORK, "bands.sam"), None, "bands", threads)
     out["k2_bands_reads"] = rec.summary()
     # the native engine on the same host, same reads, for scale
     secs = map_with(make_native_engine_factory(n_threads=threads), index, fq,
@@ -919,11 +956,12 @@ def phase_goldens_pe(dev, threads, index):
     out["launches"] = launches
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the paired-end path")
-    # the bands of `reads_pe`, recorded outside the timed runs
+    # the bands of `reads_pe`, recorded outside the timed runs (eager)
     fq1, fq2 = (os.path.join(WORK, f"reads_pe_{e}.fq") for e in (1, 2))
     with BandRecorder(pipeline, "banded_score_packed") as rec:
-        map_with(factory, index, fq1, os.path.join(WORK, "bands_pe.sam"),
-                 None, "bands", threads, fq2)
+        map_with(eager_engine(dev, index, n_threads=threads), index, fq1,
+                 os.path.join(WORK, "bands_pe.sam"), None, "bands", threads,
+                 fq2)
     out["k2_bands_reads_pe"] = rec.summary()
 
     # -a: ambiguous pairs are reported, and the device sweep decides them
@@ -1407,7 +1445,7 @@ def hybrid_map(eng, index, fq1, fq2, sam, cl, share, threads, mstats=None,
 
 
 def phase_scaleout(dev, threads, card, trex, sets, rates):
-    """Phase 9: the mesh, the hybrid split and multi-host sharding.  trex
+    """Phase 10: the mesh, the hybrid split and multi-host sharding.  trex
     is the tRex1 index of the goldens phases (its port engine is warm),
     rates this call's (port-only, native-only) rates by set."""
     import torch
@@ -1574,11 +1612,277 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
                  for name in launches["mesh"]}
 
 
-TOOLS_REPS = 2  # the bench's repetitions of each mode
+# --- phase 11 (graphs) -------------------------------------------------------
+
+GRAPH_READS = 4096  # reads (or pairs) of a route's batch: two chunks or more
+GRAPH_TURNS = ("eager", "graphed", "graphed", "eager")
+GRAPH_RATE_GOLDENS = ("reads", "reads_pe")  # the tRex1 10k SE and PE sets
+# the CUDA runtime's calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def batch_tensors(handle):
+    """Every tensor of a dispatched batch's handle, in order, on the host,
+    once its collection (the event route's future) is done."""
+    import torch
+
+    out = []
+
+    def walk(x):
+        if torch.is_tensor(x):
+            out.append(x.cpu())
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+        elif hasattr(x, "result"):
+            x.result()
+
+    walk(handle)
+    return out
+
+
+def dispatch_batch(kind, eng, reads, pairs):
+    """One batch through a route's dispatch; (handle, its chunks)."""
+    if kind == "pe":
+        h = eng.dispatch_pe(*pairs, False, False)
+        return h, len(h[5])
+    if kind == "units":  # the replay engine's stage 1
+        h = eng._dispatch_units(eng._se_units(reads, False, False))
+        return h, len(h[1])
+    h = eng.dispatch_se(reads, False, False)
+    return h, len(h[6] if kind == "events" else h[4])
+
+
+def batch_span(kind, eng, reads, pairs):
+    """(ms a chunk from the batch's dispatch to the end of its device
+    work, CUDA events; host seconds of the dispatch a chunk; the batch's
+    outputs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    t0 = time.perf_counter()
+    handle, n = dispatch_batch(kind, eng, reads, pairs)
+    host = time.perf_counter() - t0
+    e1.record()
+    outs = batch_tensors(handle)
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n, host / n, outs, n
+
+
+def launch_counts(kind, eng, reads, pairs, kernels):
+    """A batch's launches a chunk, by torch.profiler: the runtime calls
+    that put work on a stream (LAUNCH_CALLS) on the host, the graph
+    launches among them, and the kernels and copies the card ran; and
+    the batch's runs of each kernel wrapper's __global__ kernel (named
+    wrapper + "_kernel") that the card ran, which must equal the wrapper's
+    launch counter's growth over the batch.  The batch is a quarter of
+    the route's (one or two chunks): the profiler's own cost grows with
+    the events it records."""
+    reads = reads[: len(reads) // 4]
+    pairs = tuple(p[: len(p) // 4] for p in pairs)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    before = {k.__name__: k.launches for k in kernels}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        handle, n = dispatch_batch(kind, eng, reads, pairs)
+        batch_tensors(handle)
+        torch.cuda.synchronize()
+    counted = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    ran = dict.fromkeys(counted, 0)
+    host = graph = device = 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            device += e.count
+            for name in ran:
+                if re.search(rf"\b{name}_kernel\b", e.key):
+                    ran[name] += e.count
+        elif e.key in LAUNCH_CALLS:
+            host += e.count
+            graph += e.count if e.key == "cudaGraphLaunch" else 0
+    check(ran == counted, f"{kind}: the card ran the kernels {ran} times, "
+          f"the launch counters grew {counted}")
+    return dict(host_launches=host / n, graph_launches=graph / n,
+                device_ops=device / n, chunks=n, kernels_ran=ran)
+
+
+def graph_routes(dev):
+    """(name, TorchNativeEngine arguments or None for the replay engine,
+    the dispatch kind) of every graphed route."""
+    slots = [dev, dev]
+    return (
+        ("fused_se", {}, "se"),
+        ("fused_pe", {}, "pe"),
+        ("events_align", dict(device_stage2=False, device_align=True),
+         "events"),
+        ("index_shards", dict(index_shards=slots), "events"),
+        ("mesh_se", dict(unit_batch=4096, mesh_devices=slots), "se"),
+        ("mesh_pe", dict(unit_batch=4096, mesh_devices=slots), "pe"),
+        ("mesh_events", dict(unit_batch=4096, mesh_devices=slots,
+                             device_stage2=False), "events"),
+        ("replay", None, "units"),
+    )
+
+
+def rates_in_turns(index, fq1, fq2, cl, same, engines, native, threads,
+                   n_reads):
+    """Whole-path rates (reads/s or pairs/s) of the eager and the graphed
+    engine in GRAPH_TURNS, the native engine once; same(sam) checks each
+    SAM.  Also each mode's `device dispatch` seconds and the peak of
+    device memory a map allocates above what was resident before it."""
+    import torch
+
+    from abismal_tpu_torch.tools._workload import engine_factory
+
+    out = {m: dict(per_s=[], dispatch_s=[], peak_above_resident=[])
+           for m in ("eager", "graphed")}
+    sam = os.path.join(WORK, "graphs_rate.sam")
+    for mode in GRAPH_TURNS:
+        eng = engines[mode]
+        d0 = eng.stage_time["device dispatch"]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs = map_with(engine_factory(eng), index, fq1, sam, None, cl,
+                        threads, fq2)
+        out[mode]["per_s"].append(n_reads / secs)
+        out[mode]["dispatch_s"].append(eng.stage_time["device dispatch"]
+                                       - d0)
+        out[mode]["peak_above_resident"].append(
+            torch.cuda.max_memory_allocated() - resident)
+        check(same(sam), f"graphs rates {mode}: the SAM differs")
+    secs = map_with(native, index, fq1, os.path.join(WORK, "graphs_n.sam"),
+                    None, cl, threads, fq2)
+    out["native_per_s"] = n_reads / secs
+    return out
+
+
+def phase_graphs(dev, threads, card, trex, sets):
+    """Phase 11: every route's device programs as CUDA graphs against the
+    eager programs on the card: each route's outputs on a batch of
+    GRAPH_READS reads or pairs (two or more chunks) bit-equal, the chunk
+    span and the dispatch's host time in GRAPH_TURNS, launches a chunk
+    (torch.profiler), capture seconds and pool bytes of every key;
+    whole-path rates eager and graphed in turns with the native engine
+    on tRex1 10k SE, 10k PE and the 1 Gb SE set (with the peak device
+    memory of a map).  Each route's K1-K3 runs on the card, counted by
+    name in the profiler, equal the launch counters' growth, graphed and
+    eager alike."""
+    import torch
+
+    from abismal_tpu_torch import graphs as G
+    from abismal_tpu_torch.host import make_native_engine_factory
+    from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.map.pipeline import (
+        TorchMappingEngine, TorchNativeEngine, make_torch_engine_factory,
+        make_torch_native_engine_factory,
+    )
+    from abismal_tpu_torch.tools import _workload as W
+
+    kernels = (pc.popcount_compare, ba.banded_score_packed,
+               ba.banded_trace_packed)
+    for k in kernels:
+        k.launches = 0
+    reads = W.load_reads(golden_fastqs("reads")[0], GRAPH_READS)
+    fq1, fq2 = golden_fastqs("reads_pe")
+    pairs = (W.load_reads(fq1, GRAPH_READS), W.load_reads(fq2, GRAPH_READS))
+    out = {"card": card, "reads_a_batch": GRAPH_READS}
+    eagers = {}  # one eager engine per route arguments
+    for name, kw, kind in graph_routes(dev):
+        t0 = time.perf_counter()
+        key = repr(kw)
+        if kw is None:  # the shards_replay phase's engine, and an eager one
+            graphed = make_torch_engine_factory(dev)(trex, False, 0.1, 32,
+                                                     3000)
+            if key not in eagers:
+                eagers[key] = TorchMappingEngine(trex, device=dev,
+                                                 graphs=False)
+        else:  # the earlier phases' engine where there is one
+            graphed = make_torch_native_engine_factory(
+                dev, n_threads=threads, **kw)(trex, False, 0.1, 32, 3000)
+            if key not in eagers:
+                eagers[key] = TorchNativeEngine(
+                    trex, device=dev, n_threads=threads, graphs=False, **kw)
+        eager = eagers[key]
+        check(isinstance(graphed.graphs, G.Graphs)
+              and isinstance(eager.graphs, G.Eager),
+              f"graphs {name}: the engines' modes")
+        n_keys = len(graphed.graphs.stats())
+        for eng in (eager, graphed):  # warm: builds, a new key's capture
+            batch_span(kind, eng, reads, pairs)
+        st = {m: dict(span_ms=[], host_ms=[]) for m in ("eager", "graphed")}
+        outs = {}
+        for mode in GRAPH_TURNS:
+            eng = graphed if mode == "graphed" else eager
+            span, host, outs[mode], n = batch_span(kind, eng, reads, pairs)
+            st[mode]["span_ms"].append(span)
+            st[mode]["host_ms"].append(host * 1e3)
+        check(len(outs["eager"]) == len(outs["graphed"]) > 0
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(outs["eager"], outs["graphed"])),
+              f"graphs {name}: the replayed outputs differ from the eager "
+              "program's")
+        for mode, eng in (("eager", eager), ("graphed", graphed)):
+            st[mode].update(launch_counts(kind, eng, reads, pairs, kernels))
+        check(st["eager"]["kernels_ran"] == st["graphed"]["kernels_ran"]
+              and any(st["graphed"]["kernels_ran"].values()),
+              f"graphs {name}: the card ran the kernels "
+              f"{st['graphed']['kernels_ran']} times graphed, "
+              f"{st['eager']['kernels_ran']} eager")
+        st.update(chunks=n, outputs_bit_equal=True,
+                  keys=graphed.graphs.stats(),
+                  keys_captured_here=len(graphed.graphs.stats()) - n_keys,
+                  seconds=time.perf_counter() - t0)
+        out[name] = st
+
+    # whole-path rates, eager and graphed in turns, the native engine once
+    native = make_native_engine_factory(n_threads=threads)
+    fused = make_torch_native_engine_factory(dev, n_threads=threads)
+    rates = {}
+    for prefix in GRAPH_RATE_GOLDENS:
+        q1, q2 = golden_fastqs(prefix)
+        with gzip.open(os.path.join(GOLDEN, prefix + ".sam.gz"), "rb") as f:
+            want = f.read()
+        rates[prefix] = rates_in_turns(
+            trex, q1, q2, golden_cl(prefix),
+            lambda sam, want=want: open(sam, "rb").read() == want,
+            {"eager": eagers[repr({})],
+             "graphed": fused(trex, False, 0.1, 32, 3000)}, native, threads,
+            n_reads_of(q1))
+    big = sets["index"]
+    fq, _, sam_native, cl = sets["se"]
+    want = open(sam_native, "rb").read()
+    eng_big = TorchNativeEngine(big, device=dev, n_threads=threads,
+                                graphs=False)
+    graphed_big = fused(big, False, 0.1, 32, 3000)
+    rates["scale_se"] = rates_in_turns(
+        big, fq, None, cl, lambda sam: open(sam, "rb").read() == want,
+        {"eager": eng_big, "graphed": graphed_big}, native, threads,
+        n_reads_of(fq))
+    rates["scale_se"]["pool_bytes"] = sum(
+        k["pool_bytes"] for k in graphed_big.graphs.stats())
+    rates["scale_se"]["table_bytes"] = eng_big.dev.nbytes()
+    out["rates"] = rates
+
+    for eng in eagers.values():
+        if hasattr(eng, "close"):
+            eng.close()
+    out["launches"] = launches_moved(kernels, "graphs")
+    return out, out["launches"]
+
+
+TOOLS_REPS = 1  # the bench's repetitions of each mode
 
 
 def phase_tools(dev, threads, gres):
-    """Phase 11: the port's bench and tuning and scaling tools, through
+    """Phase 12: the port's bench and tuning and scaling tools, through
     their entry points, on the card; gres is the goldens phase's result."""
     from abismal_tpu_torch.cli import main as cli_main
     from abismal_tpu_torch.kernels import banded_align as ba
@@ -1744,6 +2048,11 @@ def main():
         emit("scaleout", **ores)
 
         t0 = time.perf_counter()
+        grres, launches_graphs = phase_graphs(dev, threads, card, index,
+                                              sets)
+        emit("graphs", seconds=time.perf_counter() - t0, **grres)
+
+        t0 = time.perf_counter()
         tres, launches_tools = phase_tools(dev, threads, gres)
         emit("tools", seconds=time.perf_counter() - t0, **tres)
         check("jax" not in sys.modules, "the port loaded jax")
@@ -1757,7 +2066,8 @@ def main():
         check(not loaded, f"the port loaded {loaded}")
         line = kernels_line(kres, (launches, launches_pe, launches_ev,
                                    launches_prof, launches_sr,
-                                   launches_out, launches_tools))
+                                   launches_out, launches_graphs,
+                                   launches_tools))
     except Exception:
         traceback.print_exc()
         return 1

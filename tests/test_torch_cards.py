@@ -108,3 +108,110 @@ def test_card_index_shards_give_the_goldens(tmp_path, trex1, card_mesh,
     assert eng.tp.n_shards == slots
     counters = {id(slot[1]) for slot in eng.tp.slots}
     assert len(counters) == (1 if spec != "all" else slots)
+
+
+# --- the device programs as CUDA graphs (abismal_tpu_torch/graphs.py) ------
+
+def _load_reads(trex1, prefix, n):
+    from abismal_tpu_torch.io.fastq import ReadLoader
+
+    return ReadLoader(_gunzip(prefix, trex1[1]), batch_size=n).load_batch()[:n]
+
+
+def _batch_tensors(handle):
+    """Every tensor of a dispatched batch's handle, in order, once its
+    collection (the event route's future) is done."""
+    out = []
+
+    def walk(x):
+        if torch.is_tensor(x):
+            out.append(x.cpu())
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+        elif hasattr(x, "result"):
+            x.result()
+
+    walk(handle)
+    return out
+
+
+GRAPH_ROUTES = {
+    "fused_se": (dict(), "se"),
+    "fused_pe": (dict(), "pe"),
+    "events_align": (dict(device_stage2=False, device_align=True), "se"),
+    "index_shards": (dict(index_shards=["cuda:0", "cuda:0"]), "se"),
+    "mesh_se": (dict(mesh_devices=["cuda:0", "cuda:0"]), "se"),
+    "mesh_pe": (dict(mesh_devices=["cuda:0", "cuda:0"]), "pe"),
+    "mesh_events": (dict(mesh_devices=["cuda:0", "cuda:0"],
+                         device_stage2=False), "se"),
+    "replay": (None, "units"),
+}
+
+
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_card_graphed_rows_equal_eager(trex1, route):
+    """Each route's device outputs on three chunks of 256 units: replayed
+    from its captured graph, bit-equal to the eager program's; the first
+    chunk runs the warm program, the others replay."""
+    from abismal_tpu_torch.map.pipeline import (
+        TorchMappingEngine, TorchNativeEngine,
+    )
+
+    index = trex1[0]
+    kw, kind = GRAPH_ROUTES[route]
+    outs, engines = [], []
+    for graphs in (False, True):
+        if kw is None:
+            eng = TorchMappingEngine(index, unit_batch=256, device="cuda",
+                                     graphs=graphs)
+        else:
+            eng = TorchNativeEngine(index, unit_batch=256, n_threads=2,
+                                    device="cuda", graphs=graphs, **kw)
+        engines.append(eng)
+        if kind == "pe":
+            n = 3 * 256 // 4
+            handle = eng.dispatch_pe(_load_reads(trex1, "small_pe_1.fq", n),
+                                     _load_reads(trex1, "small_pe_2.fq", n),
+                                     False, False)
+        else:
+            reads = _load_reads(trex1, "small_1.fq", 3 * 256 // 2)
+            handle = (eng._dispatch_units(eng._se_units(reads, False, False))
+                      if kind == "units" else
+                      eng.dispatch_se(reads, False, False))
+        outs.append(_batch_tensors(handle))
+        torch.cuda.synchronize()
+    eager, graphed = outs
+    assert len(eager) == len(graphed) > 0
+    for a, b in zip(eager, graphed):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    stats = engines[1].graphs.stats()
+    assert stats and sum(s["replays"] for s in stats) >= 2
+    for eng in engines:
+        if hasattr(eng, "close"):
+            eng.close()
+
+
+@pytest.mark.parametrize("stage2", [True, False], ids=["fused", "events"])
+@pytest.mark.parametrize("prefix", ["small", "small_pe"])
+def test_card_graphs_give_the_goldens(tmp_path, trex1, prefix, stage2):
+    """run_map on one card with the programs as CUDA graphs (the default
+    there), 256 units a chunk: the goldens byte for byte, and the kernel
+    counters grow at every replay."""
+    from abismal_tpu_torch.kernels.popcount_compare import popcount_compare
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    fac = make_torch_native_engine_factory(
+        "cuda", unit_batch=256, n_threads=2, device_stage2=stage2)
+    eng = fac(trex1[0], False, 0.1, 32, 3000)
+    n0 = len(eng.graphs.stats())
+    r0 = sum(s["replays"] for s in eng.graphs.stats())
+    k0 = popcount_compare.launches
+    _map_golden(tmp_path, trex1, prefix, fac)
+    stats = eng.graphs.stats()
+    replays = sum(s["replays"] for s in stats) - r0
+    assert replays >= 2
+    # one warm run of each key captured here, then one K1 a replay
+    assert popcount_compare.launches - k0 == replays + len(stats) - n0
