@@ -48,10 +48,11 @@ from .kernels.banded_align import (
     banded_score_packed, banded_trace, banded_trace_packed,
 )
 from .kernels.popcount_compare import popcount_compare
+from .kernels.seed_extend import seed_extend
 
 # the kernel wrappers whose launch counters a replay advances
 COUNTED = (popcount_compare, banded_score_packed, banded_trace_packed,
-           banded_trace)
+           banded_trace, seed_extend)
 
 
 def capture(fn, pool, stream):

@@ -40,8 +40,8 @@ from ..kernels.banded_align import (
     BW_MAX, QOFF, banded_score_packed, banded_trace_packed, unpack_nibbles,
     win_start, window_nibbles,
 )
-from ..kernels.popcount_compare import M32, genome_words, popcount32
-from ..kernels.popcount_compare import popcount_compare
+from ..kernels.popcount_compare import M32, popcount_compare
+from ..kernels.seed_extend import kary_iters_for, seed_extend
 from ..parallel.mesh import (
     make_mesh, replicate_tables, shard_stage1, shard_stage1_tp, shard_stage12,
     shard_stage12pe,
@@ -277,11 +277,7 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
     assert n_words + 1 + 63 <= 128, "lmax too long"
     assert o_spec <= o_sens, "lmax too small for the shared range gather"
     EXT_W = SLOT + 1  # LCP window half-width
-    DQMAX = lmax - KEY_WEIGHT_THREE
-    QW = (DQMAX + 7) // 8  # u32 class words, 8 nibbles each
-    BIGI = 0x3FFFFFFF
-    NPRB = ways - 1
-    kary_iters = -(-ext_iters // max(1, int(np.log2(ways)))) + 1
+    kary_iters = kary_iters_for(ext_iters, ways)
     noext = bool(os.environ.get("ABISMAL_TPU_NOEXT"))
     _check_cut(cut, CORE_CUTS + ("extdbg",))
 
@@ -299,60 +295,18 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
             h = h[:, :n] * radix ** rem + hr[:, w : w + n]
         return h
 
-    def nib_cls(nib, t3, ga):
-        """Per-nibble reduced-alphabet class (two- or three-letter)."""
-        b0, b1 = nib & 1, (nib >> 1) & 1
-        b2, b3 = (nib >> 2) & 1, (nib >> 3) & 1
-        hi3 = torch.where(ga, b3, b2)
-        lo3 = torch.where(ga, b1, b0) | hi3
-        c3v = 2 * hi3 + (lo3 & (1 - hi3))
-        return torch.where(t3, c3v, 1 - (b0 | b2))
-
-    def gwin_cls(genome32, g0, t3, ga):
-        """Genome class words (P, QW) for flat nibble positions g0."""
-        ar = torch.arange(QW + 1, device=g0.device)
-        A = genome_words(genome32, (g0 >> 3)[:, None] + ar[None, :])
-        sh = ((g0 & 7) * 4)[:, None]
-        wal = ((A[:, :QW] >> sh) | (A[:, 1:] << (32 - sh))) & M32
-        m1 = 0x11111111
-        b0, b1 = wal & m1, (wal >> 1) & m1
-        b2, b3 = (wal >> 2) & m1, (wal >> 3) & m1
-        ga, t3 = ga[:, None], t3[:, None]
-        hi3 = torch.where(ga, b3, b2)
-        lo3 = torch.where(ga, b1, b0) | hi3
-        cls3 = (hi3 << 1) | (lo3 & ~hi3)
-        return torch.where(t3, cls3, (b0 | b2) ^ m1)
-
-    def lex(gcls, qcls, D, wj8):
-        """(lcp, cmp) of genome vs query class strings to depth D."""
-        nrem = (D[:, None] - wj8[None, :]).clamp(0, 8)
-        full = nrem >= 8
-        dmask = torch.where(full, M32,
-                            (1 << (4 * torch.where(full, 0, nrem))) - 1)
-        diff = (gcls ^ qcls) & dmask
-        ctz = popcount32((~diff) & (diff - 1) & M32)
-        candn = torch.where(diff != 0, wj8[None, :] + (ctz >> 2), BIGI)
-        mis = candn.min(dim=1).values
-        lcp = torch.minimum(mis, D)
-        wjx = (mis >> 3).clamp(0, QW - 1)[:, None]
-        shx = (mis & 7) * 4
-        gv = (gcls.gather(1, wjx)[:, 0] >> shx) & 0xF
-        qv = (qcls.gather(1, wjx)[:, 0] >> shx) & 0xF
-        cmp = torch.where(mis < D, torch.where(gv < qv, -1, 1), 0)
-        return lcp, cmp
-
-    def extension(genome32, index_all, ip, lens, is_ga, base3, act2_sp,
+    def extension(genome32, index_all, pnib, lens, is_ga, base3, act2_sp,
                   act3_sp, s2, e2, s3, e3, EXT_POOL):
         """The pooled seed extension, LCP-window method (see the JAX core,
         pipeline.py:513-806): active lanes (bucket > max_candidates)
-        compact into EXT_POOL slots, a k-ary lower/upper-bound search
-        finds the class-string match range, and the stop depth falls out
-        of the window LCPs around it.  Returns the extended cells (l2,
-        s2x, e2x, l3, s3x, e3x) and ext_fb, the units whose lanes spilled
-        from the pool or reach past the sort depth."""
-        dev = ip.device
-        B, stride = ip.shape
-        n_idx = index_all.shape[0]
+        compact into EXT_POOL slots; per lane, K4 (seed_extend) runs the
+        k-ary lower/upper-bound search for the class-string match range
+        and takes the stop depth from the window LCPs around it; the
+        results scatter back into the cells.  Returns the extended cells
+        (l2, s2x, e2x, l3, s3x, e3x) and ext_fb, the units whose lanes
+        spilled from the pool or reach past the sort depth."""
+        dev = pnib.device
+        B = pnib.shape[0]
 
         def ar(n):
             return torch.arange(n, device=dev)
@@ -372,102 +326,17 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         over_lane = flat_act & (cum_act > EXT_POOL)
         ext_fb = over_lane.reshape(2, B, o_spec).any(dim=2).any(dim=0)
 
+        # the pooled lanes' search, window and stop depth: K4
+        l_out, lo_f, hi_f, deep = seed_extend(
+            genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3,
+            lane_id, lmax, mc, ways, kary_iters, EXT_W, N_SORTING_POSITIONS)
         pvv = lane_id < 2 * n_lanes
         lid = lane_id.clamp(max=2 * n_lanes - 1)
         tbl3 = lid >= n_lanes
         rem = lid % n_lanes
-        pb = rem // o_spec
-        poff = rem % o_spec
-        kw_l = torch.where(tbl3, KEY_WEIGHT_THREE, KEY_WEIGHT)
-        p_ga = is_ga[pb] & tbl3
-        idx_b = torch.where(tbl3, base3[pb], 0)
-        lo0 = torch.where(tbl3, s3.reshape(-1)[rem], s2.reshape(-1)[rem])
-        hi0 = torch.where(tbl3, e3.reshape(-1)[rem], e2.reshape(-1)[rem])
-        rl = lens[pb] - poff
-        Dl = (rl - kw_l).clamp(0, DQMAX)
-        deep = (pvv & (rl > N_SORTING_POSITIONS)).to(I64)
         deep_u = torch.zeros(B, dtype=I64, device=dev).scatter_reduce(
-            0, torch.where(pvv, pb, 0), deep, "amax")
+            0, torch.where(pvv, rem // o_spec, 0), deep, "amax")
         ext_fb = ext_fb | (deep_u > 0)
-
-        # query class words from read offset poff + kw
-        jx = ar(8 * QW)[None, :] + (poff + kw_l)[:, None]
-        qa = torch.where(jx < stride,
-                         ip[pb[:, None], jx.clamp(max=stride - 1)], 0)
-        qcn = nib_cls(qa, tbl3[:, None], p_ga[:, None]).reshape(
-            EXT_POOL, QW, 8)
-        qcls = qcn[:, :, 0]
-        for k in range(1, 8):
-            qcls = qcls | (qcn[:, :, k] << (4 * k))
-        wj8 = 8 * ar(QW)
-
-        def positions(idx):
-            return index_all[idx.clamp(0, n_idx - 1)]
-
-        tbl2x = tbl3.repeat(2 * NPRB)
-        ga2x = p_ga.repeat(2 * NPRB)
-        D2x = Dl.repeat(2 * NPRB)
-        ib2x = idx_b.repeat(2 * NPRB)
-        kw2x = kw_l.repeat(2 * NPRB)
-        qcls2x = qcls.repeat(2 * NPRB, 1)
-        kf = torch.arange(1, ways, device=dev)[:, None]
-        aL, bL, aU, bU = lo0, hi0, lo0, hi0
-        for _ in range(kary_iters):
-            wL, wU = bL - aL, bU - aU
-            # interior probes a + floor(w k / WAYS), written so k w cannot
-            # overflow (as the JAX core does)
-            pL = (aL[None] + kf * (wL[None] // ways)
-                  + (kf * (wL[None] % ways)) // ways)
-            pU = (aU[None] + kf * (wU[None] // ways)
-                  + (kf * (wU[None] % ways)) // ways)
-            mids = torch.cat([pL.reshape(-1), pU.reshape(-1)])
-            gpos = positions(ib2x + mids) + kw2x
-            _, cmp = lex(gwin_cls(genome32, gpos, tbl2x, ga2x), qcls2x, D2x,
-                         wj8)
-            half = NPRB * EXT_POOL
-            gL = cmp[:half].reshape(NPRB, EXT_POOL) < 0
-            gU = cmp[half:].reshape(NPRB, EXT_POOL) <= 0
-            cL, cU = (aL < bL)[None], (aU < bU)[None]
-            aL, bL, aU, bU = (
-                torch.where(cL & gL, pL + 1, aL[None]).max(dim=0).values,
-                torch.where(cL & ~gL, pL, bL[None]).min(dim=0).values,
-                torch.where(cU & gU, pU + 1, aU[None]).max(dim=0).values,
-                torch.where(cU & ~gU, pU, bU[None]).min(dim=0).values)
-        Lb, Ub = aL, aU
-
-        # LCP window: EXT_W positions on each side of [L, U)
-        wi = ar(EXT_W)[None, :]
-        wofs = torch.cat([Lb[:, None] - 1 - wi, Ub[:, None] + wi], dim=1)
-        wvalid = ((wofs >= lo0[:, None]) & (wofs < hi0[:, None])
-                  & pvv[:, None])
-        wc = torch.clamp(wofs, min=lo0[:, None],
-                         max=torch.maximum(lo0, hi0 - 1)[:, None])
-        n_w = 2 * EXT_W
-        wposf = (positions((idx_b[:, None] + wc).reshape(-1))
-                 + kw_l.repeat_interleave(n_w))
-        gcls_w = gwin_cls(genome32, wposf, tbl3.repeat_interleave(n_w),
-                          p_ga.repeat_interleave(n_w))
-        qcls_w = qcls[:, None, :].expand(EXT_POOL, n_w, QW).reshape(-1, QW)
-        lcp_w, _ = lex(gcls_w, qcls_w, Dl.repeat_interleave(n_w), wj8)
-        lcp_w = torch.where(wvalid.reshape(-1), lcp_w, -1).reshape(
-            EXT_POOL, n_w)
-
-        # stop depth t*, rollback and final range from the window LCPs
-        c0 = Ub - Lb
-        topv = torch.topk(lcp_w, mc + 1, dim=1, sorted=True).values
-        kth = topv.gather(1, (mc - c0).clamp(0, mc)[:, None])[:, 0]
-        tstar = torch.where(c0 > mc, BIGI, torch.clamp(kth + 1, min=1))
-        tfin = torch.minimum(tstar, Dl)
-        cnt_fin = c0 + (lcp_w >= tfin[:, None]).sum(dim=1)
-        rollb = (cnt_fin == 0) & (tfin >= 1)
-        t_use = torch.where(rollb, tfin - 1, tfin)
-        l_out = kw_l + t_use
-        thr_t = t_use.clamp(min=1)[:, None]
-        nl = (lcp_w[:, :EXT_W] >= thr_t).sum(dim=1)
-        nr = (lcp_w[:, EXT_W:] >= thr_t).sum(dim=1)
-        fullr = t_use == 0
-        lo_f = torch.where(fullr, lo0, Lb - nl)
-        hi_f = torch.where(fullr, hi0, Ub + nr)
 
         # scatter pooled results back into the per-cell arrays
         d_t2 = torch.where(pvv & ~tbl3, rem, n_lanes)
@@ -578,7 +447,7 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
             ext_fb = torch.zeros(B, dtype=torch.bool, device=dev)
         else:
             l2, s2x, e2x, l3, s3x, e3x, ext_fb = extension(
-                genome32, index_all, ip, lens, is_ga, base3, act2_sp,
+                genome32, index_all, pnib, lens, is_ga, base3, act2_sp,
                 act3_sp, s2, e2, s3, e3, EXT_POOL)
         if cut == "extend":  # + the seed extension
             return dict(cut=_cut_sums(l2, s2x, l3, e3x))

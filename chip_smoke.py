@@ -27,7 +27,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
               K3, whose launches fill under one wave of warps, also
               chain_ms, a model of its longest job's serial chain (rows
               plus walk steps at an assumed cycle count a link; it is in
-              this phase's line only, not in the kernels' summary);
+              this phase's line only, not in the kernels' summary); K4,
+              whose cases are pools of real lanes, runs in kernels_ext;
   4. goldens  maps tests/golden small_1.fq (500 reads) and reads_1.fq (10k)
               with the port engine on the card; the SAM and mstats must
               equal the upstream goldens byte for byte, and every kernel's
@@ -56,6 +57,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal; the SE reads also through the event route with
               device_align (reads/s beside the native control, fallback,
               jobs scored on the device);
+  7b. kernels_ext  K4 (seed_extend, the pooled seed extension's search,
+              LCP window and stop depth) against its plain version on the
+              card on the pools that the first 2048-unit chunk of the 10k
+              golden reads and of the 1 Gb SE set hand it (lmax 128; the
+              engine sizes the pool from a sample of the index), and on
+              the 1 Gb chunk's pool at the core's static 512 lanes,
+              recorded from the eager program: exact equality, the
+              device time from a CUDA graph of 20 launches, the plain
+              version's in turns, the bytes these lanes' trips and windows
+              need and their bound, and chain_ms, a model of the longest
+              lane's chain of dependent gathers (not measured, no bound);
   8. profile  the profiling and diagnostic cuts of the fused programs
               through the port's tools (abismal_tpu_torch/tools/): the
               single-end and paired-end cut bisections (profile_stage12,
@@ -67,7 +79,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               overflow share) and the single-end bisection on the 1 Gb
               SE set, on the scale phase's tables; trace_ops' top 10
               CUDA kernels of a tRex1 chunk;
-              K1-K3 must launch in the phase;
+              K1-K4 must launch in the phase;
   9. shards_replay  the key-range-sharded index (--index-shards) over two
               slots of the card (and over every card, given two): small,
               reads, small_pe, reads_pe give the goldens' SAM and mstats,
@@ -93,7 +105,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                         `map --shard I:2`
                         processes on small (single-end), concatenated,
                         give the golden but for the @PG line;
-              K1-K3 must launch during the mesh and the hybrid runs, and
+              K1-K4 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
               native-only rates;
   11. graphs  every route's device programs as CUDA graphs (the default on
@@ -108,10 +120,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
               and pool bytes of every key; whole-path rates of both in
               turns with the native engine once, on the 10k golden reads
               and pairs and the 1 Gb SE set, each SAM checked, with the
-              peak device memory of a map; each route's K1-K3 runs on
+              peak device memory of a map; each route's K1-K4 runs on
               the card, counted by name in torch.profiler, must equal
-              the launch counters' growth, graphed and eager alike;
-              K1-K3 must launch in the phase;
+              the launch counters' growth, graphed and eager alike; then
+              the K4 engine against an engine whose core runs K4's plain
+              version (the wrapper swapped for that engine's runs alone)
+              on fused SE and PE and the 1 Gb SE set: outputs bit-equal,
+              card ops a chunk, replay spans and rates in turns (plain,
+              K4, K4, plain), the native engine once; K1-K4 must launch
+              in the phase;
   12. tools   the port's bench and tuning tools (abismal_tpu_torch/tools/):
               the bench over its five modes (native, torch, split,
               pe_native, pe_torch; each in a child process, one
@@ -122,7 +139,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal to the golden), tune_hybrid 2048, multihost_scale
               --hosts 1 2 --per-host 10000 --reps 1 with native and with
               torch shards, and `map --hosts 2 --engine native` on reads,
-              equal to the golden but for the @PG line; K1-K3 must launch
+              equal to the golden but for the @PG line; K1-K4 must launch
               in the phase's in-process tools.
 It imports only the port (abismal_tpu_torch), which has its own host
 side; nothing of JAX and nothing of the JAX package (checked at the end).
@@ -133,6 +150,7 @@ checkout of the repository, it fails before printing any result.
 Usage: python3 chip_smoke.py
 """
 
+import contextlib
 import gzip
 import hashlib
 import json
@@ -156,6 +174,9 @@ REPLACES = {
     # (banded_align.py:358)
     "banded_score_packed": "abismal_tpu/kernels/banded_align.py:44",
     "banded_trace_packed": "abismal_tpu/kernels/banded_align.py:99",
+    # K4: not a Pallas kernel; the JAX core's fori_loop over bis_body
+    # (pipeline.py:679-787: the search, the LCP window, the stop depth)
+    "seed_extend": "abismal_tpu/map/pipeline.py:743",
 }
 # the kernels phase's cases of each entry point
 CASES = {
@@ -165,6 +186,8 @@ CASES = {
     "banded_trace_packed": ("banded_trace", "banded_trace_reads",
                             "banded_trace_packed",
                             "banded_trace_packed_2048"),
+    "seed_extend": ("seed_extend_trex1", "seed_extend",
+                    "seed_extend_1gb_512"),
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
 # 67 TFLOP/s of fp32 outside the tensor cores, which counts an FMA as two
@@ -193,11 +216,19 @@ PACKED_GENOME_WORDS = 1 << 26  # 256 MB of packed genome, beyond the L2
 # taken 32 rows at once, so the steps overcount the walk.  One round
 # figure stands for both: an estimate, which nothing holds the kernel to.
 K3_CHAIN_CYCLES = 100
+# K4's chain: cycles of one dependent gather that misses the L1 (an index
+# entry, or the genome words it names): about the device memory's latency.
+# Its longest lane runs 2 a trip and 2 a round of its window (9 rounds of
+# 32 positions for 258): a model, not a bound, and not measured
+K4_GATHER_CYCLES = 800
+OPS_PER_CLASS_WORD = 14  # funnel shift, 8 class ops, xor, mask, test, ...
+EXT_POOL_STATIC = 512  # the core's pool where no engine sizes it, B = 2048
 
 SOURCES = {
     "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
     "banded_score_packed": "abismal_tpu_torch/csrc/banded_align.cu",
     "banded_trace_packed": "abismal_tpu_torch/csrc/banded_align.cu",
+    "seed_extend": "abismal_tpu_torch/csrc/seed_extend.cu",
 }
 
 
@@ -631,11 +662,35 @@ def outputs_equal(got, want):
     return max(max_abs_err(g, w) for g, w in pairs)
 
 
+def run_case(case, res):
+    """Holds one kernel case against its plain version exactly, times both
+    in turns and the kernel as a CUDA graph of its launches, and reads
+    that time against the case's bound, into res[name]; returns the plain
+    version's result."""
+    import torch
+
+    name, plain, kernel, args = (case[k] for k in ("name", "plain",
+                                                   "kernel", "args"))
+    want = plain(*args)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    err = outputs_equal(got, want)
+    check(err <= TOL, f"{name} differs from its plain version")
+    host_ms, pms = in_turns(lambda: plain(*args), lambda: kernel(*args),
+                            case["reps_plain"], 50)
+    ms = graph_ms(lambda: kernel(*args))
+    share = case["bound"]["bound_ms"] / ms
+    check(share <= 1.05, f"{name}: share of bound {share:.2f} > 1.05, "
+          "the bound is miscounted")
+    res[name] = dict(max_abs_err=err, ms=ms, host_loop_ms=host_ms,
+                     plain_ms=pms, share=share, **case["bound"],
+                     **case["extra"])
+    return want
+
+
 def phase_kernels(dev):
     """Holds every kernel against its plain version exactly, times both,
     and reads the kernel's device time against its bound."""
-    import torch
-
     from abismal_tpu_torch.kernels import banded_align as ba
 
     clock = sm_clock_hz()
@@ -643,22 +698,8 @@ def phase_kernels(dev):
            "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S,
            "sm_clock_hz": clock, "k3_chain_cycles": K3_CHAIN_CYCLES}
     for case in kernel_cases(dev):
-        name, plain, kernel, args = (case[k] for k in ("name", "plain",
-                                                       "kernel", "args"))
-        want = plain(*args)
-        got = kernel(*args)
-        torch.cuda.synchronize()
-        err = outputs_equal(got, want)
-        check(err <= TOL, f"{name} differs from its plain version")
-        host_ms, pms = in_turns(lambda: plain(*args), lambda: kernel(*args),
-                                case["reps_plain"], 50)
-        ms = graph_ms(lambda: kernel(*args))
-        share = case["bound"]["bound_ms"] / ms
-        check(share <= 1.05, f"{name}: share of bound {share:.2f} > 1.05, "
-              "the bound is miscounted")
-        res[name] = dict(max_abs_err=err, ms=ms, host_loop_ms=host_ms,
-                         plain_ms=pms, share=share, **case["bound"],
-                         **case["extra"])
+        name, kernel, args = case["name"], case["kernel"], case["args"]
+        want = run_case(case, res)
         if name == "popcount_compare":
             res[name]["ms_rotating"] = k1_rotating_ms(dev, kernel)
         if name == "banded_score_pe":
@@ -684,6 +725,165 @@ def phase_kernels(dev):
         if name == "banded_trace_packed":
             check(int((args[4] > 0).sum()) - res[name]["traced"] >= 8,
                   "K3 packed inputs lack windows that leave the genome")
+    return res
+
+
+# --- phase 7b (kernels_ext) ----------------------------------------------------
+
+def ext_pool(dev, index, fq, threads, sizes=(None,)):
+    """The arguments the candidate core hands K4 (seed_extend) on the first
+    chunk (2048 units) of fq's reads, recorded from a fresh eager engine
+    with the wrapper stood in for, one dispatch a pool size: None, the
+    main path's (the engine sizes its pool from the oversized buckets of
+    a sample of the index), or a number of lanes (ABISMAL_TPU_EXT_POOL
+    during that dispatch).  A list of arguments per size, in order."""
+    from abismal_tpu_torch.map import pipeline
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.tools import _workload as W
+
+    eng = TorchNativeEngine(index, device=dev, n_threads=threads,
+                            graphs=False)
+    reads = W.load_reads(fq, eng.unit_batch // 2)
+    seen, inner = [], pipeline.seed_extend
+    env = os.environ.get("ABISMAL_TPU_EXT_POOL")
+
+    def record(*args):
+        seen.append(list(args))
+        return inner(*args)
+
+    pipeline.seed_extend = record
+    try:
+        for size in sizes:
+            os.environ.pop("ABISMAL_TPU_EXT_POOL", None)
+            if size is not None:
+                os.environ["ABISMAL_TPU_EXT_POOL"] = str(size)
+            batch_tensors(eng.dispatch_se(reads, False, False))
+            check(len(seen) == 1 + sizes.index(size),
+                  "the core did not call seed_extend once a chunk")
+    finally:
+        pipeline.seed_extend = inner
+        os.environ.pop("ABISMAL_TPU_EXT_POOL", None)
+        if env is not None:
+            os.environ["ABISMAL_TPU_EXT_POOL"] = env
+        eng.close()
+    return seen
+
+
+def k4_traffic(args):
+    """What K4 needs on args, counted from this run's data: (bytes, the
+    integer operations of its compares, the longest lane's trips, probes,
+    window positions).  The plain version runs once with its compare (lex)
+    recorded; the search is replayed from the recorded comparisons, so
+    that only the probes of bounds still open count, as in the kernel.
+    Bytes: each lane's own inputs and outputs, 8 per index entry a probe
+    or a valid window position reads, and the genome words each compare
+    reads up to its first differing class word (two for the first)."""
+    import torch
+
+    from abismal_tpu_torch.kernels import seed_extend as se
+
+    calls, inner = [], se.lex
+
+    def rec(gcls, qcls, D, wj8):
+        lcp, cmp = inner(gcls, qcls, D, wj8)
+        calls.append((lcp, cmp, D))
+        return lcp, cmp
+
+    se.lex = rec
+    try:
+        se.seed_extend_plain(*args)
+    finally:
+        se.lex = inner
+    (_g, _i, _p, _l, _ga, _b, s2, e2, s3, e3, lane_id, lmax, _mc, ways,
+     kary_iters, ext_w, _ns) = args
+    check(len(calls) == kary_iters + 1, "K4's plain version changed shape")
+    P = lane_id.shape[0]
+    n_lanes = s2.numel()
+    pvv = lane_id < 2 * n_lanes
+    lid = lane_id.clamp(max=2 * n_lanes - 1)
+    t3, rem = lid >= n_lanes, lid % n_lanes
+    lo0 = torch.where(t3, s3.reshape(-1)[rem], s2.reshape(-1)[rem])
+    hi0 = torch.where(t3, e3.reshape(-1)[rem], e2.reshape(-1)[rem])
+
+    def words(lcp, D):
+        return torch.where(D > 0, torch.minimum(lcp, D - 1) // 8 + 2, 0)
+
+    nprb = ways - 1
+    kf = torch.arange(1, ways, device=lane_id.device)[:, None]
+
+    def probe(a, b):
+        w = (b - a)[None]
+        return a[None] + kf * (w // ways) + (kf * (w % ways)) // ways
+
+    probes = gwords = 0
+    trips = torch.zeros_like(lane_id)
+    aL, bL, aU, bU = lo0, hi0, lo0, hi0
+    for lcp, cmp, D in calls[:kary_iters]:
+        cL, cU = aL < bL, aU < bU
+        trips += cL | cU
+        live = torch.cat([cL.repeat(nprb), cU.repeat(nprb)])
+        probes += int(live.sum())
+        gwords += int(words(lcp, D)[live].sum())
+        pL, pU = probe(aL, bL), probe(aU, bU)
+        gL = cmp[: nprb * P].reshape(nprb, P) < 0
+        gU = cmp[nprb * P :].reshape(nprb, P) <= 0
+        aL, bL, aU, bU = (
+            torch.where(cL & gL, pL + 1, aL[None]).max(dim=0).values,
+            torch.where(cL & ~gL, pL, bL[None]).min(dim=0).values,
+            torch.where(cU & gU, pU + 1, aU[None]).max(dim=0).values,
+            torch.where(cU & ~gU, pU, bU[None]).min(dim=0).values)
+    lcp_w, _, Dw = calls[kary_iters]
+    wi = torch.arange(ext_w, device=lane_id.device)[None]
+    wofs = torch.cat([aL[:, None] - 1 - wi, aU[:, None] + wi], dim=1)
+    valid = ((wofs >= lo0[:, None]) & (wofs < hi0[:, None])
+             & pvv[:, None]).reshape(-1)
+    n_win = int(valid.sum())
+    gwords += int(words(lcp_w, Dw)[valid].sum())
+    # a lane's id, length, conversion, list base and bucket, its query's
+    # nibbles (8 a class word, two a byte) and its four outputs
+    per_lane = 8 + 8 + 1 + 8 + 16 + 4 * se.class_words(lmax)[1] + 32
+    nbytes = P * per_lane + 8 * (probes + n_win) + 4 * gwords
+    return (nbytes, OPS_PER_CLASS_WORD * gwords, int(trips.max()), probes,
+            n_win)
+
+
+def ext_cases(pools, clock):
+    """The kernels_ext phase's K4 cases, one per recorded pool."""
+    from abismal_tpu_torch.kernels import seed_extend as se
+
+    cases = []
+    for name, args in pools.items():
+        nbytes, ops, trips, probes, n_win = k4_traffic(args)
+        P, ext_w = args[10].shape[0], args[15]
+        links = 2 * trips + 2 * -(-2 * ext_w // 32)
+        cases.append(dict(
+            name=name, plain=se.seed_extend_plain, kernel=se.seed_extend,
+            args=args, reps_plain=3, bound=bound(nbytes, ops),
+            extra=dict(
+                shape=f"P={P}, B={args[6].shape[0]}",
+                lanes=int((args[10] < 2 * args[6].numel()).sum()),
+                ways=args[13], kary_iters=args[14], longest_trips=trips,
+                probes=probes, window_positions=n_win, chain_links=links,
+                chain_ms=links * K4_GATHER_CYCLES / clock * 1e3)))
+    return cases
+
+
+def phase_kernels_ext(dev, threads, trex, sets):
+    """Phase 7b: K4 against its plain version on the card on the pools
+    that the first chunk of the 10k golden reads and of the 1 Gb SE set
+    hand it (see ext_pool), and on the 1 Gb chunk's pool at the core's
+    static size (512 lanes: max(512, units / 4)), timed and read against
+    its bound as in the kernels phase."""
+    clock = sm_clock_hz()
+    (trex1,) = ext_pool(dev, trex, golden_fastqs("reads")[0], threads)
+    g1, g1_512 = ext_pool(dev, sets["index"], sets["se"][0], threads,
+                          (None, EXT_POOL_STATIC))
+    pools = {"seed_extend_trex1": trex1, "seed_extend": g1,
+             "seed_extend_1gb_512": g1_512}
+    res = {"tolerance": TOL, "sm_clock_hz": clock,
+           "k4_gather_cycles": K4_GATHER_CYCLES}
+    for case in ext_cases(pools, clock):
+        run_case(case, res)
     return res
 
 
@@ -865,6 +1065,7 @@ def phase_goldens(dev, threads):
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
@@ -876,7 +1077,7 @@ def phase_goldens(dev, threads):
     eng.profile = True
     out = {"index": how, "index_s": t_index}
     kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed)
+               ba.banded_trace_packed, seed_extend)
     for k in kernels:
         k.launches = 0
     for prefix in ("small", "reads"):
@@ -924,13 +1125,14 @@ def phase_goldens_pe(dev, threads, index):
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
     native = make_native_engine_factory(n_threads=threads)
     out = {}
-    kernels = (pc.popcount_compare, ba.banded_score_packed)
+    kernels = (pc.popcount_compare, ba.banded_score_packed, seed_extend)
     for k in kernels:
         k.launches = 0
     for prefix, pbat in PE_GOLDENS:
@@ -984,18 +1186,20 @@ def phase_goldens_pe(dev, threads, index):
 def phase_events(dev, threads, index):
     """The event-stream route (device_stage2=False) on the goldens, without
     and with device_align: SAM and mstats byte for byte; K1 launches in
-    both, banded_score_packed in the align runs alone."""
+    both, banded_score_packed in the align runs alone, K4 in both."""
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     out = {}
-    launches = {"popcount_compare": 0, "banded_score_packed": 0}
+    launches = {"popcount_compare": 0, "banded_score_packed": 0,
+                "seed_extend": 0}
     for align in (False, True):
         factory = make_torch_native_engine_factory(
             dev, n_threads=threads, device_stage2=False, device_align=align)
         eng = factory(index, False, 0.1, 32, 3000)
-        for k in (pc.popcount_compare, ba.banded_score_packed):
+        for k in (pc.popcount_compare, ba.banded_score_packed, seed_extend):
             k.launches = 0
         for prefix, pbat in (("small", False), ("reads", False))+PE_GOLDENS:
             fq1, fq2 = golden_fastqs(prefix)
@@ -1011,14 +1215,16 @@ def phase_events(dev, threads, index):
             check(sam_ok and mst_ok, f"events {prefix} (device_align "
                   f"{align}): output differs from the golden")
             out[f"{prefix}{'_align' if align else ''}"] = st
-        check(pc.popcount_compare.launches > 0,
-              "popcount_compare was not launched on the event route")
+        for k in (pc.popcount_compare, seed_extend):
+            check(k.launches > 0,
+                  f"{k.__name__} was not launched on the event route")
         moved = ba.banded_score_packed.launches
         check(moved > 0 if align else moved == 0,
               f"banded_score_packed launched {moved} times with "
               f"device_align {align}")
         launches["popcount_compare"] += pc.popcount_compare.launches
         launches["banded_score_packed"] += moved
+        launches["seed_extend"] += seed_extend.launches
     out["launches"] = launches
     # the CLI on the card, as a user runs the route: ABISMAL_TPU_STAGE2=0
     # and --device-align, on small; the golden SAM but for the @PG line
@@ -1168,11 +1374,12 @@ def phase_profile(dev, threads, card, trex, sets):
     to the uncut program's fallback flags; a cut program run with phase
     marks on; "unitstats" and the single-end bisection on the 1 Gb SE set
     with the scale phase's tables; trace_ops' top 10 CUDA kernels of a
-    tRex1 chunk.  K1-K3 must launch in the phase."""
+    tRex1 chunk.  K1-K4 must launch in the phase."""
     import numpy as np
 
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.tools import _workload as W
     from abismal_tpu_torch.tools import profile_stage12, profile_stage12pe
@@ -1183,7 +1390,7 @@ def phase_profile(dev, threads, card, trex, sets):
         pass
 
     kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed)
+               ba.banded_trace_packed, seed_extend)
     for k in kernels:
         k.launches = 0
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
@@ -1259,12 +1466,13 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
     on the goldens and on the 1 Gb SE set against the native engine's
     SAM; TorchMappingEngine (torch-replay) on the small goldens, in this
     process and through run_map_hybrid's three forked workers.  K1's
-    counter must move in every run; every rate stands beside this call's
-    native rate on the same reads."""
+    counter must move in every run, K4's in the phase; every rate stands
+    beside this call's native rate on the same reads."""
     import torch
 
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import (
         make_torch_engine_factory, make_torch_native_engine_factory,
     )
@@ -1295,7 +1503,7 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
     if torch.cuda.device_count() >= 2:
         facs["all"] = make_torch_native_engine_factory(
             dev, n_threads=threads, index_shards="all")
-    k1.launches = 0
+    k1.launches = seed_extend.launches = 0
     for name, fac in facs.items():
         for prefix in SHARD_GOLDENS:
             fq1, fq2 = golden_fastqs(prefix)
@@ -1353,7 +1561,9 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
                 "fallback_frac": (eng.n_fallback - f0)
                 / max(1, eng.n_units - u0),
                 "sam_identical": sam_ok, "mstats_identical": mst_ok}, k0)
-    out["launches"] = {"popcount_compare": n_k1}
+    out["launches"] = {"popcount_compare": n_k1,
+                       "seed_extend": seed_extend.launches}
+    check(seed_extend.launches > 0, "seed_extend was not launched")
     return out, out["launches"]
 
 
@@ -1453,11 +1663,12 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
     from abismal_tpu_torch.host import NativeShardServer, write_stats
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.parallel.multihost import run_map_multihost
 
     kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed)
+               ba.banded_trace_packed, seed_extend)
     rates = {**rates, **sets["rates"]}
     big = sets["index"]
     n_cards = torch.cuda.device_count()
@@ -1771,15 +1982,17 @@ def phase_graphs(dev, threads, card, trex, sets):
     (torch.profiler), capture seconds and pool bytes of every key;
     whole-path rates eager and graphed in turns with the native engine
     on tRex1 10k SE, 10k PE and the 1 Gb SE set (with the peak device
-    memory of a map).  Each route's K1-K3 runs on the card, counted by
+    memory of a map).  Each route's K1-K4 runs on the card, counted by
     name in the profiler, equal the launch counters' growth, graphed and
-    eager alike."""
+    eager alike.  Then K4 against its plain version inside the graphed
+    engines (ext_in_turns)."""
     import torch
 
     from abismal_tpu_torch import graphs as G
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import (
         TorchMappingEngine, TorchNativeEngine, make_torch_engine_factory,
         make_torch_native_engine_factory,
@@ -1787,7 +2000,7 @@ def phase_graphs(dev, threads, card, trex, sets):
     from abismal_tpu_torch.tools import _workload as W
 
     kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed)
+               ba.banded_trace_packed, seed_extend)
     for k in kernels:
         k.launches = 0
     reads = W.load_reads(golden_fastqs("reads")[0], GRAPH_READS)
@@ -1874,8 +2087,105 @@ def phase_graphs(dev, threads, card, trex, sets):
     for eng in eagers.values():
         if hasattr(eng, "close"):
             eng.close()
+    out["ext_plain"] = ext_in_turns(dev, threads, trex, sets, kernels)
     out["launches"] = launches_moved(kernels, "graphs")
     return out, out["launches"]
+
+
+EXT_TURNS = ("plain", "k4", "k4", "plain")
+EXT_GOLDENS = {"fused_se": "reads", "fused_pe": "reads_pe"}
+
+
+@contextlib.contextmanager
+def extension_of(mode):
+    """With mode "plain", the candidate core calls K4's plain version in
+    place of the wrapper until the block ends (the runs of the engine
+    that ext_in_turns compares K4 with: its graphs capture the plain
+    ops); with "k4", the wrapper, as ever."""
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend_plain
+    from abismal_tpu_torch.map import pipeline
+
+    inner = pipeline.seed_extend
+    if mode == "plain":
+        pipeline.seed_extend = seed_extend_plain
+    try:
+        yield
+    finally:
+        pipeline.seed_extend = inner
+
+
+def ext_in_turns(dev, threads, trex, sets, kernels):
+    """A graphed engine with K4 against a graphed engine whose core runs
+    K4's plain version (extension_of("plain") around that engine's runs
+    alone), on fused SE and PE (the 10k golden reads and pairs) and the
+    1 Gb SE set: a batch of GRAPH_READS bit-equal, card ops a chunk and
+    the kernels' runs (launch_counts; K4 runs in the K4 engine alone);
+    after a warm map of each, whole maps in EXT_TURNS: the rate, each
+    replay's span (one event pair around it) and the SAM against the
+    golden or the native engine's; the native engine once."""
+    import torch
+
+    from abismal_tpu_torch.host import make_native_engine_factory
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.tools import _workload as W
+
+    native = make_native_engine_factory(n_threads=threads)
+    out = {}
+    for name, index, kind in (("fused_se", trex, "se"),
+                              ("fused_pe", trex, "pe"),
+                              ("scale_se", sets["index"], "se")):
+        t0 = time.perf_counter()
+        if name == "scale_se":
+            fq1, fq2, sam_native, cl = sets["se"]
+            want = open(sam_native, "rb").read()
+        else:
+            prefix = EXT_GOLDENS[name]
+            fq1, fq2 = golden_fastqs(prefix)
+            cl = golden_cl(prefix)
+            with gzip.open(os.path.join(GOLDEN, prefix + ".sam.gz"),
+                           "rb") as f:
+                want = f.read()
+        reads = W.load_reads(fq1, GRAPH_READS)
+        pairs = (reads, W.load_reads(fq2, GRAPH_READS)) if fq2 else ((), ())
+        sam = os.path.join(WORK, "ext_turns.sam")
+        engines = {m: TorchNativeEngine(index, device=dev, n_threads=threads)
+                   for m in ("plain", "k4")}
+        st = {m: dict(per_s=[], replay_ms=[]) for m in engines}
+        outs = {}
+        for m, eng in engines.items():
+            eng.profile = True
+            with extension_of(m):
+                outs[m] = batch_span(kind, eng, reads, pairs)[2]
+                st[m].update(launch_counts(kind, eng, reads, pairs, kernels))
+                map_with(W.engine_factory(eng), index, fq1, sam, None, cl,
+                         threads, fq2)
+        check(len(outs["plain"]) == len(outs["k4"]) > 0
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(outs["plain"], outs["k4"])),
+              f"ext {name}: the K4 engine's outputs differ from the plain "
+              "extension's")
+        ran = {m: st[m]["kernels_ran"]["seed_extend"] for m in engines}
+        check(ran["plain"] == 0 < ran["k4"],
+              f"ext {name}: K4 ran {ran} times by engine")
+        n = n_reads_of(fq1)
+        for m in EXT_TURNS:
+            eng = engines[m]
+            c0 = len(eng.chunk_marks)
+            with extension_of(m):
+                secs = map_with(W.engine_factory(eng), index, fq1, sam, None,
+                                cl, threads, fq2)
+            st[m]["per_s"].append(n / secs)
+            st[m]["replay_ms"].append(chunk_device_ms(eng, c0)["total_ms"])
+            check(open(sam, "rb").read() == want,
+                  f"ext {name} ({m}): the SAM differs")
+        for eng in engines.values():
+            eng.close()
+        secs = map_with(native, index, fq1, os.path.join(WORK, "ext_n.sam"),
+                        None, cl, threads, fq2)
+        st.update(native_per_s=n / secs, outputs_bit_equal=True,
+                  seconds=time.perf_counter() - t0)
+        out[name] = st
+    return out
 
 
 TOOLS_REPS = 1  # the bench's repetitions of each mode
@@ -1887,12 +2197,13 @@ def phase_tools(dev, threads, gres):
     from abismal_tpu_torch.cli import main as cli_main
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.tools import (
         bench, multihost_scale, sweep_unit_batch, tune_hybrid, tune_stage2,
     )
 
     kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed)
+               ba.banded_trace_packed, seed_extend)
     out, secs = {}, {}
 
     def timed(name, fn):
@@ -2029,6 +2340,11 @@ def main():
 
         sres, sets = phase_scale(dev, threads)
         emit("scale", **sres)
+
+        t0 = time.perf_counter()
+        kres.update(phase_kernels_ext(dev, threads, index, sets))
+        emit("kernels_ext", seconds=time.perf_counter() - t0,
+             **{c: kres[c] for c in CASES["seed_extend"]})
 
         t0 = time.perf_counter()
         fres, launches_prof = phase_profile(dev, threads, card, index, sets)

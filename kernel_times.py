@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's CUDA kernels K1-K3 of one or more checkouts on the
+"""Times the port's CUDA kernels K1-K4 of one or more checkouts on the
 card, at the shapes and seeds of chip_smoke.py's kernels phase, so that
 two versions of a kernel can be compared within one run.
 
@@ -13,7 +13,11 @@ graph of its launches (ms), the time of a Python loop of launches
 (host_loop_ms, which the wrapper's host time bounds from below) and
 whether the result equals the plain version's.  The cases and the timers
 are those of the chip_smoke.py beside this script (kernel_cases), so every
-tree must have the entry points that script names."""
+tree must have the entry points of K1-K3 that script names.  K4
+(seed_extend) is timed on the pool that the first chunk of the 10k golden
+reads hands it in the tree's own engine (chip_smoke.py's ext_pool and
+ext_cases; the 1 Gb pool needs the scale phase's genome and is timed by
+chip_smoke.py alone); a tree without K4 is reported as lacking it."""
 
 import argparse
 import importlib.util
@@ -38,8 +42,19 @@ def worker(tree):
     import torch
 
     cs = smoke_module()
+    dev = torch.device("cuda")
     out = {"tree": tree}
-    for case in cs.kernel_cases(torch.device("cuda")):
+    cases = cs.kernel_cases(dev)
+    if os.path.exists(os.path.join(tree, cs.SOURCES["seed_extend"])):
+        os.makedirs(cs.WORK, exist_ok=True)
+        threads = min(8, os.cpu_count() or 1)
+        index, _ = cs.trex1_index(threads)
+        fq = cs.gunzip_to("reads_1.fq", cs.WORK)
+        (pool,) = cs.ext_pool(dev, index, fq, threads)
+        cases += cs.ext_cases({"seed_extend_trex1": pool}, cs.sm_clock_hz())
+    else:
+        out["seed_extend"] = "lacking: this tree has no K4"
+    for case in cases:
         plain, kernel, args = case["plain"], case["kernel"], case["args"]
         want, got = plain(*args), kernel(*args)
         torch.cuda.synchronize()

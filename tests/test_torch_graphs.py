@@ -8,9 +8,10 @@ or a replay cannot repeat: a host sync (aten._local_scalar_dense: any
 .item(), int() or bool() of a tensor), an output shaped by the data
 (nonzero, masked_select, unique*, repeat_interleave by a tensor,
 indexing with a bool mask) and a tensor made from Python data
-(aten.lift_fresh).  The kernels are left out of the mode: on the card
-each is one launch of its CUDA wrapper, and their plain CPU versions are
-not held to it.
+(aten.lift_fresh).  K1-K3 are left out of the mode: on the card each is
+one launch of its CUDA wrapper, and their plain CPU versions are not held
+to it.  K4's plain version (the seed extension) stays in it: the card
+smoke captures it in the engine it compares K4 with.
 
 The wrapper's bookkeeping: torch.cuda.CUDAGraph cannot run here, so a
 stand-in takes the place of graphs.capture; its replay runs the program
@@ -237,13 +238,15 @@ def stand_in(monkeypatch):
     from abismal_tpu_torch import graphs
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels import seed_extend as se
     from abismal_tpu_torch.map import pipeline
 
     monkeypatch.setattr(graphs, "capture", _stand_in_capture)
     for mod, plain, wrapper in (
             (pc, "popcount_compare_plain", pc.popcount_compare),
             (ba, "banded_score_packed_plain", ba.banded_score_packed),
-            (ba, "banded_trace_packed_plain", ba.banded_trace_packed)):
+            (ba, "banded_trace_packed_plain", ba.banded_trace_packed),
+            (se, "seed_extend_plain", se.seed_extend)):
         def counting(*args, _inner=getattr(mod, plain), _w=wrapper):
             _w.launches += 1
             return _inner(*args)
@@ -280,9 +283,9 @@ def _map(tmp_path, index, eng, prefix, pbat=False):
 
 
 @pytest.mark.parametrize("prefix,stage2,align,kernels", [
-    ("small", True, False, 3),  # fused SE: K1, K2, K3
-    ("small_pe", True, False, 2),  # fused PE: K1, K2
-    ("small", False, True, 2),  # the event route with device_align
+    ("small", True, False, 4),  # fused SE: K1, K2, K3, K4
+    ("small_pe", True, False, 3),  # fused PE: K1, K2, K4
+    ("small", False, True, 3),  # the event route with device_align
 ], ids=["fused-se", "fused-pe", "events-align"])
 def test_graphed_routes_give_the_goldens(tmp_path, port_index, stand_in,
                                          prefix, stage2, align, kernels):
@@ -311,6 +314,7 @@ def test_graphed_routes_give_the_goldens(tmp_path, port_index, stand_in,
     assert sum(n > 0 for n in graphed[2].values()) == kernels
     assert len(stats) == 1 and stats[0]["replays"] >= 3
     assert stats[0]["captured_launches"]["popcount_compare"] == 1
+    assert stats[0]["captured_launches"]["seed_extend"] == 1
 
 
 def test_pending_rows_are_not_static_buffers(port_index, stand_in):
@@ -343,5 +347,5 @@ def test_pending_rows_are_not_static_buffers(port_index, stand_in):
         assert torch.equal(rows, want)
     assert graphs.stats()[0]["captured_launches"] == {
         "popcount_compare": 1, "banded_score_packed": 1,
-        "banded_trace_packed": 1}
+        "banded_trace_packed": 1, "seed_extend": 1}
     eng.close()

@@ -4,6 +4,9 @@ same arrays, the fused traceback against the host aligner, and -- on a
 machine with a card -- each CUDA kernel against its plain version.  All
 comparisons are exact (integer arithmetic, tolerance 0)."""
 
+import gzip
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -449,11 +452,14 @@ def test_banded_score_packed_plain_matches_operands():
 
 
 @pytest.mark.parametrize("name", ["popcount_compare", "banded_score_packed",
-                                  "banded_trace", "banded_trace_packed"])
+                                  "banded_trace", "banded_trace_packed",
+                                  "seed_extend"])
 def test_wrapper_raises_off_cpu_and_cuda(name):
     """A wrapper given a tensor that is neither on the CPU nor on a card
     raises; it never falls back to the plain version."""
-    from abismal_tpu_torch.kernels import banded_align, popcount_compare
+    from abismal_tpu_torch.kernels import (
+        banded_align, popcount_compare, seed_extend,
+    )
 
     m = torch.zeros((128, LMAX), dtype=torch.uint8, device="meta")
     w = torch.zeros((128, LMAX + 60), dtype=torch.uint8, device="meta")
@@ -468,6 +474,10 @@ def test_wrapper_raises_off_cpu_and_cuda(name):
             m, w, v, v, v.long(), v.bool()),
         "banded_trace_packed": lambda: banded_align.banded_trace_packed(
             v, m, v.long(), v.long(), v.long(), v.long(), v.bool(), LMAX),
+        "seed_extend": lambda: seed_extend.seed_extend(
+            v, v.long(), m, v.long(), v.bool(), v.long(),
+            *(v.long().reshape(2, 64),) * 4, v.long(), LMAX, 100, 4, 9,
+            129, 256),
     }
     with pytest.raises(ValueError):
         calls[name]()
@@ -790,3 +800,166 @@ def test_kernels_launch_on_their_tensors_card(other_card):
             *ba.banded_trace_packed_plain(*k3p, LMAX))
     for g, w in zip(got, want):
         assert g.device == other_card and torch.equal(g, w)
+
+
+# --- K4: the pooled seed extension -----------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# K4's cases: lanes of real units, the arguments the candidate core hands
+# the wrapper (see ext_case)
+EXT_CASES = ("trex1", "trex1-empty", "repeat-w2", "repeat-w4", "repeat-w8",
+             "lmax256", "deep", "dl0")
+
+
+def golden_reads(name, n):
+    """The first n reads of tests/golden/<name>.gz."""
+    with gzip.open(os.path.join(HERE, "golden", name + ".gz"), "rb") as f:
+        return f.read().split(b"\n")[1::4][:n]
+
+
+def genome_reads(fa, n, length, seed):
+    """n exact substrings of length bases of the FASTA fa."""
+    with open(fa, "rb") as f:
+        seq = b"".join(ln.strip() for ln in f if not ln.startswith(b">"))
+    starts = np.random.default_rng(seed).integers(0, len(seq) - length, n)
+    return [seq[s : s + length].upper() for s in starts]
+
+
+def ext_args(index, reads, lmax=LMAX, mc=None, ext_pool=512,
+             device="cpu"):
+    """The arguments the candidate core hands K4 (seed_extend) on the
+    T-rich and A-rich units of reads, recorded from a run of _make_core
+    (cut "extend") with the wrapper stood in for: a list of 11 tensors on
+    device and the 6 ints."""
+    from abismal_tpu_torch.map import pipeline as pl
+    from abismal_tpu_torch.map.host_units import (
+        get_conv_is_ga, prepare_units, strand_code,
+    )
+    from abismal_tpu_torch.map.seeds import prep_read
+
+    units, is_ga = [], []
+    for r in reads:
+        for a_rich in (False, True):
+            units.append(prep_read(r, a_rich))
+            is_ga.append(get_conv_is_ga(strand_code("+", a_rich)))
+    pnib, lens = prepare_units(units, lmax)
+    dev = pl.DeviceIndex.from_index(index, device)
+    core, _ = pl._make_core(lmax, mc or dev.max_candidates, dev.n_index2,
+                            dev.n_index3, 64, ext_iters=dev.ext_iters,
+                            ext_pool=ext_pool, cut="extend")
+    seen, inner = [], pl.seed_extend
+
+    def record(*args):
+        seen.append(args)
+        return inner(*args)
+
+    pl.seed_extend = record
+    try:
+        core(*dev.tables(), *(torch.from_numpy(np.asarray(a)).to(device)
+                              for a in (pnib, lens, np.array(is_ga),
+                                        np.zeros((len(units), 1), np.int32))))
+    finally:
+        pl.seed_extend = inner
+    (args,) = seen
+    return list(args)
+
+
+def repeat_genome(out_dir):
+    """(index, reads) of the seed-extension check's repeat genome
+    (abismal_tpu_torch/tools/debug_ext.py): buckets far above
+    max_candidates, whose windows are full of equal LCPs."""
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.tools.debug_ext import ext_genome
+
+    fa = os.path.join(str(out_dir), "ext_genome.fa")
+    reads = ext_genome(fa)
+    return create_index(fa), reads
+
+
+def ext_case(name, trex1, repeat, device="cpu", pool=512):
+    """K4's arguments for case name: tRex1 lanes (64 golden reads,
+    max_candidates 2) and a pool of mostly empty slots (max_candidates
+    10: a few lanes); the repeat genome at ways 2, 4, 8 (with their trip
+    counts); lmax 256 on 250-base substrings of tRex1, and the same with a
+    sort depth of 150 so that lanes turn deep; units cut short so that
+    lanes have depth Dl = 0."""
+    from abismal_tpu_torch.kernels.seed_extend import kary_iters_for
+    from abismal_tpu_torch.map.host_units import ext_iters_for
+
+    if name.startswith("repeat"):
+        index, reads = repeat
+        args = ext_args(index, reads, ext_pool=pool, device=device)
+        ways = int(name[-1])
+        args[13:15] = [ways, kary_iters_for(ext_iters_for(index), ways)]
+        return args
+    if name in ("lmax256", "deep"):
+        reads = genome_reads(os.path.join(HERE, "data", "tRex1.fa"), 32,
+                             250, 5)
+        args = ext_args(trex1, reads, lmax=256, mc=2, ext_pool=pool // 2,
+                        device=device)
+        if name == "deep":
+            args[16] = 150
+        return args
+    reads = golden_reads("small_1.fq", 64)
+    args = ext_args(trex1, reads, mc=10 if name == "trex1-empty" else 2,
+                    ext_pool=pool, device=device)
+    if name == "dl0":
+        lens = args[3].clone()
+        lens[::5] = 10  # shorter than either key: Dl = 0
+        args[3] = lens
+    return args
+
+
+def ext_case_covers(name, args, want):
+    """What case name must exercise, read from its arguments and the plain
+    version's outputs."""
+    from abismal_tpu_torch.constants import KEY_WEIGHT_THREE
+
+    lane_id, lmax, mc = args[10], args[11], args[12]
+    B, o_spec = args[6].shape
+    pvv = lane_id < 2 * B * o_spec
+    l_out, lo_f, hi_f, deep = (w.cpu() for w in want)
+    assert int(pvv.sum()) > 0
+    if name == "trex1-empty":
+        assert int((~pvv).sum()) > lane_id.shape[0] // 2
+    if name.startswith("repeat"):  # ranges still above mc, and narrowed
+        live = pvv.cpu()
+        assert int(((hi_f - lo_f)[live] > mc).sum()) > 0
+        assert int((l_out[live] > KEY_WEIGHT_THREE + 1).sum()) > 0
+    if name == "deep":
+        assert int(deep.sum()) > 0
+    if name == "dl0":
+        lid = lane_id.clamp(max=2 * B * o_spec - 1) % (B * o_spec)
+        short = (lid // o_spec) % 5 == 0
+        assert int((pvv & short.to(pvv.device)).sum()) > 0
+    if name == "lmax256":  # compares deeper than lmax 128's 14 words
+        lid = lane_id.clamp(max=2 * B * o_spec - 1) % (B * o_spec)
+        depth = args[3].to(lid.device)[lid // o_spec] - lid % o_spec - 16
+        assert lmax == 256 and int(depth[pvv].max()) > 8 * 14
+
+
+@pytest.fixture(scope="module")
+def ext_genomes(tmp_path_factory):
+    """(the tRex1 index, (repeat index, reads)), built with the port."""
+    from abismal_tpu_torch.index.build import create_index
+
+    return (create_index(os.path.join(HERE, "data", "tRex1.fa")),
+            repeat_genome(tmp_path_factory.mktemp("repeat")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_seed_extend_kernel_matches_plain(cuda_device, ext_genomes, case):
+    """K4 against its plain version on the card: every lane's depth, range
+    and deep flag equal."""
+    from abismal_tpu_torch.kernels import seed_extend as se
+
+    args = ext_case(case, *ext_genomes, device=cuda_device)
+    n0 = se.seed_extend.launches
+    got = se.seed_extend(*args)
+    torch.cuda.synchronize()
+    assert se.seed_extend.launches == n0 + 1
+    want = se.seed_extend_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ext_case_covers(case, args, want)

@@ -231,3 +231,66 @@ def test_stage12_cuts_match_jax(tables, cut, inputs, spill):
         assert want.any()
     elif spill:  # the pool's spills reach fbstats as unit fallbacks
         assert want[:, 0].any()
+
+
+@pytest.fixture(scope="module")
+def repeat_tables(tmp_path_factory):
+    """The seed-extension check's repeat genome (buckets far above
+    max_candidates; abismal_tpu_torch/tools/debug_ext.py): JAX's
+    DeviceIndex and the port's on its exact tables, and the T-rich and
+    A-rich units of its reads."""
+    from abismal_tpu.map.pipeline import DeviceIndex as JaxDeviceIndex
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.map.host_units import (
+        get_conv_is_ga, prepare_units, strand_code,
+    )
+    from abismal_tpu_torch.map.pipeline import DeviceIndex
+    from abismal_tpu_torch.map.seeds import prep_read
+    from abismal_tpu_torch.tools.debug_ext import ext_genome
+
+    fa = str(tmp_path_factory.mktemp("repeat") / "ext_genome.fa")
+    reads = ext_genome(fa)
+    index = create_index(fa)
+    jdev = JaxDeviceIndex(index)
+    g32, _g2o, c2, c3, idx = (np.asarray(t) for t in jdev.tables())
+    tdev = DeviceIndex.from_numpy_tables(
+        g32, c2, c3, idx, jdev.n_index2, jdev.n_index3, jdev.max_candidates,
+        jdev.ext_iters, "cpu")
+    units, is_ga = [], []
+    for r in reads:
+        for a_rich in (False, True):
+            units.append(prep_read(r, a_rich))
+            is_ga.append(get_conv_is_ga(strand_code("+", a_rich)))
+    pnib, lens = prepare_units(units, LMAX)
+    return jdev, tdev, (pnib, lens, np.array(is_ga))
+
+
+@pytest.mark.parametrize("ways", [2, 4, 8])
+def test_extdbg_repeat_genome_matches_jax(repeat_tables, monkeypatch, ways):
+    """The extension's per-cell arrays (the "extdbg" cut, K4's plain
+    version on the CPU) equal JAX's on oversized buckets, with the k-ary
+    search at ways 2, 4 and 8 (ABISMAL_TPU_EXT_WAYS, read when each core
+    is built and traced)."""
+    from abismal_tpu.map.pipeline import _make_core as jax_core
+    from abismal_tpu_torch.constants import KEY_WEIGHT
+    from abismal_tpu_torch.map.pipeline import _make_core
+
+    jdev, tdev, (pnib, lens, is_ga) = repeat_tables
+    monkeypatch.setenv("ABISMAL_TPU_EXT_WAYS", str(ways))
+    uextra = np.zeros((pnib.shape[0], 3), np.int32)
+    mc = jdev.max_candidates
+    core_j, _ = jax_core(LMAX, mc, jdev.n_index2, jdev.n_index3, 64,
+                         tp=False, cut="extdbg", ext_iters=jdev.ext_iters)
+    want = jax.jit(core_j)(*jdev.tables(), pnib, lens, is_ga, uextra)
+    core_t, _ = _make_core(LMAX, mc, jdev.n_index2, jdev.n_index3, 64,
+                           ext_iters=jdev.ext_iters, cut="extdbg")
+    got = core_t(*tdev.tables(), *_t(pnib, lens, is_ga, uextra))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
+                                      err_msg=k)
+    # oversized buckets were searched and narrowed (the tandem repeats
+    # give two-letter ones: 228 cells here)
+    big = np.asarray(want["e2"]) - np.asarray(want["s2"]) > mc
+    assert big.sum() > 100
+    assert (np.asarray(want["l2"])[big] > KEY_WEIGHT).all()

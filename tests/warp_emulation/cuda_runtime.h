@@ -182,6 +182,14 @@ inline int __reduce_min_sync(unsigned, int v) {
   emu::passed();
   return r;
 }
+inline int __reduce_add_sync(unsigned, int v) {
+  emu::rendezvous(v);
+  int r = 0;
+  for (int i = 0; i < 32; ++i)
+    if (!emu::done[i]) r += emu::peek(i);
+  emu::passed();
+  return r;
+}
 inline void __syncwarp() {
   emu::rendezvous(0);
   emu::passed();
