@@ -47,12 +47,14 @@ from .device import device_context, put
 from .kernels.banded_align import (
     banded_score_packed, banded_trace, banded_trace_packed,
 )
+from .kernels.candidate_list import candidate_list
 from .kernels.popcount_compare import popcount_compare
 from .kernels.seed_extend import seed_extend
+from .kernels.segment_rank import segment_rank
 
 # the kernel wrappers whose launch counters a replay advances
 COUNTED = (popcount_compare, banded_score_packed, banded_trace_packed,
-           banded_trace, seed_extend)
+           banded_trace, seed_extend, segment_rank, candidate_list)
 
 
 def capture(fn, pool, stream):

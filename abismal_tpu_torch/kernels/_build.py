@@ -57,6 +57,17 @@ SIGNATURES = {
                                _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _P, _P],
     },
+    "segment_rank": {
+        # gate, ex (or NULL), n, seg_start, seg_end, n_seg, rank, counts,
+        # ex_counts (or NULL), stream
+        "segment_rank_launch": [_P, _P, _L, _P, _P, _I, _P, _P, _P, _P],
+    },
+    "candidate_list": {
+        # cnt_cells, lo_cells, unit_start, unit_total, index_all, n_idx, B,
+        # n_cells, o_spec, gflat, out, valid, stream
+        "candidate_list_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _L,
+                                  _P, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

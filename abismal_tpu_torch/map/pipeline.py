@@ -40,8 +40,10 @@ from ..kernels.banded_align import (
     BW_MAX, QOFF, banded_score_packed, banded_trace_packed, unpack_nibbles,
     win_start, window_nibbles,
 )
+from ..kernels.candidate_list import candidate_list
 from ..kernels.popcount_compare import M32, popcount_compare
 from ..kernels.seed_extend import kary_iters_for, seed_extend
+from ..kernels.segment_rank import segment_rank
 from ..parallel.mesh import (
     make_mesh, replicate_tables, shard_stage1, shard_stage1_tp, shard_stage12,
     shard_stage12pe,
@@ -87,15 +89,6 @@ def _phase_marker(marks):
             marks.append((name, ev))
 
     return mark
-
-
-def _unit_base(start, value, n):
-    """(n,) per-candidate value of its unit: value[u] scattered at the
-    unit's first candidate start[u] (clamped to n), then carried forward
-    by a running max (unit values never decrease)."""
-    m = torch.zeros(n + 1, dtype=I64, device=start.device).scatter_reduce(
-        0, start, value, "amax")
-    return torch.cummax(m[:n], dim=0).values
 
 
 class DeviceIndex:
@@ -270,7 +263,6 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
     ways = int(os.environ.get("ABISMAL_TPU_EXT_WAYS", 4))
     o_spec = o_spec_for(lmax)
     o_sens = lmax - KEY_WEIGHT + 1
-    n_cells = (o_spec + o_sens) * 2
     n_words = 2 * ((lmax + 15) // 16)  # u32 words incl. the 0xF tail block
     CELLCAP = SLOT
     mc = max_candidates
@@ -488,27 +480,16 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
         lo_cells = torch.cat([interleave(s2x, base3[:, None] + s3x),
                               interleave(s2n, base3[:, None] + s3n)], dim=1)
 
-        # --- global candidate list: prefix sums, then each candidate's
-        # cell by a binary search over the cells' start offsets
-        cnt_flat = cnt_cells.reshape(-1)
-        inc = torch.cumsum(cnt_flat, dim=0)
+        # --- global candidate list: units laid out by their prefix sums,
+        # each candidate's unit, cell, slot and position (K6)
         unit_total = cnt_cells.sum(dim=1)
         unit_start = torch.cumsum(unit_total, dim=0) - unit_total
         overflow = overflow | (unit_start + unit_total > gflat)
-        f = ar(gflat)
-        starts = inc - cnt_flat
-        cell_gid = torch.searchsorted(starts, f, right=True) - 1
-        b_of = cell_gid // n_cells
-        cell_of = cell_gid % n_cells
-        valid = f < inc[-1]
-        slot = f - starts[cell_gid]
-        lo_flat = lo_cells.reshape(-1)[cell_gid]
+        b_of, cell_of, slot, valid, pos = candidate_list(
+            cnt_cells, lo_cells, unit_start, unit_total, index_all, o_spec,
+            gflat)
         nw_unit = 2 * ((lens + 15) // 16)
         extras = uextra[b_of]
-        coff = torch.where(cell_of < 2 * o_spec, cell_of >> 1,
-                           (cell_of - 2 * o_spec) >> 1)
-        pos = (index_all[torch.where(valid, lo_flat + slot, 0)] - coff) & M32
-        pos = torch.where(valid, pos, 0)
         if cut == "list":  # + the global candidate list
             return dict(cut=_cut_sums(pos, b_of, slot, unit_total))
         if cut == "unitstats":  # each unit's candidates and overflow flag
@@ -706,18 +687,10 @@ def build_stage12(lmax: int, max_candidates: int, n_index2: int,
         rstart = torch.cumsum(span, dim=0) - span
         rend = (rstart + span).clamp(max=ncand)
         rst_c = rstart.clamp(max=ncand)
-        gt = gate.to(I64)
-        g_inc = torch.cumsum(gt, dim=0)
-        g_exc = g_inc - gt
-        g_at = torch.cat([g_exc, g_inc[-1:]])
-        n_gated = g_at[rend] - g_at[rst_c]
-        ex_at = torch.cat([torch.zeros(1, dtype=I64, device=dev),
-                           torch.cumsum(is_ex.to(I64), dim=0)])
-        total_ex = ex_at[rend] - ex_at[rst_c]
+        # per-read gated rank, and each read's gated and exact counts (K5)
+        wslot, n_gated, total_ex = segment_rank(gate, rst_c, rend, is_ex)
         # 49 non-exact inserts fill the 50-slot heap
         heap_would_fill = (n_gated - total_ex) > 48
-        base_of = _unit_base(rst_c, g_at[rst_c], ncand)
-        wslot = g_exc - base_of  # per-read gated rank
         keepw = gate & (wslot < K2)
         dest = torch.where(keepw, r_of * K2 + wslot, R * K2)
         # diffs ride the 10-bit field +512-biased (IUPAC diffs go negative)
@@ -923,22 +896,27 @@ def build_stage12pe(lmax: int, max_candidates: int, n_index2: int,
         phase_sp = cell_of < 2 * o_spec
         gate = valid & torch.where(phase_sp, d <= extras[:, 0],
                                    d <= extras[:, 1])
-        acc = gate.to(I64)
-        c_inc = torch.cumsum(acc, dim=0)
-        c_exc = c_inc - acc
-        c_at = torch.cat([c_exc, c_inc[-1:]])
         ust_c = unit_start.clamp(max=ncand)
         uend_at = (unit_start + unit_total).clamp(max=ncand)
-        base = c_at[ust_c]
-        n_acc = c_at[uend_at] - base
-        heap_fb = n_acc > K - 1  # insert #32 fills the heap
+
+        def gated_at():
+            """The cuts' exclusive accepted prefix at each candidate and at
+            ncand: the plain ops that K5 takes the place of."""
+            acc = gate.to(I64)
+            c_inc = torch.cumsum(acc, dim=0)
+            return torch.cat([c_inc - acc, c_inc[-1:]])
+
         if cut == "pegate":  # + gates, prefixes and unit spans
-            return _cut_sums(c_exc, n_acc, heap_fb, base)
-        base_of = _unit_base(ust_c, base, ncand)
-        slot_u = c_exc - base_of
+            c_at = gated_at()
+            base = c_at[ust_c]
+            n_acc = c_at[uend_at] - base
+            return _cut_sums(c_at[:-1], n_acc, n_acc > K - 1, base)
+        # per-unit accepted rank and each unit's accepted count (K5)
+        slot_u, n_acc = segment_rank(gate, ust_c, uend_at)
+        heap_fb = n_acc > K - 1  # insert #32 fills the heap
         keep = gate & (slot_u < K - 1)
         if cut == "pescan":  # + each candidate's unit base
-            return _cut_sums(base_of, slot_u, keep, n_acc)
+            return _cut_sums(gated_at()[:-1] - slot_u, slot_u, keep, n_acc)
         if cut == "pecompact":  # + the slot ranks
             return _cut_sums(slot_u, n_acc, heap_fb, keep)
         mark("decide")

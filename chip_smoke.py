@@ -40,15 +40,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
               small_rpbat_pe: 500 pairs; reads_pe, reads_pbat_pe,
               reads_rpbat_pe: 10k) with the argv of tests/golden/MANIFEST.md;
               SAM and mstats must equal the goldens byte for byte, and the
-              K1 and K2 counters must move during these runs; then
+              K1, K2, K4, K5 and K6 counters must move during these runs;
+              then
               small_rpbat_pe under -a with random PBAT must equal the
               native engine, with pairs mated on the device;
   6. events   the event-stream route (device_stage2=False: build_stage1's
               events replayed by the native engine) on small, reads and
               the six paired-end goldens, without and with device_align
               (the native engine's alignment jobs scored by
-              banded_score_packed): SAM and mstats byte for byte; K1 must
-              launch in both, banded_score_packed in the align runs only;
+              banded_score_packed): SAM and mstats byte for byte; K1, K4
+              and K6 must launch in both, banded_score_packed in the align
+              runs only;
               then `map --device-align` with ABISMAL_TPU_STAGE2=0 in a
               process of its own on small gives the golden but for @PG;
   7. scale    the 1 Gb synthetic genome of tools/scale_test.py:gen_genome:
@@ -68,6 +70,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
               version's in turns, the bytes these lanes' trips and windows
               need and their bound, and chain_ms, a model of the longest
               lane's chain of dependent gathers (not measured, no bound);
+              K5 (segment_rank, the slot ranks) and K6 (candidate_list,
+              the global candidate list) the same way on what the
+              programs hand them on the first chunk of the 10k golden
+              reads, the 10k golden pairs and the 1 Gb SE set, each beside
+              the PyTorch call their kernels took the place of
+              (torch.cummax, torch.searchsorted) on the same sizes;
   8. profile  the profiling and diagnostic cuts of the fused programs
               through the port's tools (abismal_tpu_torch/tools/): the
               single-end and paired-end cut bisections (profile_stage12,
@@ -79,7 +87,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               overflow share) and the single-end bisection on the 1 Gb
               SE set, on the scale phase's tables; trace_ops' top 10
               CUDA kernels of a tRex1 chunk;
-              K1-K4 must launch in the phase;
+              K1-K6 must launch in the phase;
   9. shards_replay  the key-range-sharded index (--index-shards) over two
               slots of the card (and over every card, given two): small,
               reads, small_pe, reads_pe give the goldens' SAM and mstats,
@@ -105,7 +113,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                         `map --shard I:2`
                         processes on small (single-end), concatenated,
                         give the golden but for the @PG line;
-              K1-K4 must launch during the mesh and the hybrid runs, and
+              K1-K6 must launch during the mesh and the hybrid runs, and
               every run prints its rate beside this call's port-only and
               native-only rates;
   11. graphs  every route's device programs as CUDA graphs (the default on
@@ -120,15 +128,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
               and pool bytes of every key; whole-path rates of both in
               turns with the native engine once, on the 10k golden reads
               and pairs and the 1 Gb SE set, each SAM checked, with the
-              peak device memory of a map; each route's K1-K4 runs on
+              peak device memory of a map; each route's K1-K6 runs on
               the card, counted by name in torch.profiler, must equal
-              the launch counters' growth, graphed and eager alike; then
-              the K4 engine against an engine whose core runs K4's plain
-              version (the wrapper swapped for that engine's runs alone)
-              on fused SE and PE and the 1 Gb SE set: outputs bit-equal,
-              card ops a chunk, replay spans and rates in turns (plain,
-              K4, K4, plain), the native engine once; K1-K4 must launch
-              in the phase;
+              the launch counters' growth, graphed and eager alike, and
+              the top 10 card ops a chunk by device time (graphed: a
+              replay's breakdown); then the K4 engine against an engine
+              whose core runs K4's plain version (the wrapper swapped for
+              that engine's runs alone), and the K5 and K6 engine against
+              one whose programs run their plain versions, on fused SE
+              and PE and the 1 Gb SE set: outputs bit-equal, card ops and
+              the top 10 of a replay, replay spans and rates in turns
+              (plain, kernels, kernels, plain), the native engine once;
+              K1-K6 must launch in the phase;
   12. tools   the port's bench and tuning tools (abismal_tpu_torch/tools/):
               the bench over its five modes (native, torch, split,
               pe_native, pe_torch; each in a child process, one
@@ -139,7 +150,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal to the golden), tune_hybrid 2048, multihost_scale
               --hosts 1 2 --per-host 10000 --reps 1 with native and with
               torch shards, and `map --hosts 2 --engine native` on reads,
-              equal to the golden but for the @PG line; K1-K4 must launch
+              equal to the golden but for the @PG line; K1-K6 must launch
               in the phase's in-process tools.
 It imports only the port (abismal_tpu_torch), which has its own host
 side; nothing of JAX and nothing of the JAX package (checked at the end).
@@ -177,6 +188,11 @@ REPLACES = {
     # K4: not a Pallas kernel; the JAX core's fori_loop over bis_body
     # (pipeline.py:679-787: the search, the LCP window, the stop depth)
     "seed_extend": "abismal_tpu/map/pipeline.py:743",
+    # K5, K6: not Pallas kernels; the JAX programs' associative_scan
+    # carries: the SE slot ranks (:1296-1323; PE :1680-1697) and the
+    # core's candidate list (:868-921)
+    "segment_rank": "abismal_tpu/map/pipeline.py:1317",
+    "candidate_list": "abismal_tpu/map/pipeline.py:889",
 }
 # the kernels phase's cases of each entry point
 CASES = {
@@ -188,6 +204,9 @@ CASES = {
                             "banded_trace_packed_2048"),
     "seed_extend": ("seed_extend_trex1", "seed_extend",
                     "seed_extend_1gb_512"),
+    "segment_rank": ("segment_rank", "segment_rank_pe", "segment_rank_1gb"),
+    "candidate_list": ("candidate_list_trex1", "candidate_list_pe",
+                       "candidate_list"),
 }
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
 # 67 TFLOP/s of fp32 outside the tensor cores, which counts an FMA as two
@@ -229,7 +248,29 @@ SOURCES = {
     "banded_score_packed": "abismal_tpu_torch/csrc/banded_align.cu",
     "banded_trace_packed": "abismal_tpu_torch/csrc/banded_align.cu",
     "seed_extend": "abismal_tpu_torch/csrc/seed_extend.cu",
+    "segment_rank": "abismal_tpu_torch/csrc/segment_rank.cu",
+    "candidate_list": "abismal_tpu_torch/csrc/candidate_list.cu",
 }
+# the PyTorch call timed beside a kernel as its yardstick (never called by
+# the port): the scan and the search that K5 and K6 took the place of
+LIBRARY_CALL = {"segment_rank": "torch.cummax",
+                "candidate_list": "torch.searchsorted"}
+OPS_PER_RANK = 4  # ballot, popc, add, and the count's ballot and add
+OPS_PER_SEARCH_STEP = 3  # shared load, compare, select
+
+
+def wrappers(names=tuple(REPLACES)):
+    """The kernel wrappers of the entry points named (every main-path one
+    by default), in that order."""
+    import importlib
+
+    mods = {"popcount_compare": "popcount_compare",
+            "banded_score_packed": "banded_align",
+            "banded_trace_packed": "banded_align",
+            "seed_extend": "seed_extend", "segment_rank": "segment_rank",
+            "candidate_list": "candidate_list"}
+    return tuple(getattr(importlib.import_module(
+        f"abismal_tpu_torch.kernels.{mods[n]}"), n) for n in names)
 
 
 _T0 = time.perf_counter()
@@ -730,6 +771,31 @@ def phase_kernels(dev):
 
 # --- phase 7b (kernels_ext) ----------------------------------------------------
 
+@contextlib.contextmanager
+def recording(names):
+    """Stands in for the programs' kernel entry points `names` (attributes
+    of map/pipeline.py) until the block ends, recording the arguments of
+    every call: yields {name: [args, ...]}; the wrappers run as ever."""
+    from abismal_tpu_torch.map import pipeline
+
+    seen = {n: [] for n in names}
+    inner = {n: getattr(pipeline, n) for n in names}
+
+    def stand_in(name):
+        def call(*args):
+            seen[name].append(list(args))
+            return inner[name](*args)
+        return call
+
+    for n in names:
+        setattr(pipeline, n, stand_in(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(pipeline, n, inner[n])
+
+
 def ext_pool(dev, index, fq, threads, sizes=(None,)):
     """The arguments the candidate core hands K4 (seed_extend) on the first
     chunk (2048 units) of fq's reads, recorded from a fresh eager engine
@@ -737,36 +803,109 @@ def ext_pool(dev, index, fq, threads, sizes=(None,)):
     main path's (the engine sizes its pool from the oversized buckets of
     a sample of the index), or a number of lanes (ABISMAL_TPU_EXT_POOL
     during that dispatch).  A list of arguments per size, in order."""
-    from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
     from abismal_tpu_torch.tools import _workload as W
 
     eng = TorchNativeEngine(index, device=dev, n_threads=threads,
                             graphs=False)
     reads = W.load_reads(fq, eng.unit_batch // 2)
-    seen, inner = [], pipeline.seed_extend
     env = os.environ.get("ABISMAL_TPU_EXT_POOL")
-
-    def record(*args):
-        seen.append(list(args))
-        return inner(*args)
-
-    pipeline.seed_extend = record
     try:
-        for size in sizes:
-            os.environ.pop("ABISMAL_TPU_EXT_POOL", None)
-            if size is not None:
-                os.environ["ABISMAL_TPU_EXT_POOL"] = str(size)
-            batch_tensors(eng.dispatch_se(reads, False, False))
-            check(len(seen) == 1 + sizes.index(size),
-                  "the core did not call seed_extend once a chunk")
+        with recording(("seed_extend",)) as seen:
+            for size in sizes:
+                os.environ.pop("ABISMAL_TPU_EXT_POOL", None)
+                if size is not None:
+                    os.environ["ABISMAL_TPU_EXT_POOL"] = str(size)
+                batch_tensors(eng.dispatch_se(reads, False, False))
+                check(len(seen["seed_extend"]) == 1 + sizes.index(size),
+                      "the core did not call seed_extend once a chunk")
     finally:
-        pipeline.seed_extend = inner
         os.environ.pop("ABISMAL_TPU_EXT_POOL", None)
         if env is not None:
             os.environ["ABISMAL_TPU_EXT_POOL"] = env
         eng.close()
-    return seen
+    return seen["seed_extend"]
+
+
+def scan_args(dev, index, threads, fq1, fq2=None):
+    """The arguments the programs hand K5 (segment_rank) and K6
+    (candidate_list) on the first chunk (2048 units) of fq1's reads, or of
+    the pairs of fq1 and fq2, recorded from a fresh eager engine with the
+    wrappers stood in for: (K5's, K6's)."""
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.tools import _workload as W
+
+    eng = TorchNativeEngine(index, device=dev, n_threads=threads,
+                            graphs=False)
+    try:
+        with recording(("segment_rank", "candidate_list")) as seen:
+            if fq2 is None:
+                handle = eng.dispatch_se(
+                    W.load_reads(fq1, eng.unit_batch // 2), False, False)
+            else:
+                n = eng.unit_batch // 4
+                handle = eng.dispatch_pe(W.load_reads(fq1, n),
+                                         W.load_reads(fq2, n), False, False)
+            batch_tensors(handle)
+        check(len(seen["segment_rank"]) == len(seen["candidate_list"]) == 1,
+              "the programs did not call K5 and K6 once a chunk")
+    finally:
+        eng.close()
+    return seen["segment_rank"][0], seen["candidate_list"][0]
+
+
+def k5_case(name, args):
+    """A K5 case on recorded arguments (gate, seg_start, seg_end[, ex]):
+    bytes, each mask's byte and the int64 rank a candidate, the spans and
+    counts; OPS_PER_RANK integer ops a candidate.  Its yardstick: one
+    torch.cummax of an int64 vector of the candidates."""
+    import torch
+
+    from abismal_tpu_torch.kernels import segment_rank as sr
+
+    gate, seg_start = args[0], args[1]
+    n, n_seg = gate.shape[0], seg_start.shape[0]
+    masks = len(args) - 2
+    nbytes = n * (masks + 8) + 8 * n_seg * (2 + masks)
+    vec = torch.arange(n, device=gate.device)
+    return dict(
+        name=name, plain=sr.segment_rank_plain, kernel=sr.segment_rank,
+        args=args, reps_plain=5, bound=bound(nbytes, OPS_PER_RANK * n),
+        library=lambda: torch.cummax(vec, dim=0),
+        extra=dict(shape=f"n={n}, segments={n_seg}",
+                   gated=int(gate.sum()),
+                   tail=n - int(args[2][-1]),
+                   longest_segment=int((args[2] - seg_start).max())))
+
+
+def k6_case(name, args):
+    """A K6 case on recorded arguments (cnt_cells, lo_cells, unit_start,
+    unit_total, index_all, o_spec, gflat): bytes, the cell counts and the
+    units' two words once, a bucket offset and an index entry a list
+    candidate, and 33 bytes a list position written; ops, the scan of
+    every cell and a binary search over a unit's cells a candidate.  Its
+    yardstick: one torch.searchsorted of the list positions into the
+    cells' starts."""
+    import torch
+
+    from abismal_tpu_torch.kernels import candidate_list as cl
+
+    cnt, _lo, _us, unit_total, _idx, _o_spec, gflat = args
+    B, n_cells = cnt.shape
+    listed = min(int(unit_total.sum()), gflat)
+    nbytes = 8 * cnt.numel() + 16 * B + 16 * listed + 33 * gflat
+    steps = max(1, (n_cells - 1).bit_length())
+    flat = cnt.reshape(-1)
+    starts = torch.cumsum(flat, dim=0) - flat
+    f = torch.arange(gflat, device=cnt.device)
+    return dict(
+        name=name, plain=cl.candidate_list_plain, kernel=cl.candidate_list,
+        args=args, reps_plain=5,
+        bound=bound(nbytes, OPS_PER_RANK * cnt.numel()
+                    + OPS_PER_SEARCH_STEP * steps * listed),
+        library=lambda: torch.searchsorted(starts, f, right=True),
+        extra=dict(shape=f"B={B}, n_cells={n_cells}, gflat={gflat}",
+                   candidates=int(unit_total.sum()), listed=listed))
 
 
 def k4_traffic(args):
@@ -872,8 +1011,12 @@ def phase_kernels_ext(dev, threads, trex, sets):
     """Phase 7b: K4 against its plain version on the card on the pools
     that the first chunk of the 10k golden reads and of the 1 Gb SE set
     hand it (see ext_pool), and on the 1 Gb chunk's pool at the core's
-    static size (512 lanes: max(512, units / 4)), timed and read against
-    its bound as in the kernels phase."""
+    static size (512 lanes: max(512, units / 4)); K5 and K6 on what the
+    programs hand them on the first chunk of the 10k golden reads, of the
+    10k golden pairs and of the 1 Gb SE set (see scan_args); each timed
+    and read against its bound as in the kernels phase, and K5 and K6
+    beside the PyTorch call that their kernels took the place of
+    (LIBRARY_CALL), timed alone on the same sizes as a graph of 20."""
     clock = sm_clock_hz()
     (trex1,) = ext_pool(dev, trex, golden_fastqs("reads")[0], threads)
     g1, g1_512 = ext_pool(dev, sets["index"], sets["se"][0], threads,
@@ -881,9 +1024,23 @@ def phase_kernels_ext(dev, threads, trex, sets):
     pools = {"seed_extend_trex1": trex1, "seed_extend": g1,
              "seed_extend_1gb_512": g1_512}
     res = {"tolerance": TOL, "sm_clock_hz": clock,
-           "k4_gather_cycles": K4_GATHER_CYCLES}
+           "k4_gather_cycles": K4_GATHER_CYCLES,
+           "library_call": LIBRARY_CALL}
     for case in ext_cases(pools, clock):
         run_case(case, res)
+    cases = []
+    for (n5, n6), (index, fq1, fq2) in (
+            (("segment_rank", "candidate_list_trex1"),
+             (trex, golden_fastqs("reads")[0], None)),
+            (("segment_rank_pe", "candidate_list_pe"),
+             (trex, *golden_fastqs("reads_pe"))),
+            (("segment_rank_1gb", "candidate_list"),
+             (sets["index"], sets["se"][0], None))):
+        a5, a6 = scan_args(dev, index, threads, fq1, fq2)
+        cases += [k5_case(n5, a5), k6_case(n6, a6)]
+    for case in cases:
+        run_case(case, res)
+        res[case["name"]]["library_ms"] = graph_ms(case["library"])
     return res
 
 
@@ -1063,9 +1220,6 @@ def phase_goldens(dev, threads):
     import torch
 
     from abismal_tpu_torch.host import make_native_engine_factory
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
@@ -1076,8 +1230,7 @@ def phase_goldens(dev, threads):
     eng = factory(index, False, 0.1, 32, 3000)
     eng.profile = True
     out = {"index": how, "index_s": t_index}
-    kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed, seed_extend)
+    kernels = wrappers()
     for k in kernels:
         k.launches = 0
     for prefix in ("small", "reads"):
@@ -1123,16 +1276,14 @@ def phase_goldens_pe(dev, threads, index):
     mapped with -P, tests/golden/MANIFEST.md), then -a with random PBAT
     against the native engine."""
     from abismal_tpu_torch.host import make_native_engine_factory
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map import pipeline
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
     native = make_native_engine_factory(n_threads=threads)
     out = {}
-    kernels = (pc.popcount_compare, ba.banded_score_packed, seed_extend)
+    kernels = wrappers(("popcount_compare", "banded_score_packed",
+                        "seed_extend", "segment_rank", "candidate_list"))
     for k in kernels:
         k.launches = 0
     for prefix, pbat in PE_GOLDENS:
@@ -1186,20 +1337,23 @@ def phase_goldens_pe(dev, threads, index):
 def phase_events(dev, threads, index):
     """The event-stream route (device_stage2=False) on the goldens, without
     and with device_align: SAM and mstats byte for byte; K1 launches in
-    both, banded_score_packed in the align runs alone, K4 in both."""
+    both, banded_score_packed in the align runs alone, K4 and K6 in both
+    (build_stage1 has no slot ranks: no K5)."""
     from abismal_tpu_torch.kernels import banded_align as ba
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.candidate_list import candidate_list
     from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
 
     out = {}
     launches = {"popcount_compare": 0, "banded_score_packed": 0,
-                "seed_extend": 0}
+                "seed_extend": 0, "candidate_list": 0}
     for align in (False, True):
         factory = make_torch_native_engine_factory(
             dev, n_threads=threads, device_stage2=False, device_align=align)
         eng = factory(index, False, 0.1, 32, 3000)
-        for k in (pc.popcount_compare, ba.banded_score_packed, seed_extend):
+        for k in (pc.popcount_compare, ba.banded_score_packed, seed_extend,
+                  candidate_list):
             k.launches = 0
         for prefix, pbat in (("small", False), ("reads", False))+PE_GOLDENS:
             fq1, fq2 = golden_fastqs(prefix)
@@ -1215,7 +1369,7 @@ def phase_events(dev, threads, index):
             check(sam_ok and mst_ok, f"events {prefix} (device_align "
                   f"{align}): output differs from the golden")
             out[f"{prefix}{'_align' if align else ''}"] = st
-        for k in (pc.popcount_compare, seed_extend):
+        for k in (pc.popcount_compare, seed_extend, candidate_list):
             check(k.launches > 0,
                   f"{k.__name__} was not launched on the event route")
         moved = ba.banded_score_packed.launches
@@ -1225,6 +1379,7 @@ def phase_events(dev, threads, index):
         launches["popcount_compare"] += pc.popcount_compare.launches
         launches["banded_score_packed"] += moved
         launches["seed_extend"] += seed_extend.launches
+        launches["candidate_list"] += candidate_list.launches
     out["launches"] = launches
     # the CLI on the card, as a user runs the route: ABISMAL_TPU_STAGE2=0
     # and --device-align, on small; the golden SAM but for the @PG line
@@ -1374,12 +1529,9 @@ def phase_profile(dev, threads, card, trex, sets):
     to the uncut program's fallback flags; a cut program run with phase
     marks on; "unitstats" and the single-end bisection on the 1 Gb SE set
     with the scale phase's tables; trace_ops' top 10 CUDA kernels of a
-    tRex1 chunk.  K1-K4 must launch in the phase."""
+    tRex1 chunk.  K1-K6 must launch in the phase."""
     import numpy as np
 
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.tools import _workload as W
     from abismal_tpu_torch.tools import profile_stage12, profile_stage12pe
@@ -1389,8 +1541,7 @@ def phase_profile(dev, threads, card, trex, sets):
     def quiet(*_args):
         pass
 
-    kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed, seed_extend)
+    kernels = wrappers()
     for k in kernels:
         k.launches = 0
     factory = make_torch_native_engine_factory(dev, n_threads=threads)
@@ -1466,12 +1617,14 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
     on the goldens and on the 1 Gb SE set against the native engine's
     SAM; TorchMappingEngine (torch-replay) on the small goldens, in this
     process and through run_map_hybrid's three forked workers.  K1's
-    counter must move in every run, K4's in the phase; every rate stands
-    beside this call's native rate on the same reads."""
+    counter must move in every run, K4's and K6's in the phase (these
+    routes run build_stage1: no K5); every rate stands beside this call's
+    native rate on the same reads."""
     import torch
 
     from abismal_tpu_torch.host import make_native_engine_factory
     from abismal_tpu_torch.kernels import popcount_compare as pc
+    from abismal_tpu_torch.kernels.candidate_list import candidate_list
     from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import (
         make_torch_engine_factory, make_torch_native_engine_factory,
@@ -1503,7 +1656,7 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
     if torch.cuda.device_count() >= 2:
         facs["all"] = make_torch_native_engine_factory(
             dev, n_threads=threads, index_shards="all")
-    k1.launches = seed_extend.launches = 0
+    k1.launches = seed_extend.launches = candidate_list.launches = 0
     for name, fac in facs.items():
         for prefix in SHARD_GOLDENS:
             fq1, fq2 = golden_fastqs(prefix)
@@ -1562,8 +1715,10 @@ def phase_shards_replay(dev, threads, card, trex, sets, rates):
                 / max(1, eng.n_units - u0),
                 "sam_identical": sam_ok, "mstats_identical": mst_ok}, k0)
     out["launches"] = {"popcount_compare": n_k1,
-                       "seed_extend": seed_extend.launches}
-    check(seed_extend.launches > 0, "seed_extend was not launched")
+                       "seed_extend": seed_extend.launches,
+                       "candidate_list": candidate_list.launches}
+    for k in (seed_extend, candidate_list):
+        check(k.launches > 0, f"{k.__name__} was not launched")
     return out, out["launches"]
 
 
@@ -1661,14 +1816,10 @@ def phase_scaleout(dev, threads, card, trex, sets, rates):
     import torch
 
     from abismal_tpu_torch.host import NativeShardServer, write_stats
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import make_torch_native_engine_factory
     from abismal_tpu_torch.parallel.multihost import run_map_multihost
 
-    kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed, seed_extend)
+    kernels = wrappers()
     rates = {**rates, **sets["rates"]}
     big = sets["index"]
     n_cards = torch.cuda.device_count()
@@ -1829,6 +1980,8 @@ GRAPH_READS = 4096  # reads (or pairs) of a route's batch: two chunks or more
 GRAPH_TURNS = ("eager", "graphed", "graphed", "eager")
 GRAPH_RATE_GOLDENS = ("reads", "reads_pe")  # the tRex1 10k SE and PE sets
 # the CUDA runtime's calls that put work on a stream
+TOP_OPS = 10  # a batch's card ops by device time that launch_counts lists
+CARD_OP_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # trace categories
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync")
@@ -1891,13 +2044,17 @@ def launch_counts(kind, eng, reads, pairs, kernels):
     launches among them, and the kernels and copies the card ran; and
     the batch's runs of each kernel wrapper's __global__ kernel (named
     wrapper + "_kernel") that the card ran, which must equal the wrapper's
-    launch counter's growth over the batch.  The batch is a quarter of
-    the route's (one or two chunks): the profiler's own cost grows with
-    the events it records."""
+    launch counter's growth over the batch.  Also the card's device µs a
+    chunk and its TOP_OPS ops by device time ([name, runs, µs a chunk,
+    share]): for a graphed engine, a replay's breakdown.  The batch is a
+    quarter of the route's (one or two chunks): the profiler's own cost
+    grows with the events it records."""
     reads = reads[: len(reads) // 4]
     pairs = tuple(p[: len(p) // 4] for p in pairs)
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from abismal_tpu_torch.tools.trace_ops import top_events
 
     before = {k.__name__: k.launches for k in kernels}
     with profile(activities=[ProfilerActivity.CPU,
@@ -1919,8 +2076,16 @@ def launch_counts(kind, eng, reads, pairs, kernels):
             graph += e.count if e.key == "cudaGraphLaunch" else 0
     check(ran == counted, f"{kind}: the card ran the kernels {ran} times, "
           f"the launch counters grew {counted}")
+    # the card's ops by device time, from the trace's events (as trace_ops
+    # reads them)
+    path = os.path.join(WORK, "launch_counts_trace.json")
+    prof.export_chrome_trace(path)
+    top, total_us = top_events(path, CARD_OP_CATS, TOP_OPS)
     return dict(host_launches=host / n, graph_launches=graph / n,
-                device_ops=device / n, chunks=n, kernels_ran=ran)
+                device_ops=device / n, chunks=n, kernels_ran=ran,
+                device_us=total_us / n,
+                top_ops=[[name[:100], runs / n, us / n, us / total_us]
+                         for name, runs, us in top])
 
 
 def graph_routes(dev):
@@ -1982,25 +2147,22 @@ def phase_graphs(dev, threads, card, trex, sets):
     (torch.profiler), capture seconds and pool bytes of every key;
     whole-path rates eager and graphed in turns with the native engine
     on tRex1 10k SE, 10k PE and the 1 Gb SE set (with the peak device
-    memory of a map).  Each route's K1-K4 runs on the card, counted by
+    memory of a map).  Each route's K1-K6 runs on the card, counted by
     name in the profiler, equal the launch counters' growth, graphed and
-    eager alike.  Then K4 against its plain version inside the graphed
-    engines (ext_in_turns)."""
+    eager alike, beside the top card ops of a chunk by device time.  Then
+    K4, and K5 with K6, against their plain versions inside the graphed
+    engines (kernels_in_turns)."""
     import torch
 
     from abismal_tpu_torch import graphs as G
     from abismal_tpu_torch.host import make_native_engine_factory
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.map.pipeline import (
         TorchMappingEngine, TorchNativeEngine, make_torch_engine_factory,
         make_torch_native_engine_factory,
     )
     from abismal_tpu_torch.tools import _workload as W
 
-    kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed, seed_extend)
+    kernels = wrappers()
     for k in kernels:
         k.launches = 0
     reads = W.load_reads(golden_fastqs("reads")[0], GRAPH_READS)
@@ -2087,42 +2249,54 @@ def phase_graphs(dev, threads, card, trex, sets):
     for eng in eagers.values():
         if hasattr(eng, "close"):
             eng.close()
-    out["ext_plain"] = ext_in_turns(dev, threads, trex, sets, kernels)
+    for label, names in PLAIN_COMPARISONS:
+        out[f"{label}_plain"] = kernels_in_turns(dev, threads, trex, sets,
+                                                 kernels, label, names)
     out["launches"] = launches_moved(kernels, "graphs")
     return out, out["launches"]
 
 
-EXT_TURNS = ("plain", "k4", "k4", "plain")
 EXT_GOLDENS = {"fused_se": "reads", "fused_pe": "reads_pe"}
+# the in-graph comparisons of a kernel set with its plain versions: (label,
+# the programs' kernel entry points swapped, in turns with the plain ones)
+PLAIN_COMPARISONS = (("k4", ("seed_extend",)),
+                     ("k5k6", ("segment_rank", "candidate_list")))
 
 
 @contextlib.contextmanager
-def extension_of(mode):
-    """With mode "plain", the candidate core calls K4's plain version in
-    place of the wrapper until the block ends (the runs of the engine
-    that ext_in_turns compares K4 with: its graphs capture the plain
-    ops); with "k4", the wrapper, as ever."""
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend_plain
+def plain_versions(names, on=True):
+    """With on, the programs call the plain versions of the kernel entry
+    points `names` (map/pipeline.py attributes) in place of their
+    wrappers until the block ends (the runs of the engine that
+    kernels_in_turns compares the kernels with: its graphs capture the
+    plain ops); without, the wrappers, as ever."""
+    import importlib
+
     from abismal_tpu_torch.map import pipeline
 
-    inner = pipeline.seed_extend
-    if mode == "plain":
-        pipeline.seed_extend = seed_extend_plain
+    inner = {n: getattr(pipeline, n) for n in names}
+    if on:
+        for n in names:
+            mod = importlib.import_module(f"abismal_tpu_torch.kernels.{n}")
+            setattr(pipeline, n, getattr(mod, n + "_plain"))
     try:
         yield
     finally:
-        pipeline.seed_extend = inner
+        for n in names:
+            setattr(pipeline, n, inner[n])
 
 
-def ext_in_turns(dev, threads, trex, sets, kernels):
-    """A graphed engine with K4 against a graphed engine whose core runs
-    K4's plain version (extension_of("plain") around that engine's runs
-    alone), on fused SE and PE (the 10k golden reads and pairs) and the
-    1 Gb SE set: a batch of GRAPH_READS bit-equal, card ops a chunk and
-    the kernels' runs (launch_counts; K4 runs in the K4 engine alone);
-    after a warm map of each, whole maps in EXT_TURNS: the rate, each
-    replay's span (one event pair around it) and the SAM against the
-    golden or the native engine's; the native engine once."""
+def kernels_in_turns(dev, threads, trex, sets, kernels, label, names):
+    """A graphed engine with the kernels `names` against a graphed engine
+    whose programs run their plain versions (plain_versions around that
+    engine's runs alone), on fused SE and PE (the 10k golden reads and
+    pairs) and the 1 Gb SE set: a batch of GRAPH_READS bit-equal, card
+    ops a chunk, the kernels' runs and the top 10 card ops of a replay by
+    device time (launch_counts; the kernels run in the kernel engine
+    alone); after a warm map of each, whole maps in turns (plain, label,
+    label, plain): the rate, each replay's span (one event pair around
+    it) and the SAM against the golden or the native engine's; the
+    native engine once."""
     import torch
 
     from abismal_tpu_torch.host import make_native_engine_factory
@@ -2130,6 +2304,7 @@ def ext_in_turns(dev, threads, trex, sets, kernels):
     from abismal_tpu_torch.tools import _workload as W
 
     native = make_native_engine_factory(n_threads=threads)
+    turns = ("plain", label, label, "plain")
     out = {}
     for name, index, kind in (("fused_se", trex, "se"),
                               ("fused_pe", trex, "pe"),
@@ -2147,40 +2322,41 @@ def ext_in_turns(dev, threads, trex, sets, kernels):
                 want = f.read()
         reads = W.load_reads(fq1, GRAPH_READS)
         pairs = (reads, W.load_reads(fq2, GRAPH_READS)) if fq2 else ((), ())
-        sam = os.path.join(WORK, "ext_turns.sam")
+        sam = os.path.join(WORK, "kernels_turns.sam")
         engines = {m: TorchNativeEngine(index, device=dev, n_threads=threads)
-                   for m in ("plain", "k4")}
+                   for m in ("plain", label)}
         st = {m: dict(per_s=[], replay_ms=[]) for m in engines}
         outs = {}
         for m, eng in engines.items():
             eng.profile = True
-            with extension_of(m):
+            with plain_versions(names, m == "plain"):
                 outs[m] = batch_span(kind, eng, reads, pairs)[2]
                 st[m].update(launch_counts(kind, eng, reads, pairs, kernels))
                 map_with(W.engine_factory(eng), index, fq1, sam, None, cl,
                          threads, fq2)
-        check(len(outs["plain"]) == len(outs["k4"]) > 0
+        check(len(outs["plain"]) == len(outs[label]) > 0
               and all(a.dtype == b.dtype and torch.equal(a, b)
-                      for a, b in zip(outs["plain"], outs["k4"])),
-              f"ext {name}: the K4 engine's outputs differ from the plain "
-              "extension's")
-        ran = {m: st[m]["kernels_ran"]["seed_extend"] for m in engines}
-        check(ran["plain"] == 0 < ran["k4"],
-              f"ext {name}: K4 ran {ran} times by engine")
+                      for a, b in zip(outs["plain"], outs[label])),
+              f"{label} {name}: the kernels' outputs differ from the plain "
+              "versions'")
+        for k in names:
+            ran = {m: st[m]["kernels_ran"][k] for m in engines}
+            check(ran["plain"] == 0 < ran[label],
+                  f"{label} {name}: {k} ran {ran} times by engine")
         n = n_reads_of(fq1)
-        for m in EXT_TURNS:
+        for m in turns:
             eng = engines[m]
             c0 = len(eng.chunk_marks)
-            with extension_of(m):
+            with plain_versions(names, m == "plain"):
                 secs = map_with(W.engine_factory(eng), index, fq1, sam, None,
                                 cl, threads, fq2)
             st[m]["per_s"].append(n / secs)
             st[m]["replay_ms"].append(chunk_device_ms(eng, c0)["total_ms"])
             check(open(sam, "rb").read() == want,
-                  f"ext {name} ({m}): the SAM differs")
+                  f"{label} {name} ({m}): the SAM differs")
         for eng in engines.values():
             eng.close()
-        secs = map_with(native, index, fq1, os.path.join(WORK, "ext_n.sam"),
+        secs = map_with(native, index, fq1, os.path.join(WORK, "turns_n.sam"),
                         None, cl, threads, fq2)
         st.update(native_per_s=n / secs, outputs_bit_equal=True,
                   seconds=time.perf_counter() - t0)
@@ -2195,15 +2371,11 @@ def phase_tools(dev, threads, gres):
     """Phase 12: the port's bench and tuning and scaling tools, through
     their entry points, on the card; gres is the goldens phase's result."""
     from abismal_tpu_torch.cli import main as cli_main
-    from abismal_tpu_torch.kernels import banded_align as ba
-    from abismal_tpu_torch.kernels import popcount_compare as pc
-    from abismal_tpu_torch.kernels.seed_extend import seed_extend
     from abismal_tpu_torch.tools import (
         bench, multihost_scale, sweep_unit_batch, tune_hybrid, tune_stage2,
     )
 
-    kernels = (pc.popcount_compare, ba.banded_score_packed,
-               ba.banded_trace_packed, seed_extend)
+    kernels = wrappers()
     out, secs = {}, {}
 
     def timed(name, fn):
@@ -2281,8 +2453,10 @@ def kernels_line(kres, phase_launches):
             max_abs_err=max(kres[c]["max_abs_err"] for c in CASES[name]),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"],
-            # no single PyTorch call computes any of these functions
-            library_ms=None)
+            # K5's and K6's yardsticks, the scan and the search their
+            # kernels took the place of (LIBRARY_CALL); no single PyTorch
+            # call computes the other functions
+            library_ms=k.get("library_ms"))
         check(entry["launches"] > 0,
               f"{name} was not launched on the main paths")
         line.append(entry)
@@ -2344,7 +2518,9 @@ def main():
         t0 = time.perf_counter()
         kres.update(phase_kernels_ext(dev, threads, index, sets))
         emit("kernels_ext", seconds=time.perf_counter() - t0,
-             **{c: kres[c] for c in CASES["seed_extend"]})
+             **{c: kres[c] for k in ("seed_extend", "segment_rank",
+                                     "candidate_list") for c in CASES[k]},
+             library_call=LIBRARY_CALL)
 
         t0 = time.perf_counter()
         fres, launches_prof = phase_profile(dev, threads, card, index, sets)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's CUDA kernels K1-K4 of one or more checkouts on the
+"""Times the port's CUDA kernels K1-K6 of one or more checkouts on the
 card, at the shapes and seeds of chip_smoke.py's kernels phase, so that
 two versions of a kernel can be compared within one run.
 
@@ -17,7 +17,11 @@ tree must have the entry points of K1-K3 that script names.  K4
 (seed_extend) is timed on the pool that the first chunk of the 10k golden
 reads hands it in the tree's own engine (chip_smoke.py's ext_pool and
 ext_cases; the 1 Gb pool needs the scale phase's genome and is timed by
-chip_smoke.py alone); a tree without K4 is reported as lacking it."""
+chip_smoke.py alone); a tree without K4 is reported as lacking it.  K5
+(segment_rank) and K6 (candidate_list) are timed on what the tree's
+programs hand them on the first chunk of the 10k golden reads and of the
+10k golden pairs (chip_smoke.py's scan_args, k5_case and k6_case); a tree
+without them is reported as lacking them."""
 
 import argparse
 import importlib.util
@@ -45,15 +49,29 @@ def worker(tree):
     dev = torch.device("cuda")
     out = {"tree": tree}
     cases = cs.kernel_cases(dev)
-    if os.path.exists(os.path.join(tree, cs.SOURCES["seed_extend"])):
-        os.makedirs(cs.WORK, exist_ok=True)
-        threads = min(8, os.cpu_count() or 1)
-        index, _ = cs.trex1_index(threads)
+    os.makedirs(cs.WORK, exist_ok=True)
+    threads = min(8, os.cpu_count() or 1)
+    index, _ = cs.trex1_index(threads)
+
+    def has(name):
+        return os.path.exists(os.path.join(tree, cs.SOURCES[name]))
+
+    if has("seed_extend"):
         fq = cs.gunzip_to("reads_1.fq", cs.WORK)
         (pool,) = cs.ext_pool(dev, index, fq, threads)
         cases += cs.ext_cases({"seed_extend_trex1": pool}, cs.sm_clock_hz())
     else:
         out["seed_extend"] = "lacking: this tree has no K4"
+    if has("segment_rank") and has("candidate_list"):
+        for (n5, n6), fqs in (
+                (("segment_rank", "candidate_list_trex1"),
+                 cs.golden_fastqs("reads")),
+                (("segment_rank_pe", "candidate_list_pe"),
+                 cs.golden_fastqs("reads_pe"))):
+            a5, a6 = cs.scan_args(dev, index, threads, *fqs)
+            cases += [cs.k5_case(n5, a5), cs.k6_case(n6, a6)]
+    else:
+        out["segment_rank"] = "lacking: this tree has no K5 and K6"
     for case in cases:
         plain, kernel, args = case["plain"], case["kernel"], case["args"]
         want, got = plain(*args), kernel(*args)

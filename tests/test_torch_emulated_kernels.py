@@ -25,9 +25,10 @@ from tests.test_torch_fixtures import (  # noqa: F401
     port_index, release_engines,
 )
 from tests.test_torch_kernels import (
-    EXT_CASES, K3_CASES, LMAX, _k1_arrays, _k2_case, _k3_case,
-    _packed_arrays, _packed_score_arrays, ext_case, ext_case_covers,
-    repeat_genome,
+    EXT_CASES, K3_CASES, LIST_CASES, LMAX, SCAN_CASES, _k1_arrays, _k2_case,
+    _k3_case, _packed_arrays, _packed_score_arrays, ext_case,
+    ext_case_covers, list_case, program_scan_args, repeat_genome, scan_case,
+    scan_torch,
 )
 
 torch.set_num_threads(1)
@@ -260,3 +261,95 @@ def test_emulated_seed_extend(emulated, port_index, repeat, case):
     want = seed_extend_plain(*args)
     np.testing.assert_array_equal(out, np.stack([w.numpy() for w in want]))
     ext_case_covers(case, args, want)
+
+
+def _numpy(args):
+    """A K5 or K6 case's tensors as contiguous numpy arrays."""
+    return [np.ascontiguousarray(a.numpy()) if torch.is_tensor(a) else a
+            for a in args]
+
+
+def _segment_rank(lib, gate, seg_start, seg_end, ex):
+    """K5 (segment_rank_launch) on numpy operands, emulated: (rank,
+    counts), and ex_counts with ex."""
+    n, n_seg = gate.shape[0], seg_start.shape[0]
+    g, s0, s1 = (_c(gate, np.uint8), _c(seg_start, np.int64),
+                 _c(seg_end, np.int64))
+    x = None if ex is None else _c(ex, np.uint8)
+    outs = [np.full(n, -7, np.int64), np.full(n_seg, -7, np.int64)]
+    if ex is not None:
+        outs.append(np.full(n_seg, -7, np.int64))
+    rc = lib["segment_rank_launch"](
+        g.ctypes.data, None if x is None else x.ctypes.data, n,
+        s0.ctypes.data, s1.ctypes.data, n_seg, outs[0].ctypes.data,
+        outs[1].ctypes.data, None if x is None else outs[2].ctypes.data,
+        None)
+    assert rc == 0
+    return outs
+
+
+def _candidate_list(lib, cnt, lo, unit_start, unit_total, idx, o_spec,
+                    gflat):
+    """K6 (candidate_list_launch) on numpy operands, emulated: (b_of,
+    cell_of, slot, valid, pos)."""
+    B, n_cells = cnt.shape
+    a = [_c(x, np.int64) for x in (cnt, lo, unit_start, unit_total, idx)]
+    out = np.full((4, gflat), -7, np.int64)
+    valid = np.full(gflat, 7, np.uint8)
+    rc = lib["candidate_list_launch"](
+        *(x.ctypes.data for x in a), idx.shape[0], B, n_cells, o_spec, gflat,
+        out.ctypes.data, valid.ctypes.data, None)
+    assert rc == 0
+    assert set(np.unique(valid)) <= {0, 1}
+    return out[0], out[1], out[2], valid.view(bool), out[3]
+
+
+def _equal_plain(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_emulated_segment_rank(emulated, case):
+    """K5's CUDA source on its case list (empty segments, all and none
+    gated, a tail over several tail warps, spans clamped at n, a span of
+    2,500 entries, the PE form without a second mask): every rank and
+    count equals the plain version's."""
+    from abismal_tpu_torch.kernels.segment_rank import segment_rank_plain
+
+    args = scan_case(case)
+    _equal_plain(_segment_rank(emulated, *args),
+                 segment_rank_plain(*scan_torch(args)))
+
+
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_emulated_candidate_list(emulated, case):
+    """K6's CUDA source on its case list (a tail over two tail warps,
+    total > gflat with a unit across it, a unit at CELLCAP in 60 cells,
+    lmax 256, empty units, no candidate at all): every entry of the list
+    equals the plain version's."""
+    from abismal_tpu_torch.kernels.candidate_list import (
+        candidate_list_plain,
+    )
+
+    args = list_case(case)
+    _equal_plain(_candidate_list(emulated, *args),
+                 candidate_list_plain(*scan_torch(args)))
+
+
+def test_emulated_scan_kernels_on_program_inputs(emulated, port_index):
+    """K5 and K6's CUDA sources on what the engine's SE and PE programs
+    hand them on a chunk of golden reads and pairs: equal to their plain
+    versions."""
+    from abismal_tpu_torch.kernels.candidate_list import (
+        candidate_list_plain,
+    )
+    from abismal_tpu_torch.kernels.segment_rank import segment_rank_plain
+
+    for kind, (a5, a6) in program_scan_args(port_index).items():
+        args = list(a5) + [None] * (4 - len(a5))
+        _equal_plain(_segment_rank(emulated, *_numpy(args)),
+                     segment_rank_plain(*a5))
+        _equal_plain(_candidate_list(emulated, *_numpy(a6)),
+                     candidate_list_plain(*a6))

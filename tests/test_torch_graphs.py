@@ -10,8 +10,9 @@ or a replay cannot repeat: a host sync (aten._local_scalar_dense: any
 indexing with a bool mask) and a tensor made from Python data
 (aten.lift_fresh).  K1-K3 are left out of the mode: on the card each is
 one launch of its CUDA wrapper, and their plain CPU versions are not held
-to it.  K4's plain version (the seed extension) stays in it: the card
-smoke captures it in the engine it compares K4 with.
+to it.  The plain versions of K4 (the seed extension), K5 (the slot
+ranks) and K6 (the candidate list) stay in it: the card smoke captures
+them in the engines it compares those kernels with.
 
 The wrapper's bookkeeping: torch.cuda.CUDAGraph cannot run here, so a
 stand-in takes the place of graphs.capture; its replay runs the program
@@ -237,8 +238,10 @@ def stand_in(monkeypatch):
     version counting a launch of its wrapper, as the CUDA launch does."""
     from abismal_tpu_torch import graphs
     from abismal_tpu_torch.kernels import banded_align as ba
+    from abismal_tpu_torch.kernels import candidate_list as cl
     from abismal_tpu_torch.kernels import popcount_compare as pc
     from abismal_tpu_torch.kernels import seed_extend as se
+    from abismal_tpu_torch.kernels import segment_rank as sr
     from abismal_tpu_torch.map import pipeline
 
     monkeypatch.setattr(graphs, "capture", _stand_in_capture)
@@ -246,7 +249,9 @@ def stand_in(monkeypatch):
             (pc, "popcount_compare_plain", pc.popcount_compare),
             (ba, "banded_score_packed_plain", ba.banded_score_packed),
             (ba, "banded_trace_packed_plain", ba.banded_trace_packed),
-            (se, "seed_extend_plain", se.seed_extend)):
+            (se, "seed_extend_plain", se.seed_extend),
+            (sr, "segment_rank_plain", sr.segment_rank),
+            (cl, "candidate_list_plain", cl.candidate_list)):
         def counting(*args, _inner=getattr(mod, plain), _w=wrapper):
             _w.launches += 1
             return _inner(*args)
@@ -283,9 +288,10 @@ def _map(tmp_path, index, eng, prefix, pbat=False):
 
 
 @pytest.mark.parametrize("prefix,stage2,align,kernels", [
-    ("small", True, False, 4),  # fused SE: K1, K2, K3, K4
-    ("small_pe", True, False, 3),  # fused PE: K1, K2, K4
-    ("small", False, True, 3),  # the event route with device_align
+    ("small", True, False, 6),  # fused SE: K1-K6
+    ("small_pe", True, False, 5),  # fused PE: K1, K2, K4, K5, K6
+    ("small", False, True, 4),  # the event route with device_align: K1,
+    # K2, K4, K6
 ], ids=["fused-se", "fused-pe", "events-align"])
 def test_graphed_routes_give_the_goldens(tmp_path, port_index, stand_in,
                                          prefix, stage2, align, kernels):
@@ -315,6 +321,7 @@ def test_graphed_routes_give_the_goldens(tmp_path, port_index, stand_in,
     assert len(stats) == 1 and stats[0]["replays"] >= 3
     assert stats[0]["captured_launches"]["popcount_compare"] == 1
     assert stats[0]["captured_launches"]["seed_extend"] == 1
+    assert stats[0]["captured_launches"]["candidate_list"] == 1
 
 
 def test_pending_rows_are_not_static_buffers(port_index, stand_in):
@@ -347,5 +354,6 @@ def test_pending_rows_are_not_static_buffers(port_index, stand_in):
         assert torch.equal(rows, want)
     assert graphs.stats()[0]["captured_launches"] == {
         "popcount_compare": 1, "banded_score_packed": 1,
-        "banded_trace_packed": 1, "seed_extend": 1}
+        "banded_trace_packed": 1, "seed_extend": 1, "segment_rank": 1,
+        "candidate_list": 1}
     eng.close()

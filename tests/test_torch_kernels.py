@@ -453,12 +453,14 @@ def test_banded_score_packed_plain_matches_operands():
 
 @pytest.mark.parametrize("name", ["popcount_compare", "banded_score_packed",
                                   "banded_trace", "banded_trace_packed",
-                                  "seed_extend"])
+                                  "seed_extend", "segment_rank",
+                                  "candidate_list"])
 def test_wrapper_raises_off_cpu_and_cuda(name):
     """A wrapper given a tensor that is neither on the CPU nor on a card
     raises; it never falls back to the plain version."""
     from abismal_tpu_torch.kernels import (
-        banded_align, popcount_compare, seed_extend,
+        banded_align, candidate_list, popcount_compare, seed_extend,
+        segment_rank,
     )
 
     m = torch.zeros((128, LMAX), dtype=torch.uint8, device="meta")
@@ -478,6 +480,11 @@ def test_wrapper_raises_off_cpu_and_cuda(name):
             v, v.long(), m, v.long(), v.bool(), v.long(),
             *(v.long().reshape(2, 64),) * 4, v.long(), LMAX, 100, 4, 9,
             129, 256),
+        "segment_rank": lambda: segment_rank.segment_rank(
+            v.bool(), v.long()[:8], v.long()[:8], v.bool()),
+        "candidate_list": lambda: candidate_list.candidate_list(
+            v.long().reshape(4, 32), v.long().reshape(4, 32), v.long()[:4],
+            v.long()[:4], v.long(), 64, 256),
     }
     with pytest.raises(ValueError):
         calls[name]()
@@ -963,3 +970,251 @@ def test_seed_extend_kernel_matches_plain(cuda_device, ext_genomes, case):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     ext_case_covers(case, args, want)
+
+
+# --- K5 (segment_rank) and K6 (candidate_list) ------------------------------
+
+# K5's cases: spans laid out as the fused programs lay out reads (SE, with
+# the exact-match mask) or units (PE, "pe"); see scan_case
+SCAN_CASES = ("mixed", "empty-segments", "all-gated", "none-gated",
+              "long-tail", "clamped", "long-segment", "long-segments", "pe")
+# K6's cases: the cells of B units as the core makes them; see list_case
+LIST_CASES = ("tail", "over-gflat", "cellcap", "big-units", "lmax256",
+              "empty-units", "all-empty")
+CELLCAP = 128
+
+
+def scan_case(name, seed=0):
+    """K5's arguments (gate, seg_start, seg_end, ex or None), numpy, as the
+    fused programs make them: spans of random sizes, laid out by their
+    prefix and clamped to n, and gates false from the last span's end on
+    (the programs gate on valid = f < total).  "empty-segments" has runs
+    of empty spans (reads that share a start; the first and the last
+    ones empty), "long-tail" a pool mostly past its last span (several
+    tail warps), "clamped" spans that reach past n (starts at n),
+    "long-segment" one span of 2,500 entries, "long-segments" a dozen of
+    up to 1,500 (spans across the kernel's regions of 1,024)."""
+    rng = np.random.default_rng(seed + 10 * SCAN_CASES.index(name))
+    n, n_seg, size = 4099, 97, 60
+    if name == "long-tail":
+        n, n_seg, size = 9001, 40, 30
+    elif name == "clamped":
+        n, n_seg = 3000, 120
+    elif name == "long-segment":
+        n_seg = 9
+    elif name == "long-segments":
+        n, n_seg, size = 12000, 12, 1500
+    span = rng.integers(0, size, n_seg, endpoint=True)
+    if name == "empty-segments":
+        span[rng.random(n_seg) < 0.6] = 0
+        span[:3] = span[-2:] = 0
+    if name == "long-segment":
+        span[4] = 2500
+    start = np.cumsum(span) - span
+    total = int(span.sum())
+    if name == "clamped":
+        assert total > n and int((start >= n).sum()) > 2
+    elif name == "long-tail":
+        assert n - total > 3 * 2048
+    else:
+        assert total < n
+    live = np.arange(n) < min(total, n)
+    p = {"all-gated": 1.0, "none-gated": 0.0}.get(name, 0.45)
+    gate = live & (rng.random(n) < p)
+    ex = None if name == "pe" else gate & (rng.random(n) < 0.3)
+    return (gate, np.minimum(start, n), np.minimum(start + span, n), ex)
+
+
+def list_case(name, seed=0):
+    """K6's arguments (cnt_cells, lo_cells, unit_start, unit_total,
+    index_all, o_spec, gflat), numpy and ints, as the core makes them at
+    lmax 128 (n_cells 336) or 256 ("lmax256", 720): sparse cell counts up
+    to CELLCAP, bucket offsets into a random index whose entries include
+    values below a cell's seed offset (their positions wrap modulo 2^32).
+    "tail" leaves most of the list past the last candidate (whose cell,
+    the last overall, holds 3), "over-gflat" holds more candidates than
+    the list (units past it, one straddling it), "cellcap" a unit at
+    CELLCAP in 60 cells and two of 129 and 128 candidates (the kernel's
+    unit warps write 128), "big-units" three units
+    at CELLCAP in 40 cells with the list's end inside the third,
+    "empty-units" half of the units (the last three among them) without
+    candidates, "all-empty" none at all."""
+    from abismal_tpu_torch.constants import KEY_WEIGHT
+    from abismal_tpu_torch.map.host_units import o_spec_for
+
+    rng = np.random.default_rng(100 + seed + 10 * LIST_CASES.index(name))
+    lmax = 256 if name == "lmax256" else LMAX
+    o_spec = o_spec_for(lmax)
+    n_cells = 2 * (o_spec + lmax - KEY_WEIGHT + 1)
+    B, cand, n_idx = 24, 48, 5000
+    cnt = np.where(rng.random((B, n_cells)) < 0.04,
+                   rng.integers(1, 6, (B, n_cells)), 0)
+    if name in ("tail", "lmax256"):  # tails over two tail warps
+        cand = 200
+        cnt[-1, -1] = 3
+    elif name == "over-gflat":
+        cand = 8
+    elif name == "cellcap":
+        cnt[5, 10:70] = CELLCAP
+        cnt[7], cnt[8] = 0, 0
+        cnt[7, :43], cnt[8, 100:132] = 3, 4
+        cand = 400
+    elif name == "big-units":
+        cnt[[3, 4, 10], 20:60] = CELLCAP
+        unit_total = cnt.sum(axis=1)
+        cand = int(np.cumsum(unit_total)[9] + 2500) // B
+    elif name == "empty-units":
+        cnt[rng.random(B) < 0.5] = 0
+        cnt[-3:] = 0
+    elif name == "all-empty":
+        cnt[:] = 0
+    idx = rng.integers(0, 1 << 32, n_idx, dtype=np.uint64).astype(np.int64)
+    idx[::7] = rng.integers(0, 4, idx[::7].shape[0])
+    lo = rng.integers(0, n_idx - CELLCAP, (B, n_cells))
+    unit_total = cnt.sum(axis=1)
+    unit_start = np.cumsum(unit_total) - unit_total
+    gflat, total = B * cand, int(unit_total.sum())
+    assert (total > gflat) == (name in ("over-gflat", "big-units"))
+    return (cnt.astype(np.int64), lo.astype(np.int64), unit_start,
+            unit_total, idx, o_spec, gflat)
+
+
+def scan_torch(args, device="cpu"):
+    """numpy arrays of a K5 or K6 case as tensors on device (ints and
+    None as they are)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            if isinstance(a, np.ndarray) else a for a in args]
+
+
+def program_scan_args(index, device="cpu"):
+    """The arguments that the engine's programs hand K5 and K6 on their
+    first chunk (128 units) of golden reads and pairs (small_1.fq,
+    small_pe), recorded with the wrappers stood in for: {"se": (K5's,
+    K6's), "pe": (K5's, K6's)}, tensors on device."""
+    from abismal_tpu_torch.map import pipeline as pl
+    from abismal_tpu_torch.tools import _workload as W
+
+    eng = pl.TorchNativeEngine(index, unit_batch=128, n_threads=1,
+                               device=device, graphs=False)
+    names = ("segment_rank", "candidate_list")
+    inner = {k: getattr(pl, k) for k in names}
+    seen = {k: [] for k in names}
+
+    def stand_in(name):
+        def call(*args):
+            seen[name].append(args)
+            return inner[name](*args)
+        return call
+
+    out = {}
+    try:
+        for k in names:
+            setattr(pl, k, stand_in(k))
+        def reads(name, n):
+            return W.load_reads(os.path.join(HERE, "golden", name + ".gz"), n)
+
+        se = W.se_chunk(eng, reads("small_1.fq", 64))
+        eng._stage12_prog(se.per, se.budget)(*eng.dev.tables(), *se.on(eng))
+        out["se"] = (seen["segment_rank"][-1], seen["candidate_list"][-1])
+        pe = W.pe_chunk(eng, reads("small_pe_1.fq", 32),
+                        reads("small_pe_2.fq", 32))
+        eng._stage12pe_prog(pe.per, pe.budget)(*eng.dev.tables(),
+                                               *pe.on(eng))
+        out["pe"] = (seen["segment_rank"][-1], seen["candidate_list"][-1])
+    finally:
+        for k in names:
+            setattr(pl, k, inner[k])
+        eng.close()
+    assert all(len(v) == 2 for v in seen.values())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_segment_rank_kernel_matches_plain(cuda_device, case):
+    """K5 against its plain version on the card: every rank and count
+    equal, one launch."""
+    from abismal_tpu_torch.kernels import segment_rank as sr
+
+    args = scan_torch(scan_case(case), cuda_device)
+    n0 = sr.segment_rank.launches
+    got = sr.segment_rank(*args)
+    torch.cuda.synchronize()
+    assert sr.segment_rank.launches == n0 + 1
+    want = sr.segment_rank_plain(*args)
+    assert len(got) == len(want) == (2 if case == "pe" else 3)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_candidate_list_kernel_matches_plain(cuda_device, case):
+    """K6 against its plain version on the card: every entry of the list
+    equal, the tail's too, one launch."""
+    from abismal_tpu_torch.kernels import candidate_list as cl
+
+    args = scan_torch(list_case(case), cuda_device)
+    n0 = cl.candidate_list.launches
+    got = cl.candidate_list(*args)
+    torch.cuda.synchronize()
+    assert cl.candidate_list.launches == n0 + 1
+    want = cl.candidate_list_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_on_program_inputs(cuda_device):
+    """K5 and K6 on the card on what the engine's SE and PE programs hand
+    them (tRex1, golden reads and pairs): equal to their plain versions."""
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.kernels import candidate_list as cl
+    from abismal_tpu_torch.kernels import segment_rank as sr
+
+    index = create_index(os.path.join(HERE, "data", "tRex1.fa"))
+    for kind, (a5, a6) in program_scan_args(index, cuda_device).items():
+        for kernel, plain, args in ((sr.segment_rank, sr.segment_rank_plain,
+                                     a5),
+                                    (cl.candidate_list,
+                                     cl.candidate_list_plain, a6)):
+            for g, w in zip(kernel(*args), plain(*args)):
+                assert g.dtype == w.dtype and torch.equal(g, w), kind
+
+
+@pytest.mark.cuda
+def test_scan_kernels_are_capturable(cuda_device):
+    """K5 and K6 captured in one CUDA graph (each one launch on the
+    capture stream, no host sync), replayed on new inputs copied into the
+    captured ones: equal to their plain versions on those inputs, and each
+    counter moved once, at the capture."""
+    from abismal_tpu_torch.kernels import candidate_list as cl
+    from abismal_tpu_torch.kernels import segment_rank as sr
+
+    a5 = scan_torch(scan_case("mixed"), cuda_device)
+    a6 = scan_torch(list_case("tail"), cuda_device)
+
+    def run():
+        return sr.segment_rank(*a5), cl.candidate_list(*a6)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    n5, n6 = sr.segment_rank.launches, cl.candidate_list.launches
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out5, out6 = run()
+    assert (sr.segment_rank.launches, cl.candidate_list.launches) == (
+        n5 + 1, n6 + 1)
+    for dst, src in ((a5, scan_case("mixed", 1)), (a6, list_case("tail", 1))):
+        for d, a in zip(dst, scan_torch(src, cuda_device)):
+            if torch.is_tensor(d):
+                d.copy_(a)
+    g.replay()
+    torch.cuda.synchronize()
+    for got, want in ((out5, sr.segment_rank_plain(*a5)),
+                      (out6, cl.candidate_list_plain(*a6))):
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)

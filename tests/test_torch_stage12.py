@@ -74,12 +74,14 @@ def test_device_index_from_numpy_tables(port_index, tables):
                                 own.max_candidates, own.ext_iters)
 
 
-@pytest.mark.parametrize("max_cand,ext_pool", [
-    (None, None),  # the index's max_candidates, static pool
-    (2, 512),  # tiny buckets: the seed extension runs on many cells
-    (2, 16),  # ... through a pool that spills (ext_fb fallback flags)
-])
-def test_make_core_matches_jax(tables, max_cand, ext_pool):
+@pytest.mark.parametrize("max_cand,ext_pool,cand", [
+    (None, None, 64),  # the index's max_candidates, static pool
+    (2, 512, 64),  # tiny buckets: the seed extension runs on many cells
+    (2, 16, 64),  # ... through a pool that spills (ext_fb fallback flags)
+    (None, None, 256),  # a list mostly past its last candidate (K6's tail)
+    (2, 512, 4),  # more candidates than the list holds (total > gflat)
+], ids=["None-None", "2-512", "2-16", "tail", "over-gflat"])
+def test_make_core_matches_jax(tables, max_cand, ext_pool, cand):
     from abismal_tpu.map.pipeline import _make_core as jax_core
     from abismal_tpu_torch.map.pipeline import _make_core
 
@@ -87,7 +89,6 @@ def test_make_core_matches_jax(tables, max_cand, ext_pool):
     mc = max_cand or jdev.max_candidates
     pnib, lens, is_ga, _, _, _ = _units(0, 64)
     uextra = np.zeros((pnib.shape[0], 3), np.int32)
-    cand = 64
     core_j, _ = jax_core(LMAX, mc, jdev.n_index2, jdev.n_index3, cand,
                          tp=False, ext_iters=jdev.ext_iters,
                          ext_pool=ext_pool)
@@ -104,6 +105,12 @@ def test_make_core_matches_jax(tables, max_cand, ext_pool):
                                       err_msg=k)
     if ext_pool == 16:  # the inputs must reach the extension and spill
         assert int(np.asarray(want["overflow"]).sum()) > 0
+    total, gflat = int(got["unit_total"].sum()), pnib.shape[0] * cand
+    if cand == 256:  # the tail: most of the list past the last candidate
+        assert 0 < total < gflat // 2
+    if cand == 4:  # units past the list's end, and one across it
+        assert total > gflat
+        assert int((got["unit_start"] < gflat).sum()) < pnib.shape[0]
 
 
 def test_make_core_noext_matches_jax(tables, monkeypatch):

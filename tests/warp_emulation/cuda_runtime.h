@@ -71,15 +71,20 @@ static bool done[32];
 static int cur;       // the lane that runs
 static int gen[32];   // rendezvous each lane has passed
 static int xbuf[2][32];
+static int xgen[2][32];  // the rendezvous at which each value was published
 static std::function<void()> body;
 
 inline int lane() { return cur; }
 // publishes v, and returns when every live lane has published its own
 inline void rendezvous(int v) {
   xbuf[gen[cur] & 1][cur] = v;
+  xgen[gen[cur] & 1][cur] = gen[cur];
   swapcontext(&ctx[cur], &mainctx);
 }
 inline int peek(int src) { return xbuf[gen[cur] & 1][src]; }
+// whether lane src took part in this rendezvous (it may have returned
+// since: the lanes resume one after another)
+inline bool present(int src) { return xgen[gen[cur] & 1][src] == gen[cur]; }
 inline void passed() { ++gen[cur]; }
 
 static void entry() {
@@ -94,6 +99,7 @@ inline void run_warp(unsigned block, unsigned warp, unsigned bdim) {
   for (int l = 0; l < 32; ++l) {
     done[l] = false;
     gen[l] = 0;
+    xgen[0][l] = xgen[1][l] = -1;
     getcontext(&ctx[l]);
     ctx[l].uc_stack.ss_sp = stacks + l * STACK;
     ctx[l].uc_stack.ss_size = STACK;
@@ -161,7 +167,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   emu::rendezvous(p);
   unsigned r = 0;
   for (int i = 0; i < 32; ++i)
-    if (!emu::done[i] && emu::peek(i)) r |= 1u << i;
+    if (emu::present(i) && emu::peek(i)) r |= 1u << i;
   emu::passed();
   return r;
 }
@@ -170,7 +176,7 @@ inline int __reduce_max_sync(unsigned, int v) {
   emu::rendezvous(v);
   int r = v;
   for (int i = 0; i < 32; ++i)
-    if (!emu::done[i]) r = max(r, emu::peek(i));
+    if (emu::present(i)) r = max(r, emu::peek(i));
   emu::passed();
   return r;
 }
@@ -178,7 +184,7 @@ inline int __reduce_min_sync(unsigned, int v) {
   emu::rendezvous(v);
   int r = v;
   for (int i = 0; i < 32; ++i)
-    if (!emu::done[i]) r = min(r, emu::peek(i));
+    if (emu::present(i)) r = min(r, emu::peek(i));
   emu::passed();
   return r;
 }
@@ -186,7 +192,7 @@ inline int __reduce_add_sync(unsigned, int v) {
   emu::rendezvous(v);
   int r = 0;
   for (int i = 0; i < 32; ++i)
-    if (!emu::done[i]) r += emu::peek(i);
+    if (emu::present(i)) r += emu::peek(i);
   emu::passed();
   return r;
 }
