@@ -51,11 +51,11 @@ SIGNATURES = {
     },
     "seed_extend": {
         # genome32, n_gw, index_all, n_idx, pnib, W, lens, is_ga, base3,
-        # s2, e2, s3, e3, B, o_spec, lane_id, P, dqmax, qw, kw2, kw3, mc,
-        # ways, kary_iters, ext_w, n_sort, out, stream
+        # s2, e2, s3, e3, flat_act, cum_act, B, o_spec, P, dqmax, qw, kw2,
+        # kw3, mc, ways, kary_iters, ext_w, n_sort, cells, ext_fb, stream
         "seed_extend_launch": [_P, _L, _P, _L, _P, _I, _P, _P, _P, _P, _P,
-                               _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P, _P],
+                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "segment_rank": {
         # gate, ex (or NULL), n, seg_start, seg_end, n_seg, rank, counts,

@@ -1,15 +1,21 @@
-"""K4: the pooled seed extension of the candidate core, one warp a lane.
+"""K4: the pooled seed extension of the candidate core, from the pool's
+prefix count to the extended cells, in one launch.
 
-Replaces abismal_tpu/map/pipeline.py:679-787, the per-lane body of
-_make_core's pooled extension: the k-ary lower/upper-bound search (a
-jax.lax.fori_loop over bis_body, :701-745), the LCP window around the
-match range (:746-772) and the stop depth, rollback and final range
-(:767-787).  It is not a pl.pallas_call: the JAX core leaves it to XLA.
-The compaction of active cells into the pool and the scatter back into
-the per-cell arrays stay with the caller (map/pipeline.py, extension).
+Replaces abismal_tpu/map/pipeline.py:523-806 of _make_core's pooled
+extension but its prefix count: the pool's lane ids (jnp.nonzero,
+:556-557), the per-lane body (:579-787: the k-ary lower/upper-bound
+search, a jax.lax.fori_loop over bis_body, :701-745, the LCP window
+around the match range, :746-772, and the stop depth, rollback and final
+range, :767-787), the overflow and deep flags and the scatter back into
+the per-cell arrays (:789-806).  It is not a pl.pallas_call: the JAX core
+leaves it to XLA.  The caller keeps the active cells' flags and their
+prefix count (map/pipeline.py, extension).
 
-For each pooled lane (lane_id, 2 * B * o_spec for an empty slot), in the
-lane order [two-letter cells | three-letter cells] of (unit, offset):
+The cells are (B, o_spec) per table, in the lane order [two-letter cells
+| three-letter cells] of (unit, offset); flat_act flags the active ones
+(bucket > max_candidates) and cum_act is its cumsum.  Pool slot k holds
+the k-th active cell while k < pool (pool_lanes); the cells past the pool
+spill.  For each pooled lane:
   - the lane's bucket [lo0, hi0) of index_all (its list starts at idx_b:
     0 for the two-letter table, base3[unit] for the three-letter one)
     and its query: the class string of the unit's nibbles from offset
@@ -23,7 +29,9 @@ lane order [two-letter cells | three-letter cells] of (unit, offset):
     (mc - (Ub - Lb))-th largest of them, and from it the lane's depth
     l_out, range [lo_f, hi_f) and deep flag (a read longer than the sort
     depth).
-seed_extend_plain is the JAX core's arithmetic in torch ops, the
+A pooled lane's (l_out, lo_f, hi_f) replaces its cell's (KEY_WEIGHT or
+KEY_WEIGHT_THREE, s, e); ext_fb flags the units with a spilled or a deep
+lane.  seed_extend_plain is the JAX core's arithmetic in torch ops, the
 reference; seed_extend launches csrc/seed_extend.cu for CUDA tensors."""
 
 from __future__ import annotations
@@ -44,6 +52,16 @@ def class_words(lmax: int) -> tuple[int, int]:
     eight a word."""
     dqmax = lmax - KEY_WEIGHT_THREE
     return dqmax, (dqmax + 7) // 8
+
+
+def lookahead_depth(ways: int) -> int:
+    """Trips of the k-ary search that one round of K4's lane warp takes:
+    the largest d <= 4 at which both bounds' ways^d - 1 probes fit a warp
+    of 32 threads (ways 2: 4, ways 3 and 4: 2, from ways 5 on: 1)."""
+    d, p = 1, ways
+    while d < 4 and 2 * (p * ways - 1) <= 32:
+        p, d = p * ways, d + 1
+    return d
 
 
 def kary_iters_for(ext_iters: int, ways: int) -> int:
@@ -100,18 +118,13 @@ def lex(gcls, qcls, D, wj8):
     return lcp, cmp
 
 
-def seed_extend_plain(genome32, index_all, pnib, lens, is_ga, base3, s2, e2,
-                      s3, e3, lane_id, lmax, mc, ways, kary_iters, ext_w,
-                      n_sort):
-    """Plain PyTorch K4.  genome32 (NG,) int32 (u32 bits); index_all (N,)
-    int64 positions; pnib (B, W) u8 packed units; lens, base3 (B,) int64;
-    is_ga (B,) bool; s2, e2, s3, e3 (B, o_spec) int64 bucket ranges into
-    index_all (three-letter ones relative to base3); lane_id (P,) int64
-    pooled lane ids, 2 B o_spec for an empty slot; lmax, mc (max
-    candidates), ways, kary_iters, ext_w (window half-width) and n_sort
-    (the sort depth) ints.  Returns (l_out, lo_f, hi_f, deep), (P,) int64
-    each: the lane's extended depth, range, and 1 where it reaches past
-    n_sort."""
+def lanes_plain(genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3,
+                lane_id, lmax, mc, ways, kary_iters, ext_w, n_sort):
+    """The pooled lanes' search, window and stop depth: seed_extend_plain's
+    arguments, but lane_id (P,) int64, the pooled lane ids (2 B o_spec for
+    an empty slot; pool_lanes) for the flags and the pool.  Returns
+    (l_out, lo_f, hi_f, deep), (P,) int64 each: the lane's extended
+    depth, range, and 1 where it reaches past n_sort."""
     dev = lane_id.device
     P = lane_id.shape[0]
     B, o_spec = s2.shape
@@ -219,51 +232,125 @@ def seed_extend_plain(genome32, index_all, pnib, lens, is_ga, base3, s2, e2,
     return l_out, lo_f, hi_f, deep
 
 
+def pool_lanes(flat_act, cum_act, pool: int):
+    """The pool's lane ids (pool,): the active cells' ids in order, then
+    2 B o_spec for each empty slot (JAX's nonzero(size=pool,
+    fill_value=2 n_lanes)), from the flags and their prefix count, without
+    a host sync."""
+    n_cells = flat_act.shape[0]
+    pdest = torch.where(flat_act & (cum_act <= pool), cum_act - 1, pool)
+    lane_id = torch.full((pool + 1,), n_cells, dtype=I64,
+                         device=flat_act.device)
+    lane_id.scatter_(0, pdest, torch.arange(n_cells, device=flat_act.device))
+    return lane_id[:pool]
+
+
+def seed_extend_plain(genome32, index_all, pnib, lens, is_ga, base3, s2, e2,
+                      s3, e3, flat_act, cum_act, pool, lmax, mc, ways,
+                      kary_iters, ext_w, n_sort):
+    """Plain PyTorch K4.  genome32 (NG,) int32 (u32 bits); index_all (N,)
+    int64 positions; pnib (B, W) u8 packed units; lens, base3 (B,) int64;
+    is_ga (B,) bool; s2, e2, s3, e3 (B, o_spec) int64 bucket ranges into
+    index_all (three-letter ones relative to base3); flat_act (2 B o_spec,)
+    bool, the active cells, and cum_act its cumsum (int64); pool (slots),
+    lmax, mc (max candidates), ways, kary_iters, ext_w (window
+    half-width) and n_sort (the sort depth) ints.  Returns the extended
+    cells (l2, s2x, e2x, l3, s3x, e3x), (B, o_spec) int64 each, and ext_fb
+    (B,) bool, the units whose lanes spilled from the pool or reach past
+    n_sort."""
+    dev = pnib.device
+    B, o_spec = s2.shape
+    n_lanes = B * o_spec
+    lane_id = pool_lanes(flat_act, cum_act, pool)
+    # lanes beyond the pool flag their units for host fallback
+    over_lane = flat_act & (cum_act > pool)
+    ext_fb = over_lane.reshape(2, B, o_spec).any(dim=2).any(dim=0)
+
+    # the pooled lanes' search, window and stop depth
+    l_out, lo_f, hi_f, deep = lanes_plain(
+        genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3,
+        lane_id, lmax, mc, ways, kary_iters, ext_w, n_sort)
+    pvv = lane_id < 2 * n_lanes
+    lid = lane_id.clamp(max=2 * n_lanes - 1)
+    tbl3 = lid >= n_lanes
+    rem = lid % n_lanes
+    deep_u = torch.zeros(B, dtype=I64, device=dev).scatter_reduce(
+        0, torch.where(pvv, rem // o_spec, 0), deep, "amax")
+    ext_fb = ext_fb | (deep_u > 0)
+
+    # scatter pooled results back into the per-cell arrays
+    d_t2 = torch.where(pvv & ~tbl3, rem, n_lanes)
+    d_t3 = torch.where(pvv & tbl3, rem, n_lanes)
+
+    def put_back(init, dst, val):
+        flat = torch.cat([init.reshape(-1),
+                          torch.zeros(1, dtype=I64, device=dev)])
+        return flat.scatter(0, dst, val)[:n_lanes].reshape(B, o_spec)
+
+    kw2 = torch.full((B, o_spec), KEY_WEIGHT, dtype=I64, device=dev)
+    kw3 = torch.full((B, o_spec), KEY_WEIGHT_THREE, dtype=I64, device=dev)
+    l2, s2x, e2x = (put_back(kw2, d_t2, l_out), put_back(s2, d_t2, lo_f),
+                    put_back(e2, d_t2, hi_f))
+    l3, s3x, e3x = (put_back(kw3, d_t3, l_out), put_back(s3, d_t3, lo_f),
+                    put_back(e3, d_t3, hi_f))
+    return l2, s2x, e2x, l3, s3x, e3x, ext_fb
+
+
 def seed_extend(genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3,
-                e3, lane_id, lmax, mc, ways, kary_iters, ext_w, n_sort):
+                e3, flat_act, cum_act, pool, lmax, mc, ways, kary_iters,
+                ext_w, n_sort):
     """K4 wrapper: the plain version for CPU tensors, for CUDA tensors the
     CUDA kernel (or an error), one launch that takes no host sync and
-    allocates only its four outputs.  Same arguments and result as
-    seed_extend_plain."""
-    if lane_id.device.type == "cpu":
+    allocates only its outputs.  Same arguments and result as
+    seed_extend_plain; cum_act must be flat_act's cumsum."""
+    if pnib.device.type == "cpu":
         return seed_extend_plain(genome32, index_all, pnib, lens, is_ga,
-                                 base3, s2, e2, s3, e3, lane_id, lmax, mc,
-                                 ways, kary_iters, ext_w, n_sort)
+                                 base3, s2, e2, s3, e3, flat_act, cum_act,
+                                 pool, lmax, mc, ways, kary_iters, ext_w,
+                                 n_sort)
     genome32 = genome32.to(torch.int32).contiguous()
-    index_all, lens, base3, s2, e2, s3, e3, lane_id = (
+    index_all, lens, base3, s2, e2, s3, e3, cum_act = (
         t.to(I64).contiguous()
-        for t in (index_all, lens, base3, s2, e2, s3, e3, lane_id))
+        for t in (index_all, lens, base3, s2, e2, s3, e3, cum_act))
     pnib = pnib.to(torch.uint8).contiguous()
     is_ga = is_ga.to(torch.bool).contiguous()
+    flat_act = flat_act.to(torch.bool).contiguous()
     _build.require_device("seed_extend", genome32, index_all, pnib, lens,
-                          is_ga, base3, s2, e2, s3, e3, lane_id)
+                          is_ga, base3, s2, e2, s3, e3, flat_act, cum_act)
     B, o_spec = s2.shape
     if (any(t.shape != s2.shape for t in (e2, s3, e3))
             or any(t.shape != (B,) for t in (lens, is_ga, base3))
-            or pnib.shape[0] != B or lane_id.dim() != 1):
+            or pnib.shape[0] != B
+            or any(t.shape != (2 * B * o_spec,) for t in (flat_act,
+                                                         cum_act))):
         raise ValueError("seed_extend: operand shapes disagree")
     if ways < 2:
         raise ValueError(f"seed_extend: ways {ways} < 2")
-    if not mc + 1 <= 2 * ext_w:
-        raise ValueError(f"seed_extend: max_candidates {mc} needs a window "
-                         f"of more than {2 * ext_w} positions")
+    if not mc + 1 <= 2 * ext_w < 1 << 16:
+        raise ValueError(f"seed_extend: max_candidates {mc} and a window of "
+                         f"{2 * ext_w} positions: it needs more than mc + 1 "
+                         "and fewer than 65536")
     dqmax, qw = class_words(lmax)
-    P = lane_id.shape[0]
-    out = torch.empty((4, P), dtype=I64, device=lane_id.device)
-    if P:
+    if qw + 1 > 63 or 2 * B * o_spec >= 1 << 31:
+        raise ValueError(f"seed_extend: lmax {lmax} above 512, or "
+                         f"{2 * B * o_spec} cells, 2^31 or more")
+    cells = torch.empty((6, B, o_spec), dtype=I64, device=pnib.device)
+    ext_fb = torch.empty(B, dtype=torch.bool, device=pnib.device)
+    if B * o_spec:
         lib = _build.load()
-        with torch.cuda.device(lane_id.device):
+        with torch.cuda.device(pnib.device):
             rc = lib.seed_extend_launch(
                 genome32.data_ptr(), genome32.shape[0], index_all.data_ptr(),
                 index_all.shape[0], pnib.data_ptr(), pnib.shape[1],
                 lens.data_ptr(), is_ga.data_ptr(), base3.data_ptr(),
                 s2.data_ptr(), e2.data_ptr(), s3.data_ptr(), e3.data_ptr(),
-                B, o_spec, lane_id.data_ptr(), P, dqmax, qw, KEY_WEIGHT,
-                KEY_WEIGHT_THREE, mc, ways, kary_iters, ext_w, n_sort,
-                out.data_ptr(), _build.stream_of(lane_id))
+                flat_act.data_ptr(), cum_act.data_ptr(), B, o_spec, pool,
+                dqmax, qw, KEY_WEIGHT, KEY_WEIGHT_THREE, mc, ways,
+                kary_iters, ext_w, n_sort, cells.data_ptr(),
+                ext_fb.data_ptr(), _build.stream_of(pnib))
         _build.check(rc, "seed_extend")
         seed_extend.launches += 1
-    return out[0], out[1], out[2], out[3]
+    return (*cells.unbind(0), ext_fb)
 
 
 seed_extend.launches = 0

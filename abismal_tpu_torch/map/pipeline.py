@@ -291,62 +291,21 @@ def _make_core(lmax: int, max_candidates: int, n_index2: int, n_index3: int,
                   act3_sp, s2, e2, s3, e3, EXT_POOL):
         """The pooled seed extension, LCP-window method (see the JAX core,
         pipeline.py:513-806): active lanes (bucket > max_candidates)
-        compact into EXT_POOL slots; per lane, K4 (seed_extend) runs the
-        k-ary lower/upper-bound search for the class-string match range
-        and takes the stop depth from the window LCPs around it; the
-        results scatter back into the cells.  Returns the extended cells
-        (l2, s2x, e2x, l3, s3x, e3x) and ext_fb, the units whose lanes
-        spilled from the pool or reach past the sort depth."""
-        dev = pnib.device
-        B = pnib.shape[0]
-
-        def ar(n):
-            return torch.arange(n, device=dev)
-
-        n_lanes = B * o_spec
+        compact into EXT_POOL slots by their prefix count; K4
+        (seed_extend) finds each slot's lane, runs its k-ary
+        lower/upper-bound search for the class-string match range, takes
+        the stop depth from the window LCPs around it and writes the
+        cells.  Returns the extended cells (l2, s2x, e2x, l3, s3x, e3x)
+        and ext_fb, the units whose lanes spilled from the pool or reach
+        past the sort depth."""
         flat_act = torch.cat([(act2_sp & ((e2 - s2) > mc)).reshape(-1),
                               (act3_sp & ((e3 - s3) > mc)).reshape(-1)])
-        cum_act = torch.cumsum(flat_act.to(I64), dim=0)
-        # nonzero(size=EXT_POOL, fill_value=2 n_lanes) without a host sync
-        pdest = torch.where(flat_act & (cum_act <= EXT_POOL), cum_act - 1,
-                            EXT_POOL)
-        lane_id = torch.full((EXT_POOL + 1,), 2 * n_lanes, dtype=I64,
-                             device=dev)
-        lane_id.scatter_(0, pdest, ar(2 * n_lanes))
-        lane_id = lane_id[:EXT_POOL]
-        # lanes beyond the pool flag their units for host fallback
-        over_lane = flat_act & (cum_act > EXT_POOL)
-        ext_fb = over_lane.reshape(2, B, o_spec).any(dim=2).any(dim=0)
-
-        # the pooled lanes' search, window and stop depth: K4
-        l_out, lo_f, hi_f, deep = seed_extend(
-            genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3,
-            lane_id, lmax, mc, ways, kary_iters, EXT_W, N_SORTING_POSITIONS)
-        pvv = lane_id < 2 * n_lanes
-        lid = lane_id.clamp(max=2 * n_lanes - 1)
-        tbl3 = lid >= n_lanes
-        rem = lid % n_lanes
-        deep_u = torch.zeros(B, dtype=I64, device=dev).scatter_reduce(
-            0, torch.where(pvv, rem // o_spec, 0), deep, "amax")
-        ext_fb = ext_fb | (deep_u > 0)
-
-        # scatter pooled results back into the per-cell arrays
-        d_t2 = torch.where(pvv & ~tbl3, rem, n_lanes)
-        d_t3 = torch.where(pvv & tbl3, rem, n_lanes)
-
-        def put_back(init, dst, val):
-            flat = torch.cat([init.reshape(-1),
-                              torch.zeros(1, dtype=I64, device=dev)])
-            return flat.scatter(0, dst, val)[:n_lanes].reshape(B, o_spec)
-
-        kw2 = torch.full((B, o_spec), KEY_WEIGHT, dtype=I64, device=dev)
-        kw3 = torch.full((B, o_spec), KEY_WEIGHT_THREE, dtype=I64, device=dev)
-        l2, s2x, e2x = (put_back(kw2, d_t2, l_out), put_back(s2, d_t2, lo_f),
-                        put_back(e2, d_t2, hi_f))
-        l3, s3x, e3x = (put_back(kw3, d_t3, l_out), put_back(s3, d_t3, lo_f),
-                        put_back(e3, d_t3, hi_f))
-
-        return l2, s2x, e2x, l3, s3x, e3x, ext_fb
+        # the prefix count of nonzero(size=EXT_POOL): slot k holds the
+        # active cell whose count is k + 1
+        cum_act = torch.cumsum(flat_act, dim=0)
+        return seed_extend(genome32, index_all, pnib, lens, is_ga, base3, s2,
+                           e2, s3, e3, flat_act, cum_act, EXT_POOL, lmax, mc,
+                           ways, kary_iters, EXT_W, N_SORTING_POSITIONS)
 
     def core(genome32, counter2, counter3, index_all, pnib, lens, is_ga,
              uextra, shard=None):

@@ -59,17 +59,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
               equal; the SE reads also through the event route with
               device_align (reads/s beside the native control, fallback,
               jobs scored on the device);
-  7b. kernels_ext  K4 (seed_extend, the pooled seed extension's search,
-              LCP window and stop depth) against its plain version on the
-              card on the pools that the first 2048-unit chunk of the 10k
-              golden reads and of the 1 Gb SE set hand it (lmax 128; the
-              engine sizes the pool from a sample of the index), and on
-              the 1 Gb chunk's pool at the core's static 512 lanes,
-              recorded from the eager program: exact equality, the
-              device time from a CUDA graph of 20 launches, the plain
-              version's in turns, the bytes these lanes' trips and windows
-              need and their bound, and chain_ms, a model of the longest
-              lane's chain of dependent gathers (not measured, no bound);
+  7b. kernels_ext  K4 (seed_extend, the pooled seed extension from the
+              pool's prefix count to the extended cells: each slot's lane,
+              its search, LCP window and stop depth, and the cells no lane
+              holds) against its plain version on the card on the pools
+              that the first 2048-unit chunk of the 10k golden reads and
+              of the 1 Gb SE set hand it (lmax 128; the engine sizes the
+              pool from a sample of the index), on the 1 Gb chunk's pool
+              at the core's static 512 lanes, and on a pool of 512 slots
+              all live (a chunk of reads of the repeat genome of
+              tools/debug_ext.py), recorded from the eager program: exact
+              equality, the device time from a CUDA graph of 20 launches
+              beside the earlier design's (K4_LANE_BODY_US), the plain
+              version's in turns, the bytes the cells and these lanes'
+              trips and windows need and their bound, and chain_ms, a
+              model of the longest lane's chain of dependent loads in
+              this design beside the earlier design's (chain_ms_old;
+              neither measured, no bound);
               K5 (segment_rank, the slot ranks) and K6 (candidate_list,
               the global candidate list) the same way on what the
               programs hand them on the first chunk of the 10k golden
@@ -186,7 +192,8 @@ REPLACES = {
     "banded_score_packed": "abismal_tpu/kernels/banded_align.py:44",
     "banded_trace_packed": "abismal_tpu/kernels/banded_align.py:99",
     # K4: not a Pallas kernel; the JAX core's fori_loop over bis_body
-    # (pipeline.py:679-787: the search, the LCP window, the stop depth)
+    # (pipeline.py:679-787: the search, the LCP window, the stop depth),
+    # with the pool's lane ids, flags and scatter back (:523-806)
     "seed_extend": "abismal_tpu/map/pipeline.py:743",
     # K5, K6: not Pallas kernels; the JAX programs' associative_scan
     # carries: the SE slot ranks (:1296-1323; PE :1680-1697) and the
@@ -203,7 +210,7 @@ CASES = {
                             "banded_trace_packed",
                             "banded_trace_packed_2048"),
     "seed_extend": ("seed_extend_trex1", "seed_extend",
-                    "seed_extend_1gb_512"),
+                    "seed_extend_1gb_512", "seed_extend_full_pool"),
     "segment_rank": ("segment_rank", "segment_rank_pe", "segment_rank_1gb"),
     "candidate_list": ("candidate_list_trex1", "candidate_list_pe",
                        "candidate_list"),
@@ -237,11 +244,23 @@ PACKED_GENOME_WORDS = 1 << 26  # 256 MB of packed genome, beyond the L2
 K3_CHAIN_CYCLES = 100
 # K4's chain: cycles of one dependent gather that misses the L1 (an index
 # entry, or the genome words it names): about the device memory's latency.
-# Its longest lane runs 2 a trip and 2 a round of its window (9 rounds of
-# 32 positions for 258): a model, not a bound, and not measured
+# The longest live lane's links (k4_chain): the slot search's steps over
+# cum_act, the setup's loads, two a round of the search (an index entry,
+# then all its genome words), and the window's (its index entries, then
+# its genome words, a link a batch of positions).  The earlier design's
+# model (one trip a round, the lane body alone), 2 a trip and 2 a round
+# of 32 window positions, stays beside it (it left out the compare's
+# dependent word rounds).  A model, not a bound, and not measured
 K4_GATHER_CYCLES = 800
+# K4's earlier design alone on the card (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md's kernel table), by case: the lane body, without the lane ids
+# and the scatter back that the kernel now also does
+K4_LANE_BODY_US = {"seed_extend_trex1": 5.09, "seed_extend": 22.45,
+              "seed_extend_1gb_512": 22.81}
+K4_SEARCH = 128  # cum_act positions a step of the slot search (the kernel's)
 OPS_PER_CLASS_WORD = 14  # funnel shift, 8 class ops, xor, mask, test, ...
 EXT_POOL_STATIC = 512  # the core's pool where no engine sizes it, B = 2048
+FULL_POOL_READS = 1024  # repeat-genome reads of the full-pool case: a chunk
 
 SOURCES = {
     "popcount_compare": "abismal_tpu_torch/csrc/popcount_compare.cu",
@@ -911,12 +930,15 @@ def k6_case(name, args):
 def k4_traffic(args):
     """What K4 needs on args, counted from this run's data: (bytes, the
     integer operations of its compares, the longest lane's trips, probes,
-    window positions).  The plain version runs once with its compare (lex)
-    recorded; the search is replayed from the recorded comparisons, so
-    that only the probes of bounds still open count, as in the kernel.
-    Bytes: each lane's own inputs and outputs, 8 per index entry a probe
-    or a valid window position reads, and the genome words each compare
-    reads up to its first differing class word (two for the first)."""
+    window positions, live lanes).  The plain version runs once with its
+    compare (lex) recorded; the search is replayed from the recorded
+    comparisons, so that only the probes of bounds still open count (the
+    kernel's look-ahead probes more, which no bound counts).  Bytes: the
+    cells' flags, counts and bucket bounds read and their six extended
+    arrays and ext_fb written, each once; each live lane's own inputs, 8
+    per index entry a probe or a valid window position reads, and the
+    genome words each compare reads up to its first differing class word
+    (two for the first)."""
     import torch
 
     from abismal_tpu_torch.kernels import seed_extend as se
@@ -933,9 +955,10 @@ def k4_traffic(args):
         se.seed_extend_plain(*args)
     finally:
         se.lex = inner
-    (_g, _i, _p, _l, _ga, _b, s2, e2, s3, e3, lane_id, lmax, _mc, ways,
-     kary_iters, ext_w, _ns) = args
+    (_g, _i, _p, _l, _ga, _b, s2, e2, s3, e3, flat_act, cum_act, pool, lmax,
+     _mc, ways, kary_iters, ext_w, _ns) = args
     check(len(calls) == kary_iters + 1, "K4's plain version changed shape")
+    lane_id = se.pool_lanes(flat_act, cum_act, pool)
     P = lane_id.shape[0]
     n_lanes = s2.numel()
     pvv = lane_id < 2 * n_lanes
@@ -958,7 +981,7 @@ def k4_traffic(args):
     trips = torch.zeros_like(lane_id)
     aL, bL, aU, bU = lo0, hi0, lo0, hi0
     for lcp, cmp, D in calls[:kary_iters]:
-        cL, cU = aL < bL, aU < bU
+        cL, cU = (aL < bL) & pvv, (aU < bU) & pvv
         trips += cL | cU
         live = torch.cat([cL.repeat(nprb), cU.repeat(nprb)])
         probes += int(live.sum())
@@ -978,12 +1001,50 @@ def k4_traffic(args):
              & pvv[:, None]).reshape(-1)
     n_win = int(valid.sum())
     gwords += int(words(lcp_w, Dw)[valid].sum())
-    # a lane's id, length, conversion, list base and bucket, its query's
-    # nibbles (8 a class word, two a byte) and its four outputs
-    per_lane = 8 + 8 + 1 + 8 + 16 + 4 * se.class_words(lmax)[1] + 32
-    nbytes = P * per_lane + 8 * (probes + n_win) + 4 * gwords
+    n_live = int(pvv.sum())
+    # a live lane's length, conversion, list base and bucket, its query's
+    # nibbles (8 a class word, two a byte); the cells: a flag and a count
+    # each, four bucket bounds and six extended values a (unit, offset),
+    # ext_fb a unit
+    per_lane = 8 + 1 + 8 + 16 + 4 * se.class_words(lmax)[1]
+    cell_bytes = 2 * n_lanes * 9 + n_lanes * (32 + 48) + s2.shape[0]
+    nbytes = (cell_bytes + n_live * per_lane + 8 * (probes + n_win)
+              + 4 * gwords)
     return (nbytes, OPS_PER_CLASS_WORD * gwords, int(trips.max()), probes,
-            n_win)
+            n_win, n_live)
+
+
+def k4_chain(args, trips):
+    """The longest live lane's chain of dependent loads in the kernel's
+    design, as links: (total, by part).  The slot search's steps over
+    cum_act (replayed as the kernel takes them, for the last live slot),
+    the setup (the cell's bucket, length and query, at once), two a round
+    of the search (trips / the look-ahead depth, rounded up), and two a
+    batch of the window's positions (their list entries, then their
+    genome words).  It counts loads alone: the integer work between them,
+    which the kernel's stamps showed to be most of a round, is left out."""
+    from abismal_tpu_torch.kernels import seed_extend as se
+
+    cum = args[11].cpu().tolist()
+    pool, lmax, ways, ext_w = args[12], args[13], args[15], args[17]
+    want, lo, hi, steps = min(cum[-1], pool), -1, len(cum) - 1, 0
+    if not want:  # no live lane: an empty slot leaves after one load
+        return 1, dict(slot_search=1)
+    while hi - lo > 1:
+        steps += 1
+        span = hi - lo
+        if span - 1 <= K4_SEARCH:
+            break
+        q = [lo + (i + 1) * span // (K4_SEARCH + 1) for i in range(K4_SEARCH)]
+        f = next((i for i, x in enumerate(q) if x < hi and cum[x] >= want),
+                 K4_SEARCH)
+        hi, lo = (q[f] if f < K4_SEARCH else hi), (q[f - 1] if f else lo)
+    nw = se.class_words(lmax)[1] + 1
+    pb = 3 if nw <= 15 else (2 if nw <= 31 else 1)
+    parts = dict(slot_search=steps, setup=1,
+                 search=2 * -(-trips // se.lookahead_depth(ways)),
+                 window=2 * -(-(-(-2 * ext_w // 32)) // pb))
+    return sum(parts.values()), parts
 
 
 def ext_cases(pools, clock):
@@ -992,26 +1053,62 @@ def ext_cases(pools, clock):
 
     cases = []
     for name, args in pools.items():
-        nbytes, ops, trips, probes, n_win = k4_traffic(args)
-        P, ext_w = args[10].shape[0], args[15]
-        links = 2 * trips + 2 * -(-2 * ext_w // 32)
+        nbytes, ops, trips, probes, n_win, live = k4_traffic(args)
+        B, ways, ext_w = args[6].shape[0], args[15], args[17]
+        links, parts = k4_chain(args, trips)
+        old = 2 * trips + 2 * -(-2 * ext_w // 32)
         cases.append(dict(
             name=name, plain=se.seed_extend_plain, kernel=se.seed_extend,
             args=args, reps_plain=3, bound=bound(nbytes, ops),
             extra=dict(
-                shape=f"P={P}, B={args[6].shape[0]}",
-                lanes=int((args[10] < 2 * args[6].numel()).sum()),
-                ways=args[13], kary_iters=args[14], longest_trips=trips,
-                probes=probes, window_positions=n_win, chain_links=links,
-                chain_ms=links * K4_GATHER_CYCLES / clock * 1e3)))
+                shape=f"P={args[12]}, B={B}", lanes=live,
+                active_cells=int(args[11][-1]), ways=ways,
+                kary_iters=args[16], lookahead=se.lookahead_depth(ways),
+                longest_trips=trips, probes=probes, window_positions=n_win,
+                chain_links=links, chain_parts=parts,
+                chain_ms=links * K4_GATHER_CYCLES / clock * 1e3,
+                chain_links_old=old,
+                chain_ms_old=old * K4_GATHER_CYCLES / clock * 1e3,
+                lane_body_us=K4_LANE_BODY_US.get(name))))
     return cases
+
+
+def full_pool_args(dev, threads):
+    """K4's arguments on a pool of EXT_POOL_STATIC slots, every one live:
+    the first chunk of FULL_POOL_READS 100-base substrings of the repeat
+    genome of abismal_tpu_torch/tools/debug_ext.py (tandem repeats: buckets
+    far above max_candidates on most cells), recorded as ext_pool does
+    with that pool size."""
+    import numpy as np
+
+    from abismal_tpu_torch.host import create_index
+    from abismal_tpu_torch.tools.debug_ext import ext_genome
+
+    fa = os.path.join(WORK, "ext_genome.fa")
+    ext_genome(fa)
+    with open(fa) as f:
+        seq = "".join(ln.strip() for ln in f if not ln.startswith(">"))
+    starts = np.random.default_rng(7).integers(0, len(seq) - 100,
+                                               FULL_POOL_READS)
+    fq = os.path.join(WORK, "ext_genome_reads.fq")
+    with open(fq, "w") as f:
+        for i, s0 in enumerate(starts):
+            f.write(f"@r{i}\n{seq[s0 : s0 + 100].upper()}\n+\n"
+                    + "I" * 100 + "\n")
+    index = create_index(fa, n_threads=threads)
+    (args,) = ext_pool(dev, index, fq, threads, (EXT_POOL_STATIC,))
+    check(args[12] == EXT_POOL_STATIC
+          and int(args[11][-1]) > EXT_POOL_STATIC,
+          "the full-pool case's pool is not full")
+    return args
 
 
 def phase_kernels_ext(dev, threads, trex, sets):
     """Phase 7b: K4 against its plain version on the card on the pools
     that the first chunk of the 10k golden reads and of the 1 Gb SE set
-    hand it (see ext_pool), and on the 1 Gb chunk's pool at the core's
-    static size (512 lanes: max(512, units / 4)); K5 and K6 on what the
+    hand it (see ext_pool), on the 1 Gb chunk's pool at the core's
+    static size (512 lanes: max(512, units / 4)), and on a pool of that
+    size with every slot live (full_pool_args); K5 and K6 on what the
     programs hand them on the first chunk of the 10k golden reads, of the
     10k golden pairs and of the 1 Gb SE set (see scan_args); each timed
     and read against its bound as in the kernels phase, and K5 and K6
@@ -1022,7 +1119,8 @@ def phase_kernels_ext(dev, threads, trex, sets):
     g1, g1_512 = ext_pool(dev, sets["index"], sets["se"][0], threads,
                           (None, EXT_POOL_STATIC))
     pools = {"seed_extend_trex1": trex1, "seed_extend": g1,
-             "seed_extend_1gb_512": g1_512}
+             "seed_extend_1gb_512": g1_512,
+             "seed_extend_full_pool": full_pool_args(dev, threads)}
     res = {"tolerance": TOL, "sm_clock_hz": clock,
            "k4_gather_cycles": K4_GATHER_CYCLES,
            "library_call": LIBRARY_CALL}

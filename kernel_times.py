@@ -14,10 +14,13 @@ graph of its launches (ms), the time of a Python loop of launches
 whether the result equals the plain version's.  The cases and the timers
 are those of the chip_smoke.py beside this script (kernel_cases), so every
 tree must have the entry points of K1-K3 that script names.  K4
-(seed_extend) is timed on the pool that the first chunk of the 10k golden
-reads hands it in the tree's own engine (chip_smoke.py's ext_pool and
-ext_cases; the 1 Gb pool needs the scale phase's genome and is timed by
-chip_smoke.py alone); a tree without K4 is reported as lacking it.  K5
+(seed_extend) is timed on the pools that the tree's own engine hands it
+(chip_smoke.py's ext_pool), with the tree's own wrapper and plain version:
+the first chunk of the 10k golden reads, and the first chunk of
+chip_smoke.py's scale-phase SE reads on its 1 Gb synthetic genome at the
+engine's pool size and at 512 slots (the genome, its index and the reads
+are made once, in this process, and each tree's process reads the index
+from its file); a tree without K4 is reported as lacking it.  K5
 (segment_rank) and K6 (candidate_list) are timed on what the tree's
 programs hand them on the first chunk of the 10k golden reads and of the
 10k golden pairs (chip_smoke.py's scan_args, k5_case and k6_case); a tree
@@ -41,7 +44,30 @@ def smoke_module():
     return mod
 
 
-def worker(tree):
+def scale_set(cs, size_mb):
+    """(index file, SE reads) of chip_smoke.py's scale phase at size_mb
+    megabases: its genome, index and 20k simulated reads (seed 1), made
+    here with the checkout's own code."""
+    from abismal_tpu_torch.host import (
+        SimConfig, create_index, simulate_reads, write_index,
+    )
+    from abismal_tpu_torch.tools._workload import gen_genome
+
+    os.makedirs(cs.WORK, exist_ok=True)
+    size = size_mb * 1_000_000
+    fa = os.path.join(cs.WORK, f"scale_{size}.fa")
+    if not os.path.exists(fa):
+        gen_genome(fa, size)
+    idx = os.path.join(cs.WORK, f"scale_{size}.idx")
+    write_index(create_index(fa, n_threads=min(8, os.cpu_count() or 1)), idx)
+    pre = os.path.join(cs.WORK, f"scale_{size}_r")
+    simulate_reads(fa, SimConfig(output_prefix=pre, n_reads=20000,
+                                 mutation_rate=0.01, bs_conv=0.98, seed=1,
+                                 single_end=True))
+    return idx, pre + "_1.fq"
+
+
+def worker(tree, scale_idx=None, scale_fq=None):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -57,9 +83,20 @@ def worker(tree):
         return os.path.exists(os.path.join(tree, cs.SOURCES[name]))
 
     if has("seed_extend"):
+        from abismal_tpu_torch.host import read_index
+        from abismal_tpu_torch.kernels import seed_extend as se
+
         fq = cs.gunzip_to("reads_1.fq", cs.WORK)
-        (pool,) = cs.ext_pool(dev, index, fq, threads)
-        cases += cs.ext_cases({"seed_extend_trex1": pool}, cs.sm_clock_hz())
+        pools = dict(zip(("seed_extend_trex1",),
+                         cs.ext_pool(dev, index, fq, threads)))
+        if scale_idx:
+            pools.update(zip(
+                ("seed_extend", "seed_extend_1gb_512"),
+                cs.ext_pool(dev, read_index(scale_idx), scale_fq, threads,
+                            (None, cs.EXT_POOL_STATIC))))
+        cases += [dict(name=n, plain=se.seed_extend_plain,
+                       kernel=se.seed_extend, args=a)
+                  for n, a in pools.items()]
     else:
         out["seed_extend"] = "lacking: this tree has no K4"
     if has("segment_rank") and has("candidate_list"):
@@ -88,10 +125,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--scale-set", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help="also write the lines here")
     a = ap.parse_args()
     if a.worker:
-        worker(a.worker)
+        worker(a.worker, *(a.scale_set or ()))
         return 0
     import torch
 
@@ -104,10 +143,12 @@ def main():
         check=True).stdout.strip()
     lines = [json.dumps({"card": card})]
     print(lines[0], flush=True)
+    cs = smoke_module()
+    extra = ["--scale-set", *scale_set(cs, cs.SCALE_MB)]
     for tree in a.tree or [ROOT]:
         res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker", tree],
-            capture_output=True, text=True)
+            [sys.executable, os.path.abspath(__file__), "--worker", tree,
+             *extra], capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr, file=sys.stderr)
             return 1

@@ -226,40 +226,44 @@ def repeat(tmp_path_factory):
 
 def _seed_extend(lib, args):
     """K4 (seed_extend_launch) on the arguments the core hands the
-    wrapper, emulated: its (4, P) int64 outputs."""
+    wrapper, emulated: its cells (6, B, o_spec) int64 and ext_fb (B,)."""
     from abismal_tpu_torch.constants import KEY_WEIGHT, KEY_WEIGHT_THREE
     from abismal_tpu_torch.kernels.seed_extend import class_words
 
-    genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3, lane_id = (
-        np.ascontiguousarray(t.numpy()) for t in args[:11])
-    lmax, mc, ways, kary_iters, ext_w, n_sort = args[11:]
-    is_ga = is_ga.view(np.uint8)
-    P = lane_id.shape[0]
-    out = np.full((4, P), -7, np.int64)
+    (genome32, index_all, pnib, lens, is_ga, base3, s2, e2, s3, e3, flat_act,
+     cum_act) = (np.ascontiguousarray(t.numpy()) for t in args[:12])
+    pool, lmax, mc, ways, kary_iters, ext_w, n_sort = args[12:]
+    B, o_spec = s2.shape
+    cells = np.full((6, B, o_spec), -7, np.int64)
+    ext_fb = np.full(B, 7, np.uint8)
     rc = lib["seed_extend_launch"](
         genome32.ctypes.data, genome32.shape[0], index_all.ctypes.data,
         index_all.shape[0], pnib.ctypes.data, pnib.shape[1],
-        lens.ctypes.data, is_ga.ctypes.data, base3.ctypes.data,
-        s2.ctypes.data, e2.ctypes.data, s3.ctypes.data, e3.ctypes.data,
-        s2.shape[0], s2.shape[1], lane_id.ctypes.data, P,
-        *class_words(lmax), KEY_WEIGHT, KEY_WEIGHT_THREE, mc, ways,
-        kary_iters, ext_w, n_sort, out.ctypes.data, None)
+        lens.ctypes.data, is_ga.view(np.uint8).ctypes.data,
+        base3.ctypes.data, s2.ctypes.data, e2.ctypes.data, s3.ctypes.data,
+        e3.ctypes.data, flat_act.view(np.uint8).ctypes.data,
+        cum_act.ctypes.data, B, o_spec, pool, *class_words(lmax),
+        KEY_WEIGHT, KEY_WEIGHT_THREE, mc, ways, kary_iters, ext_w, n_sort,
+        cells.ctypes.data, ext_fb.ctypes.data, None)
     assert rc == 0
-    return out
+    assert set(np.unique(ext_fb)) <= {0, 1}
+    return [*cells, ext_fb.view(bool)]
 
 
 @pytest.mark.parametrize("case", EXT_CASES)
 def test_emulated_seed_extend(emulated, port_index, repeat, case):
     """K4's CUDA source on pools of real lanes: tRex1 units, a pool of
     mostly empty slots, the repeat genome's oversized buckets (many trips,
-    windows of equal LCPs) at ways 2, 4 and 8, lmax 256, deep lanes and
-    lanes of depth 0; every output equals the plain version's."""
+    windows of equal LCPs) at ways 2, 4 and 8, lmax 256, deep lanes, lanes
+    of depth 0, buckets that are not sorted in the compare (with the
+    search cut short) and a pool of 512 live lanes; every cell and ext_fb
+    equal the plain version's."""
     from abismal_tpu_torch.kernels.seed_extend import seed_extend_plain
 
     args = ext_case(case, port_index, repeat, pool=128)
     out = _seed_extend(emulated, args)
     want = seed_extend_plain(*args)
-    np.testing.assert_array_equal(out, np.stack([w.numpy() for w in want]))
+    _equal_plain(out, want)
     ext_case_covers(case, args, want)
 
 

@@ -1,5 +1,5 @@
 """The port stands alone: no module of abismal_tpu_torch (nor
-chip_smoke.py, nor the two timing scripts beside it) imports jax or
+chip_smoke.py, nor the three timing scripts beside it) imports jax or
 anything of the JAX package abismal_tpu, importing every module of the port loads neither, chip_smoke.py imports
 only the port, the tools (the bench and the scaling tool among them) run
 without it, whole `map`, `idx` and `sim` runs through the port's CLI
@@ -26,7 +26,8 @@ PORT = os.path.join(ROOT, "abismal_tpu_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, f) for f in (
-        "chip_smoke.py", "kernel_times.py", "path_rates.py")]
+        "chip_smoke.py", "kernel_times.py", "path_rates.py",
+        "k4_phases.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

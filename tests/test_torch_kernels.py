@@ -478,8 +478,8 @@ def test_wrapper_raises_off_cpu_and_cuda(name):
             v, m, v.long(), v.long(), v.long(), v.long(), v.bool(), LMAX),
         "seed_extend": lambda: seed_extend.seed_extend(
             v, v.long(), m, v.long(), v.bool(), v.long(),
-            *(v.long().reshape(2, 64),) * 4, v.long(), LMAX, 100, 4, 9,
-            129, 256),
+            *(v.long().reshape(2, 64),) * 4, torch.cat([v, v]).bool(),
+            torch.cat([v, v]).long(), 512, LMAX, 100, 4, 9, 129, 256),
         "segment_rank": lambda: segment_rank.segment_rank(
             v.bool(), v.long()[:8], v.long()[:8], v.bool()),
         "candidate_list": lambda: candidate_list.candidate_list(
@@ -815,7 +815,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # K4's cases: lanes of real units, the arguments the candidate core hands
 # the wrapper (see ext_case)
 EXT_CASES = ("trex1", "trex1-empty", "repeat-w2", "repeat-w4", "repeat-w8",
-             "lmax256", "deep", "dl0")
+             "lmax256", "deep", "dl0", "nonmono", "full-pool")
+# the argument list's places (ext_args): the lane flags and their prefix
+# count, the pool, lmax, mc, ways, kary_iters, ext_w, the sort depth
+EXT_ACT, EXT_CUM, EXT_POOL, EXT_LMAX, EXT_MC, EXT_WAYS, EXT_ITERS = range(
+    10, 17)
+EXT_NSORT = 18
 
 
 def golden_reads(name, n):
@@ -836,8 +841,8 @@ def ext_args(index, reads, lmax=LMAX, mc=None, ext_pool=512,
              device="cpu"):
     """The arguments the candidate core hands K4 (seed_extend) on the
     T-rich and A-rich units of reads, recorded from a run of _make_core
-    (cut "extend") with the wrapper stood in for: a list of 11 tensors on
-    device and the 6 ints."""
+    (cut "extend") with the wrapper stood in for: a list of 12 tensors on
+    device and the 7 ints."""
     from abismal_tpu_torch.map import pipeline as pl
     from abismal_tpu_torch.map.host_units import (
         get_conv_is_ga, prepare_units, strand_code,
@@ -872,15 +877,98 @@ def ext_args(index, reads, lmax=LMAX, mc=None, ext_pool=512,
 
 
 def repeat_genome(out_dir):
-    """(index, reads) of the seed-extension check's repeat genome
-    (abismal_tpu_torch/tools/debug_ext.py): buckets far above
+    """(index, reads, FASTA path) of the seed-extension check's repeat
+    genome (abismal_tpu_torch/tools/debug_ext.py): buckets far above
     max_candidates, whose windows are full of equal LCPs."""
     from abismal_tpu_torch.index.build import create_index
     from abismal_tpu_torch.tools.debug_ext import ext_genome
 
     fa = os.path.join(str(out_dir), "ext_genome.fa")
     reads = ext_genome(fa)
-    return create_index(fa), reads
+    return create_index(fa), reads, fa
+
+
+def live_lanes(args):
+    """K4's pooled lanes on args: (cell id, three-letter, cell of its
+    table), one entry a live slot, in slot order."""
+    from abismal_tpu_torch.kernels.seed_extend import pool_lanes
+
+    B, o_spec = args[6].shape
+    n = B * o_spec
+    lane_id = pool_lanes(args[EXT_ACT], args[EXT_CUM], args[EXT_POOL])
+    lid = lane_id[lane_id < 2 * n].cpu()
+    return lid, lid >= n, lid % n
+
+
+def shuffle_buckets(args, seed):
+    """args with the buckets of every live lane permuted in index_all, so
+    that the genome's class strings along a bucket are not in order (as
+    on an IUPAC genome, whose three-letter keys wrap mod 3^16)."""
+    _, t3, rem = live_lanes(args)
+    s2, e2, s3, e3, base3 = (args[i].cpu() for i in (6, 7, 8, 9, 5))
+    o_spec = s2.shape[1]
+    lo = torch.where(t3, s3.reshape(-1)[rem], s2.reshape(-1)[rem])
+    hi = torch.where(t3, e3.reshape(-1)[rem], e2.reshape(-1)[rem])
+    base = torch.where(t3, base3[rem // o_spec], 0)
+    idx = args[1].cpu().numpy().copy()
+    rng = np.random.default_rng(seed)
+    for a, b in sorted(set(zip((base + lo).tolist(), (base + hi).tolist()))):
+        idx[a:b] = idx[a:b][rng.permutation(b - a)]
+    out = list(args)
+    out[1] = torch.from_numpy(idx).to(args[1].device)
+    return out
+
+
+def nonmonotone_trips(args):
+    """(lane, trip, bound) triples of the plain version's search on args
+    whose bound was open and whose compares were not monotone along the
+    probes (a false probe before a true one): the trips after which a
+    bound is not one of the sub-intervals of the trip's probes."""
+    from abismal_tpu_torch.kernels import seed_extend as se
+
+    calls, inner = [], se.lex
+
+    def rec(gcls, qcls, D, wj8):
+        lcp, cmp = inner(gcls, qcls, D, wj8)
+        calls.append(cmp.cpu())
+        return lcp, cmp
+
+    se.lex = rec
+    try:
+        se.seed_extend_plain(*args)
+    finally:
+        se.lex = inner
+    ways, iters = args[EXT_WAYS], args[EXT_ITERS]
+    B, o_spec = args[6].shape
+    n = B * o_spec
+    lane_id = se.pool_lanes(args[EXT_ACT], args[EXT_CUM], args[EXT_POOL])
+    live = (lane_id < 2 * n).cpu()
+    lid = lane_id.clamp(max=2 * n - 1).cpu()
+    t3, rem = lid >= n, lid % n
+    s2, e2, s3, e3 = (args[i].cpu().reshape(-1) for i in (6, 7, 8, 9))
+    lo0 = torch.where(t3, s3[rem], s2[rem])
+    hi0 = torch.where(t3, e3[rem], e2[rem])
+    P, nprb = lane_id.shape[0], ways - 1
+    kf = torch.arange(1, ways)[:, None]
+    aL, bL, aU, bU = lo0, hi0, lo0, hi0
+    found = 0
+    for cmp in calls[:iters]:
+        out = []
+        for h, (a, b) in enumerate(((aL, bL), (aU, bU))):
+            w = b - a
+            p = (a[None] + kf * (w[None] // ways)
+                 + (kf * (w[None] % ways)) // ways)
+            c = cmp[h * nprb * P : (h + 1) * nprb * P].reshape(nprb, P)
+            g = c < 0 if h == 0 else c <= 0
+            # a false probe before a true one
+            seen_false = torch.cummax((~g).int(), dim=0).values.bool()
+            bad = (seen_false[:-1] & g[1:]).any(dim=0)
+            found += int((bad & (a < b) & live).sum())
+            op = (a < b)[None]
+            out += [torch.where(op & g, p + 1, a[None]).max(dim=0).values,
+                    torch.where(op & ~g, p, b[None]).min(dim=0).values]
+        aL, bL, aU, bU = out
+    return found
 
 
 def ext_case(name, trex1, repeat, device="cpu", pool=512):
@@ -889,23 +977,33 @@ def ext_case(name, trex1, repeat, device="cpu", pool=512):
     10: a few lanes); the repeat genome at ways 2, 4, 8 (with their trip
     counts); lmax 256 on 250-base substrings of tRex1, and the same with a
     sort depth of 150 so that lanes turn deep; units cut short so that
-    lanes have depth Dl = 0."""
+    lanes have depth Dl = 0; the repeat genome's lanes with their buckets
+    shuffled and three trips of the search (nonmono); 512 slots, every one
+    live, from 200 more reads of the repeat genome (full-pool)."""
     from abismal_tpu_torch.kernels.seed_extend import kary_iters_for
     from abismal_tpu_torch.map.host_units import ext_iters_for
 
-    if name.startswith("repeat"):
-        index, reads = repeat
+    if name.startswith("repeat") or name == "nonmono":
+        index, reads, _ = repeat
         args = ext_args(index, reads, ext_pool=pool, device=device)
-        ways = int(name[-1])
-        args[13:15] = [ways, kary_iters_for(ext_iters_for(index), ways)]
+        ways = 4 if name == "nonmono" else int(name[-1])
+        args[EXT_WAYS:EXT_ITERS + 1] = [
+            ways, kary_iters_for(ext_iters_for(index), ways)]
+        if name == "nonmono":
+            args = shuffle_buckets(args, 15)
+            args[EXT_ITERS] = 3  # below convergence: two rounds, 2 + 1
         return args
+    if name == "full-pool":
+        index, reads, fa = repeat
+        reads = reads + genome_reads(fa, 200, 100, 15)
+        return ext_args(index, reads, ext_pool=512, device=device)
     if name in ("lmax256", "deep"):
         reads = genome_reads(os.path.join(HERE, "data", "tRex1.fa"), 32,
                              250, 5)
         args = ext_args(trex1, reads, lmax=256, mc=2, ext_pool=pool // 2,
                         device=device)
         if name == "deep":
-            args[16] = 150
+            args[EXT_NSORT] = 150
         return args
     reads = golden_reads("small_1.fq", 64)
     args = ext_args(trex1, reads, mc=10 if name == "trex1-empty" else 2,
@@ -919,35 +1017,44 @@ def ext_case(name, trex1, repeat, device="cpu", pool=512):
 
 def ext_case_covers(name, args, want):
     """What case name must exercise, read from its arguments and the plain
-    version's outputs."""
+    version's outputs (the cells and ext_fb)."""
     from abismal_tpu_torch.constants import KEY_WEIGHT_THREE
 
-    lane_id, lmax, mc = args[10], args[11], args[12]
-    B, o_spec = args[6].shape
-    pvv = lane_id < 2 * B * o_spec
-    l_out, lo_f, hi_f, deep = (w.cpu() for w in want)
-    assert int(pvv.sum()) > 0
+    pool, lmax, mc = args[EXT_POOL], args[EXT_LMAX], args[EXT_MC]
+    o_spec = args[6].shape[1]
+    lid, t3, rem = live_lanes(args)
+    cells = [w.cpu().reshape(-1) for w in want[:6]]
+    l_out = torch.where(t3, cells[3][rem], cells[0][rem])
+    lo_f = torch.where(t3, cells[4][rem], cells[1][rem])
+    hi_f = torch.where(t3, cells[5][rem], cells[2][rem])
+    ext_fb = want[6].cpu()
+    lens = args[3].cpu()
+    assert lid.shape[0] > 0
     if name == "trex1-empty":
-        assert int((~pvv).sum()) > lane_id.shape[0] // 2
+        assert pool - lid.shape[0] > pool // 2
     if name.startswith("repeat"):  # ranges still above mc, and narrowed
-        live = pvv.cpu()
-        assert int(((hi_f - lo_f)[live] > mc).sum()) > 0
-        assert int((l_out[live] > KEY_WEIGHT_THREE + 1).sum()) > 0
+        assert int(((hi_f - lo_f) > mc).sum()) > 0
+        assert int((l_out > KEY_WEIGHT_THREE + 1).sum()) > 0
     if name == "deep":
-        assert int(deep.sum()) > 0
+        deep = lens[rem // o_spec] - rem % o_spec > args[EXT_NSORT]
+        assert int(deep.sum()) > 0 and bool(ext_fb[rem[deep] // o_spec].all())
     if name == "dl0":
-        lid = lane_id.clamp(max=2 * B * o_spec - 1) % (B * o_spec)
-        short = (lid // o_spec) % 5 == 0
-        assert int((pvv & short.to(pvv.device)).sum()) > 0
+        assert int(((rem // o_spec) % 5 == 0).sum()) > 0
     if name == "lmax256":  # compares deeper than lmax 128's 14 words
-        lid = lane_id.clamp(max=2 * B * o_spec - 1) % (B * o_spec)
-        depth = args[3].to(lid.device)[lid // o_spec] - lid % o_spec - 16
-        assert lmax == 256 and int(depth[pvv].max()) > 8 * 14
+        depth = lens[rem // o_spec] - rem % o_spec - 16
+        assert lmax == 256 and int(depth.max()) > 8 * 14
+    if name == "nonmono":  # trips that leave no sub-interval
+        assert nonmonotone_trips(args) > 0
+    if name == "full-pool":  # every slot live, and lanes past the pool
+        total = int(args[EXT_CUM][-1])
+        assert pool == 512 and lid.shape[0] == pool < total
+        assert bool(ext_fb.any())
 
 
 @pytest.fixture(scope="module")
 def ext_genomes(tmp_path_factory):
-    """(the tRex1 index, (repeat index, reads)), built with the port."""
+    """(the tRex1 index, (repeat index, reads, FASTA)), built with the
+    port."""
     from abismal_tpu_torch.index.build import create_index
 
     return (create_index(os.path.join(HERE, "data", "tRex1.fa")),
@@ -957,8 +1064,8 @@ def ext_genomes(tmp_path_factory):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", EXT_CASES)
 def test_seed_extend_kernel_matches_plain(cuda_device, ext_genomes, case):
-    """K4 against its plain version on the card: every lane's depth, range
-    and deep flag equal."""
+    """K4 against its plain version on the card: every cell and ext_fb
+    equal."""
     from abismal_tpu_torch.kernels import seed_extend as se
 
     args = ext_case(case, *ext_genomes, device=cuda_device)
@@ -967,6 +1074,7 @@ def test_seed_extend_kernel_matches_plain(cuda_device, ext_genomes, case):
     torch.cuda.synchronize()
     assert se.seed_extend.launches == n0 + 1
     want = se.seed_extend_plain(*args)
+    assert len(got) == len(want) == 7
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     ext_case_covers(case, args, want)

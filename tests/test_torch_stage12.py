@@ -272,32 +272,64 @@ def repeat_tables(tmp_path_factory):
     return jdev, tdev, (pnib, lens, np.array(is_ga))
 
 
-@pytest.mark.parametrize("ways", [2, 4, 8])
-def test_extdbg_repeat_genome_matches_jax(repeat_tables, monkeypatch, ways):
+@pytest.mark.parametrize("genome,ways", [
+    pytest.param("repeat", w, id=str(w)) for w in (2, 4, 8)] + [
+    pytest.param("trex1", w, id=f"trex1-{w}") for w in (2, 4, 8)])
+def test_extdbg_repeat_genome_matches_jax(repeat_tables, tables, monkeypatch,
+                                          genome, ways):
     """The extension's per-cell arrays (the "extdbg" cut, K4's plain
     version on the CPU) equal JAX's on oversized buckets, with the k-ary
     search at ways 2, 4 and 8 (ABISMAL_TPU_EXT_WAYS, read when each core
-    is built and traced)."""
+    is built and traced): on the repeat genome, and on tRex1 golden reads
+    at max_candidates 2.  K4's plain version, called on the arguments the
+    core hands it, gives JAX's cells and ext_fb too."""
     from abismal_tpu.map.pipeline import _make_core as jax_core
-    from abismal_tpu_torch.constants import KEY_WEIGHT
-    from abismal_tpu_torch.map.pipeline import _make_core
+    from abismal_tpu_torch.constants import KEY_WEIGHT, KEY_WEIGHT_THREE
+    from abismal_tpu_torch.kernels.seed_extend import seed_extend_plain
+    from abismal_tpu_torch.map import pipeline as pl
+    from abismal_tpu_torch.map.pipeline import u32_to_i32
 
-    jdev, tdev, (pnib, lens, is_ga) = repeat_tables
+    if genome == "repeat":
+        jdev, tdev, (pnib, lens, is_ga) = repeat_tables
+        mc = jdev.max_candidates
+    else:
+        jdev, tdev = tables
+        pnib, lens, is_ga, _, _, _ = _units(0, 64)
+        mc = 2
     monkeypatch.setenv("ABISMAL_TPU_EXT_WAYS", str(ways))
     uextra = np.zeros((pnib.shape[0], 3), np.int32)
-    mc = jdev.max_candidates
     core_j, _ = jax_core(LMAX, mc, jdev.n_index2, jdev.n_index3, 64,
                          tp=False, cut="extdbg", ext_iters=jdev.ext_iters)
     want = jax.jit(core_j)(*jdev.tables(), pnib, lens, is_ga, uextra)
-    core_t, _ = _make_core(LMAX, mc, jdev.n_index2, jdev.n_index3, 64,
-                           ext_iters=jdev.ext_iters, cut="extdbg")
+    core_t, _ = pl._make_core(LMAX, mc, jdev.n_index2, jdev.n_index3, 64,
+                              ext_iters=jdev.ext_iters, cut="extdbg")
+    seen, inner = [], pl.seed_extend
+
+    def record(*args):
+        seen.append(args)
+        return inner(*args)
+
+    monkeypatch.setattr(pl, "seed_extend", record)
     got = core_t(*tdev.tables(), *_t(pnib, lens, is_ga, uextra))
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
                                       err_msg=k)
+    (args,) = seen
+    assert args[15] == ways
+    cells = seed_extend_plain(*args)
+    for k, c in zip(("l2", "s2x", "e2x", "l3", "s3x", "e3x", "ext_fb"),
+                    cells):
+        c = c if k == "ext_fb" else u32_to_i32(c)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(want[k]),
+                                      err_msg=k)
     # oversized buckets were searched and narrowed (the tandem repeats
-    # give two-letter ones: 228 cells here)
+    # give two-letter ones: 228 cells here; tRex1 three-letter ones)
     big = np.asarray(want["e2"]) - np.asarray(want["s2"]) > mc
-    assert big.sum() > 100
-    assert (np.asarray(want["l2"])[big] > KEY_WEIGHT).all()
+    if genome == "repeat":
+        assert big.sum() > 100
+        assert (np.asarray(want["l2"])[big] > KEY_WEIGHT).all()
+    else:
+        big3 = np.asarray(want["e3"]) - np.asarray(want["s3"]) > mc
+        assert big.sum() + big3.sum() > 50  # 61 cells here
+        assert (np.asarray(want["l3"])[big3] > KEY_WEIGHT_THREE).sum() > 40
