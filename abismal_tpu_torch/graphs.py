@@ -32,6 +32,10 @@ its host arrays into the graph's static inputs and replays it, one launch.
   added again at every replay.
 - A failed capture or replay raises.  Nothing falls back to the eager
   program.
+- The engine's tracer (tracing.Tracer), handed to the runner, times the
+  copy in (stage_in, with the wait on the card before it as device_wait),
+  the replay's enqueue and the clones (replay) and the warm run with the
+  capture (capture), and counts chunks and captures.
 
 Eager runs the programs op by op behind the same run(): the engines use
 it with graphs=False or on the CPU, and Graphs on a CUDA device."""
@@ -51,6 +55,7 @@ from .kernels.candidate_list import candidate_list
 from .kernels.popcount_compare import popcount_compare
 from .kernels.seed_extend import seed_extend
 from .kernels.segment_rank import segment_rank
+from .tracing import Tracer
 
 # the kernel wrappers whose launch counters a replay advances
 COUNTED = (popcount_compare, banded_score_packed, banded_trace_packed,
@@ -85,8 +90,9 @@ class GraphedProgram:
     captured, (kernel wrapper, launches) of one replay; replays, the
     count of replays."""
 
-    def __init__(self, prog, bound, kwargs, args, pool, stream):
+    def __init__(self, prog, bound, kwargs, args, pool, stream, tracer):
         self.prog, self.bound, self.kwargs = prog, tuple(bound), kwargs
+        self.tracer = tracer
         self.device = self.bound[0].device
         self.pool, self.stream = pool, stream
         self._cuda = self.device.type == "cuda"
@@ -113,17 +119,24 @@ class GraphedProgram:
         """The program's outputs on the chunk args (host arrays of the
         key's shapes and dtypes), which no later call overwrites.  marks,
         a list, gets ("start", "end") CUDA events around the run."""
+        tr = self.tracer
+        tr.count("chunks")
         with device_context(self.device):
-            self._copy_in(args)
+            with tr.span("stage_in"):
+                tr.device_wait(self.device)
+                self._copy_in(args)
             if self.graph is None:
-                return self._warm_and_capture(marks)
-            _mark(marks, "start")
-            self.graph.replay()
-            _mark(marks, "end")
-            for k, n in self.captured:
-                k.launches += n
-            self.replays += 1
-            out = tuple(t.clone() for t in self.outputs)
+                tr.count("captures")
+                with tr.span("capture"):
+                    return self._warm_and_capture(marks)
+            with tr.span("replay"):
+                _mark(marks, "start")
+                self.graph.replay()
+                _mark(marks, "end")
+                for k, n in self.captured:
+                    k.launches += n
+                self.replays += 1
+                out = tuple(t.clone() for t in self.outputs)
         return out[0] if self._single else out
 
     def _warm_and_capture(self, marks):
@@ -176,11 +189,12 @@ class Graphs:
     """One engine's captured programs: a GraphedProgram per (program,
     device, bound tensors, per-chunk input shapes and dtypes), and per
     device one memory pool and one stream (for the warm runs and the
-    captures) that its graphs share."""
+    captures) that its graphs share; tracer, the engine's."""
 
-    def __init__(self):
+    def __init__(self, tracer: Tracer | None = None):
         self._graphs = {}
         self._pools = {}
+        self.tracer = Tracer() if tracer is None else tracer
 
     def get(self, prog, bound, args, **kwargs) -> GraphedProgram:
         """The GraphedProgram of prog with the bound tensors bound (and the
@@ -199,7 +213,7 @@ class Graphs:
                          torch.cuda.Stream(dev))
                         if dev.type == "cuda" else (None, None))
             gp = GraphedProgram(prog, bound, kwargs, args,
-                                *self._pools[str(dev)])
+                                *self._pools[str(dev)], self.tracer)
             self._graphs[key] = gp
         return gp
 
@@ -213,18 +227,29 @@ class Graphs:
 
 class Eager:
     """The programs run op by op, behind Graphs' run(): each chunk's host
-    arrays are put on the bound tensors' device, and marks, a list, gets
-    the program's own phase marks."""
+    arrays are put on the bound tensors' device (stage_in), the program
+    runs (run), and marks, a list, gets the program's own phase marks."""
+
+    def __init__(self, tracer: Tracer | None = None):
+        self.tracer = Tracer() if tracer is None else tracer
 
     def run(self, prog, bound, args, marks=None, **kwargs):
         dev = bound[0].device
+        tr = self.tracer
+        tr.count("chunks")
         if marks is not None:
             kwargs["marks"] = marks
         with device_context(dev):
-            return prog(*bound, *(put(a, dev) for a in args), **kwargs)
+            with tr.span("stage_in"):
+                tr.device_wait(dev)
+                ins = [put(a, dev) for a in args]
+            with tr.span("run"):
+                return prog(*bound, *ins, **kwargs)
 
 
-def use_graphs(graphs: bool, device) -> Graphs | Eager:
+def use_graphs(graphs: bool, device,
+               tracer: Tracer | None = None) -> Graphs | Eager:
     """The engines' runner of their device programs: Graphs on a CUDA
-    device unless graphs is False, Eager otherwise."""
-    return Graphs() if graphs and device.type == "cuda" else Eager()
+    device unless graphs is False, Eager otherwise; tracer, the engine's."""
+    return (Graphs(tracer) if graphs and device.type == "cuda"
+            else Eager(tracer))

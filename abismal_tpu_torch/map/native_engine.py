@@ -25,6 +25,7 @@ from ..constants import (
 )
 from ..io.fastq import ReadLoader
 from ..io.sam import make_sam_header
+from ..tracing import Tracer
 from .stats import PEStats, SEStats
 
 _SE_FIELDS = ("total_reads", "reads_mapped_unique", "reads_mapped_ambiguous",
@@ -42,20 +43,35 @@ def _blob(items):
     return blob, offs
 
 
+def _pair_blobs(reads1, reads2):
+    """The read and name blobs of both ends: (reads 1, offsets, names 1,
+    offsets, then the same of end 2)."""
+    out = ()
+    for reads in (reads1, reads2):
+        names, seqs = zip(*reads) if reads else ((), ())
+        out += _blob(list(seqs)) + _blob([n.encode() for n in names])
+    return out
+
+
 def _ptr(a):
     return a.ctypes.data if a is not None else None
 
 
 class NativeMappingEngine:
     """Drop-in engine for run_map: map_se_reads / map_pe_reads over the
-    native library, with internal threading (`n_threads`)."""
+    native library, with internal threading (`n_threads`).  tracer (a
+    tracing.Tracer, its own by default; TorchNativeEngine hands it its
+    own) times each batch call's input blobs (pack), the library's call
+    (native) and the SAM text out (write), and reads the library's
+    worker counters."""
 
     supports_pipeline = True
 
     def __init__(self, index, allow_ambig=False,
                  valid_frac=VALID_FRAC_DEFAULT,
                  pe_min_dist=PE_MIN_DIST_DEFAULT,
-                 pe_max_dist=PE_MAX_DIST_DEFAULT, n_threads: int = 1):
+                 pe_max_dist=PE_MAX_DIST_DEFAULT, n_threads: int = 1,
+                 tracer: Tracer | None = None):
         from ..native import get_engine_lib
         from ..utils.dna import unpack_nibbles_u64
 
@@ -88,6 +104,8 @@ class NativeMappingEngine:
             int(allow_ambig), float(valid_frac), int(pe_min_dist),
             int(pe_max_dist),
         )
+        self.tracer = Tracer() if tracer is None else tracer
+        self.tracer.bind_native(self)
 
     def __del__(self):
         ctx = getattr(self, "_ctx", None)
@@ -111,18 +129,26 @@ class NativeMappingEngine:
         return (_ptr(ev_pos), _ptr(ev_diffs), _ptr(ev_rank), _ptr(start),
                 _ptr(count), int(boundary))
 
+    def _emit(self, n, out):
+        """The library's last n bytes of SAM text (or BAM records) to out."""
+        with self.tracer.span("write"):
+            out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
+                                       n).decode())
+
     # ---- batch calls -------------------------------------------------------
     def _call_se(self, reads, a_rich_mode, random_pbat, stats, out, events):
-        names, seqs = zip(*reads) if reads else ((), ())
-        rblob, roffs = _blob(list(seqs))
-        nblob, noffs = _blob([n.encode() for n in names])
-        st = np.zeros(6, dtype=np.int64)
-        n = self.lib.engine_map_se_batch(
-            self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob), _ptr(noffs),
-            len(reads), int(a_rich_mode), int(random_pbat),
-            *self._event_args(events), self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        tr = self.tracer
+        with tr.span("pack"):
+            names, seqs = zip(*reads) if reads else ((), ())
+            rblob, roffs = _blob(list(seqs))
+            nblob, noffs = _blob([n.encode() for n in names])
+            st = np.zeros(6, dtype=np.int64)
+        with tr.span("native"):
+            n = self.lib.engine_map_se_batch(
+                self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob),
+                _ptr(noffs), len(reads), int(a_rich_mode), int(random_pbat),
+                *self._event_args(events), self.n_threads, _ptr(st))
+        self._emit(n, out)
         for i, f in enumerate(_SE_FIELDS):
             setattr(stats, f, getattr(stats, f) + int(st[i]))
 
@@ -133,20 +159,18 @@ class NativeMappingEngine:
                 f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
                 f"batch 2: {len(reads2)}. Are you sure your paired-end "
                 "inputs have the same number of reads?")
-        n1, s1 = zip(*reads1) if reads1 else ((), ())
-        n2, s2 = zip(*reads2) if reads2 else ((), ())
-        r1b, r1o = _blob(list(s1))
-        n1b, n1o = _blob([n.encode() for n in n1])
-        r2b, r2o = _blob(list(s2))
-        n2b, n2o = _blob([n.encode() for n in n2])
-        st = np.zeros(18, dtype=np.int64)
-        n = self.lib.engine_map_pe_batch(
-            self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
-            _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
-            len(reads1), int(a_rich_mode), int(random_pbat),
-            *self._event_args(events), self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        tr = self.tracer
+        with tr.span("pack"):
+            (r1b, r1o, n1b, n1o, r2b, r2o, n2b,
+             n2o) = _pair_blobs(reads1, reads2)
+            st = np.zeros(18, dtype=np.int64)
+        with tr.span("native"):
+            n = self.lib.engine_map_pe_batch(
+                self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
+                _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
+                len(reads1), int(a_rich_mode), int(random_pbat),
+                *self._event_args(events), self.n_threads, _ptr(st))
+        self._emit(n, out)
         for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
                                    stats.end2_stats)):
             for i, f in enumerate(_SE_FIELDS):
@@ -163,28 +187,26 @@ class NativeMappingEngine:
                 f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
                 f"Batch 2: {len(reads2)}. Are you sure your paired-end "
                 "inputs have the same number of reads?")
-        n1, s1 = zip(*reads1) if reads1 else ((), ())
-        n2, s2 = zip(*reads2) if reads2 else ((), ())
-        r1b, r1o = _blob(list(s1))
-        n1b, n1o = _blob([n.encode() for n in n1])
-        r2b, r2o = _blob(list(s2))
-        n2b, n2o = _blob([n.encode() for n in n2])
-        sl_pos = np.ascontiguousarray(sl_pos, dtype=np.uint32)
-        sl_ds = np.ascontiguousarray(sl_ds, dtype=np.int32)
-        sl_cnt = np.ascontiguousarray(sl_cnt, dtype=np.int32)
-        if mate is not None:
-            mate = np.ascontiguousarray(mate, dtype=np.int32)
-        st = np.zeros(18, dtype=np.int64)
-        n = self.lib.engine_map_pe_batch_slots(
-            self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
-            _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
-            len(reads1), int(a_rich_mode), int(random_pbat),
-            _ptr(sl_pos), _ptr(sl_ds), _ptr(sl_cnt), sl_pos.shape[1],
-            _ptr(mate) if mate is not None else None,
-            mate.shape[1] if mate is not None else 0,
-            self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        tr = self.tracer
+        with tr.span("pack"):
+            (r1b, r1o, n1b, n1o, r2b, r2o, n2b,
+             n2o) = _pair_blobs(reads1, reads2)
+            sl_pos = np.ascontiguousarray(sl_pos, dtype=np.uint32)
+            sl_ds = np.ascontiguousarray(sl_ds, dtype=np.int32)
+            sl_cnt = np.ascontiguousarray(sl_cnt, dtype=np.int32)
+            if mate is not None:
+                mate = np.ascontiguousarray(mate, dtype=np.int32)
+            st = np.zeros(18, dtype=np.int64)
+        with tr.span("native"):
+            n = self.lib.engine_map_pe_batch_slots(
+                self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
+                _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
+                len(reads1), int(a_rich_mode), int(random_pbat),
+                _ptr(sl_pos), _ptr(sl_ds), _ptr(sl_cnt), sl_pos.shape[1],
+                _ptr(mate) if mate is not None else None,
+                mate.shape[1] if mate is not None else 0,
+                self.n_threads, _ptr(st))
+        self._emit(n, out)
         for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
                                    stats.end2_stats)):
             for i, f in enumerate(_SE_FIELDS):
@@ -198,24 +220,27 @@ class NativeMappingEngine:
         exact re-map for REC_FALLBACK rows.  cig_ops/cig_meta (optional):
         device-traceback output (kernels.banded_align, K3) -- aligned rows
         with meta n_ops >= 0 skip the host aligner entirely."""
-        names, seqs = zip(*reads) if reads else ((), ())
-        rblob, roffs = _blob(list(seqs))
-        nblob, noffs = _blob([n.encode() for n in names])
-        records = np.ascontiguousarray(records, dtype=np.int32)
-        tb_nops = 0
-        if cig_ops is not None:
-            cig_ops = np.ascontiguousarray(cig_ops, dtype=np.int32)
-            cig_meta = np.ascontiguousarray(cig_meta, dtype=np.int32)
-            tb_nops = cig_ops.shape[1]
-        st = np.zeros(6, dtype=np.int64)
-        n = self.lib.engine_se_finalize(
-            self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob), _ptr(noffs),
-            len(reads), int(a_rich_mode), int(random_pbat), _ptr(records),
-            _ptr(cig_ops) if cig_ops is not None else None,
-            _ptr(cig_meta) if cig_meta is not None else None, tb_nops,
-            self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        tr = self.tracer
+        with tr.span("pack"):
+            names, seqs = zip(*reads) if reads else ((), ())
+            rblob, roffs = _blob(list(seqs))
+            nblob, noffs = _blob([n.encode() for n in names])
+            records = np.ascontiguousarray(records, dtype=np.int32)
+            tb_nops = 0
+            if cig_ops is not None:
+                cig_ops = np.ascontiguousarray(cig_ops, dtype=np.int32)
+                cig_meta = np.ascontiguousarray(cig_meta, dtype=np.int32)
+                tb_nops = cig_ops.shape[1]
+            st = np.zeros(6, dtype=np.int64)
+        with tr.span("native"):
+            n = self.lib.engine_se_finalize(
+                self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob),
+                _ptr(noffs), len(reads), int(a_rich_mode), int(random_pbat),
+                _ptr(records),
+                _ptr(cig_ops) if cig_ops is not None else None,
+                _ptr(cig_meta) if cig_meta is not None else None, tb_nops,
+                self.n_threads, _ptr(st))
+        self._emit(n, out)
         for i, f in enumerate(_SE_FIELDS):
             setattr(stats, f, getattr(stats, f) + int(st[i]))
 
@@ -228,10 +253,11 @@ class NativeMappingEngine:
         rblob, roffs = _blob(list(seqs))
         nblob, noffs = _blob([n.encode() for n in names])
         self._phase_refs = (rblob, roffs, nblob, noffs, events)
-        n_jobs = self.lib.engine_se_phase1(
-            self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob), _ptr(noffs),
-            len(reads), int(a_rich_mode), int(random_pbat),
-            *self._event_args(events), self.n_threads)
+        with self.tracer.span("native"):
+            n_jobs = self.lib.engine_se_phase1(
+                self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob),
+                _ptr(noffs), len(reads), int(a_rich_mode), int(random_pbat),
+                *self._event_args(events), self.n_threads)
         jobs = np.zeros((0, 5), dtype=np.int32)
         if n_jobs:
             ptr = self.lib.engine_jobs_ptr(self._ctx)
@@ -243,10 +269,10 @@ class NativeMappingEngine:
     def _phase2_se(self, scores, stats, out):
         st = np.zeros(6, dtype=np.int64)
         scores = np.ascontiguousarray(scores, dtype=np.int32)
-        n = self.lib.engine_se_phase2(self._ctx, _ptr(scores),
-                                      self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        with self.tracer.span("native"):
+            n = self.lib.engine_se_phase2(self._ctx, _ptr(scores),
+                                          self.n_threads, _ptr(st))
+        self._emit(n, out)
         for i, f in enumerate(_SE_FIELDS):
             setattr(stats, f, getattr(stats, f) + int(st[i]))
         self._phase_refs = None
@@ -261,18 +287,14 @@ class NativeMappingEngine:
                 f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
                 f"Batch 2: {len(reads2)}. Are you sure your paired-end "
                 "inputs have the same number of reads?")
-        n1, s1 = zip(*reads1) if reads1 else ((), ())
-        n2, s2 = zip(*reads2) if reads2 else ((), ())
-        r1b, r1o = _blob(list(s1))
-        n1b, n1o = _blob([n.encode() for n in n1])
-        r2b, r2o = _blob(list(s2))
-        n2b, n2o = _blob([n.encode() for n in n2])
+        r1b, r1o, n1b, n1o, r2b, r2o, n2b, n2o = _pair_blobs(reads1, reads2)
         self._phase_refs = (r1b, r1o, n1b, n1o, r2b, r2o, n2b, n2o, events)
-        n_jobs = self.lib.engine_pe_phase1(
-            self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
-            _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
-            len(reads1), int(a_rich_mode), int(random_pbat),
-            *self._event_args(events), self.n_threads)
+        with self.tracer.span("native"):
+            n_jobs = self.lib.engine_pe_phase1(
+                self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
+                _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
+                len(reads1), int(a_rich_mode), int(random_pbat),
+                *self._event_args(events), self.n_threads)
         jobs = np.zeros((0, 5), dtype=np.int32)
         if n_jobs:
             ptr = self.lib.engine_pe_jobs_ptr(self._ctx)
@@ -284,10 +306,10 @@ class NativeMappingEngine:
     def _phase2_pe(self, scores, stats, out):
         st = np.zeros(18, dtype=np.int64)
         scores = np.ascontiguousarray(scores, dtype=np.int32)
-        n = self.lib.engine_pe_phase2(self._ctx, _ptr(scores),
-                                      self.n_threads, _ptr(st))
-        out.write(ctypes.string_at(self.lib.engine_out_ptr(self._ctx),
-                                   n).decode())
+        with self.tracer.span("native"):
+            n = self.lib.engine_pe_phase2(self._ctx, _ptr(scores),
+                                          self.n_threads, _ptr(st))
+        self._emit(n, out)
         for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
                                    stats.end2_stats)):
             for i, f in enumerate(_SE_FIELDS):
@@ -384,7 +406,11 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
 
     skip/count restrict the run to the read-range shard [skip, skip+count)
     and write_header=False omits the SAM header (hybrid-split / multi-host
-    shard output; the gather step concatenates shards in rank order)."""
+    shard output; the gather step concatenates shards in rank order).
+
+    The engine's tracer (tracing.Tracer) times the loop (map) and each
+    batch's FASTQ reading (read), and counts reads and batches; verbose
+    turns it on for this map and prints its table (trace_table)."""
     import sys
     import time as _time
 
@@ -428,6 +454,11 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
     # derived from the engine's unit_batch (reads x units-per-read)
     prb = getattr(engine, "preferred_read_batch", None)
     batch_size = prb(paired, random_pbat) if prb else 1000
+    tr = engine.tracer
+    was_on = tr.on
+    if verbose:  # -v: this map's spans and counters
+        tr.reset()
+        tr.on = True
     start_time = _time.monotonic()
     n_processed = 0
     bar = None
@@ -435,8 +466,8 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
         from ..utils.progress import file_progress
 
         bar = file_progress(reads_file1)
-    with open_sam_output(out_path, bam,
-                         bam_emit_header=write_header) as out:
+    with tr.span("map"), open_sam_output(
+            out_path, bam, bam_emit_header=write_header) as out:
         if write_header or bam:
             # BAM sinks always consume the header text: with write_header
             # False it only builds the tid dictionary, emitting nothing
@@ -447,8 +478,11 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
             rl = ReadLoader(reads_file1, batch_size, skip=skip, count=count)
             q = deque()
             while rl:
-                batch = rl.load_batch()
+                with tr.span("read"):
+                    batch = rl.load_batch()
                 if batch:
+                    tr.count("reads", len(batch))
+                    tr.count("batches")
                     q.append(engine.dispatch_se(batch, a_rich_mode,
                                                 random_pbat))
                 while len(q) > (depth if rl else 0):
@@ -468,9 +502,12 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
             rl2 = ReadLoader(reads_file2, batch_size, skip=skip, count=count)
             q = deque()
             while rl1 and rl2:
-                b1 = rl1.load_batch()
-                b2 = rl2.load_batch()
+                with tr.span("read"):
+                    b1 = rl1.load_batch()
+                    b2 = rl2.load_batch()
                 if b1 or b2:
+                    tr.count("reads", len(b1) + len(b2))
+                    tr.count("batches")
                     # PE ignores -A; conversion mode is pbat only
                     q.append(engine.dispatch_pe(b1, b2, pbat, random_pbat))
                 while len(q) > (depth if (rl1 and rl2) else 0):
@@ -488,16 +525,31 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
     if bar is not None and bar.prev < 100:
         bar.report(sys.stderr, bar.total)
     if verbose:
+        tr.on = was_on
         fb = getattr(engine, "n_fallback", None)
         if fb is not None:
             print(f"[device stage-1 fallback units: {fb}/"
                   f"{getattr(engine, 'n_units', 0)}]", file=sys.stderr)
-        st = getattr(engine, "stage_time", None)
-        if st:
-            total = _time.monotonic() - start_time
-            for k, v in st.items():
-                print(f"[stage {k}: {v:.2f}s ({100 * v / total:.0f}%)]",
-                      file=sys.stderr)
+        for line in trace_table(tr.summary()):
+            print(line, file=sys.stderr)
         print(f"[total mapping time: "
               f"{_time.monotonic() - start_time:.2f}s]", file=sys.stderr)
     return stats
+
+
+def trace_table(summary: dict) -> list[str]:
+    """The -v lines of a tracer summary: each span's calls, total and self
+    seconds and its share of the map's total, then the counters."""
+    spans = summary["spans"]
+    whole = max((t for p, (_, t, _s) in spans.items() if "/" not in p),
+                default=0.0) or 1.0
+    lines = [f"[{'span':32s} {'calls':>7s} {'total s':>9s} {'self s':>9s} "
+             f"{'of map':>7s}]"]
+    for path in sorted(spans):
+        calls, total, self_s = spans[path]
+        lines.append(f"[{path:32s} {calls:7d} {total:9.3f} {self_s:9.3f} "
+                     f"{100 * total / whole:6.1f}%]")
+    lines.append("[counters: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in summary["counters"].items()) + "]")
+    return lines

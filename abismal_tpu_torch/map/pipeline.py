@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..parallel.mesh import (
     make_mesh, replicate_tables, shard_stage1, shard_stage1_tp, shard_stage12,
     shard_stage12pe,
 )
+from ..tracing import Tracer
 from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH, revcomp_str
 from .engine import MappingEngine
 from .host_units import (
@@ -1059,7 +1059,14 @@ class TorchNativeEngine:
     graph captured once per shape key and device (graphs.Graphs, the
     counterpart of jax.jit); graphs=False, or the CPU, runs the programs
     eagerly, op by op (graphs.Eager).  With graphs and profile on, a
-    chunk's marks are one ("start", "end") pair around its replay."""
+    chunk's marks are one ("start", "end") pair around its replay.
+
+    tracer (tracing.Tracer, off until switched on) is the engine's one
+    host tracer, shared with its runner and its native half: a batch's
+    dispatch (encode: the units, patterns and budget; then the runner's
+    stage_in, replay or capture) and finish (collect: the rows' copies
+    out, each after a device_wait while on; then the native half's pack,
+    native and write)."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
@@ -1092,10 +1099,12 @@ class TorchNativeEngine:
             self.device = tp_mesh[0]
         else:
             self.device = resolve_device(device)
-        self.graphs = use_graphs(graphs, self.device)
+        self.tracer = Tracer()
+        self.graphs = use_graphs(graphs, self.device, self.tracer)
         self.native = NativeMappingEngine(index, allow_ambig, valid_frac,
                                           pe_min_dist, pe_max_dist,
-                                          n_threads=n_threads)
+                                          n_threads=n_threads,
+                                          tracer=self.tracer)
         self.lmax = lmax
         self.valid_frac = valid_frac
         self.unit_batch = unit_batch
@@ -1137,8 +1146,6 @@ class TorchNativeEngine:
         self.n_units = 0
         self._pool = None  # collector threads of the event route
         self._counter_lock = threading.Lock()
-        self.stage_time = {"unit prep": 0.0, "device dispatch": 0.0,
-                           "device collect": 0.0, "native stage-2": 0.0}
         # per-chunk phase marks (CUDA events) when profile is on
         self.profile = False
         self.chunk_marks = []
@@ -1249,7 +1256,7 @@ class TorchNativeEngine:
             self._stage12_progs[key] = prog
         return prog
 
-    def _dispatch_events(self, pnib_all, lens_all, wanted, is_ga_pat, t0):
+    def _dispatch_events(self, pnib_all, lens_all, wanted, is_ga_pat):
         """Enqueues build_stage1 on every unit_batch units of the batch's
         unit rows (unit id = row, as in the JAX _se_units_flat and
         _pe_units_flat) and starts their collection on the collector
@@ -1258,7 +1265,6 @@ class TorchNativeEngine:
         future of (events, unit_loc)); pending holds (first unit, units,
         ev, cf, the chunk's unit rows on the device for device_align)."""
         per = is_ga_pat.shape[0]
-        t1 = time.perf_counter()
         if self.tp is None:
             prog = self._stage1_prog(self._budget_for((pnib_all, lens_all),
                                                       is_ga_pat, per))
@@ -1294,9 +1300,6 @@ class TorchNativeEngine:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=self.pipeline_depth)
         fut = self._pool.submit(self._collect_flat, pending, resident, wanted)
-        t2 = time.perf_counter()
-        self.stage_time["unit prep"] += t1 - t0
-        self.stage_time["device dispatch"] += t2 - t1
         return pending, fut
 
     def _collect_flat(self, pending, resident, wanted):
@@ -1345,10 +1348,8 @@ class TorchNativeEngine:
         """The native engine on the batch's events; with device_align, its
         alignment jobs scored on the device in between."""
         _, paired, reads, arm, rp, per, pending, fut = handle
-        t0 = time.perf_counter()
-        events, unit_loc = fut.result()
-        t1 = time.perf_counter()
-        self.stage_time["device collect"] += t1 - t0
+        with self.tracer.span("collect"):  # the collector thread's work
+            events, unit_loc = fut.result()
         nat = self.native
         if not self.device_align:
             call = nat._call_pe if paired else nat._call_se
@@ -1371,7 +1372,6 @@ class TorchNativeEngine:
                     jobs, scores, per * jobs[:, 0].astype(np.int64) + uoff,
                     pending, unit_loc)
             (nat._phase2_pe if paired else nat._phase2_se)(scores, stats, out)
-        self.stage_time["native stage-2"] += time.perf_counter() - t1
         return len(reads[0])
 
     def _score_jobs_on_device(self, jobs, scores, uid, pending, unit_loc):
@@ -1398,93 +1398,97 @@ class TorchNativeEngine:
 
     def dispatch_se(self, reads, a_rich_mode, random_pbat):
         """Enqueues the device program for every chunk of the batch."""
-        t0 = time.perf_counter()
-        pnib_all, lens_all, per, oversized = self._se_units_mat(
-            reads, a_rich_mode, random_pbat)
-        scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
-        is_ga_pat = np.array([get_conv_is_ga(int(c)) for c in scode_pat],
-                             dtype=bool)
-        if not self.device_stage2:
-            # every unit of a read with bases is on the native side's list
-            wanted = np.repeat(np.fromiter((bool(s) for _, s in reads),
-                                           dtype=bool, count=len(reads)),
-                               per)
-            return ("events", False, (reads,), a_rich_mode, random_pbat,
-                    per) + self._dispatch_events(pnib_all, lens_all, wanted,
-                                                 is_ga_pat, t0)
-        prog = self._stage12_prog(
-            per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
-        q = per * self.n_shards  # batch quantum (units/read x mesh slots)
-        B = max(q, self.unit_batch - (self.unit_batch % q))
-        rpc = B // per  # reads per chunk
-        if self.mesh is None:
-            tables = self.dev.tables()
-        pending = []
-        for start in range(0, len(reads), rpc):
-            n = min(rpc, len(reads) - start)
-            nu = n * per
-            preads = pnib_all[start * per : start * per + nu]
-            lens = lens_all[start * per : start * per + nu]
-            if B - nu:
-                preads = np.pad(preads, ((0, B - nu), (0, 0)))
-                lens = np.pad(lens, (0, B - nu))
-            lens_r = lens.reshape(rpc, per).max(axis=1)
-            # int(valid_frac * len), truncated like the C cast
-            max_diffs_r = (self.valid_frac
-                           * lens_r.astype(np.float64)).astype(np.int32)
-            is_ga = np.tile(is_ga_pat, rpc)
-            counts = None
-            if self.mesh is not None:
-                rows, counts = prog(self.replicas, preads, lens, is_ga,
-                                    scode_pat, max_diffs_r)
-            else:
-                marks = [] if self.profile else None
-                rows = self.graphs.run(
-                    prog, tables, (preads, lens, is_ga, scode_pat,
-                                   max_diffs_r), marks)
-                if marks is not None:
-                    self.chunk_marks.append(marks)
-            pending.append((start, n, rows, counts))
-        self.stage_time["device dispatch"] += time.perf_counter() - t0
+        tr = self.tracer
+        with tr.span("dispatch"):
+            with tr.span("encode"):
+                pnib_all, lens_all, per, oversized = self._se_units_mat(
+                    reads, a_rich_mode, random_pbat)
+                scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
+                is_ga_pat = np.array(
+                    [get_conv_is_ga(int(c)) for c in scode_pat], dtype=bool)
+                if self.device_stage2:
+                    prog = self._stage12_prog(per, self._budget_for(
+                        (pnib_all, lens_all), is_ga_pat, per))
+            if not self.device_stage2:
+                # every unit of a read with bases is on the native side's
+                # list
+                wanted = np.repeat(np.fromiter(
+                    (bool(s) for _, s in reads), dtype=bool,
+                    count=len(reads)), per)
+                return ("events", False, (reads,), a_rich_mode, random_pbat,
+                        per) + self._dispatch_events(pnib_all, lens_all,
+                                                     wanted, is_ga_pat)
+            q = per * self.n_shards  # batch quantum (units/read x slots)
+            B = max(q, self.unit_batch - (self.unit_batch % q))
+            rpc = B // per  # reads per chunk
+            if self.mesh is None:
+                tables = self.dev.tables()
+            pending = []
+            for start in range(0, len(reads), rpc):
+                n = min(rpc, len(reads) - start)
+                nu = n * per
+                preads = pnib_all[start * per : start * per + nu]
+                lens = lens_all[start * per : start * per + nu]
+                if B - nu:
+                    preads = np.pad(preads, ((0, B - nu), (0, 0)))
+                    lens = np.pad(lens, (0, B - nu))
+                lens_r = lens.reshape(rpc, per).max(axis=1)
+                # int(valid_frac * len), truncated like the C cast
+                max_diffs_r = (self.valid_frac
+                               * lens_r.astype(np.float64)).astype(np.int32)
+                is_ga = np.tile(is_ga_pat, rpc)
+                counts = None
+                if self.mesh is not None:
+                    rows, counts = prog(self.replicas, preads, lens, is_ga,
+                                        scode_pat, max_diffs_r)
+                else:
+                    marks = [] if self.profile else None
+                    rows = self.graphs.run(
+                        prog, tables, (preads, lens, is_ga, scode_pat,
+                                       max_diffs_r), marks)
+                    if marks is not None:
+                        self.chunk_marks.append(marks)
+                pending.append((start, n, rows, counts))
         return (reads, a_rich_mode, random_pbat, per, pending, oversized)
 
     def finish_se(self, handle, stats, out):
         """Collects the chunks' packed rows (one copy each) and hands them
         to the native finalize."""
-        if handle[0] == "events":
-            return self._finish_events(handle, stats, out)
-        reads, arm, rp, per, pending, oversized = handle
-        t1 = time.perf_counter()
-        R = len(reads)
-        W = 8 + TB_NOPS if self.device_tb else 4
-        packed = np.zeros((max(R, 1), W), dtype=np.int32)
-        if self.device_tb:
-            packed[:, 4] = -1  # n_ops sentinel for rows without a chunk
-        for start, n, rows, counts in pending:
-            packed[start : start + n] = rows.cpu().numpy()[:n]
-            if counts is not None:
-                # padded reads are unmapped (status 0): take them out
-                c = counts.numpy().astype(np.int64)
-                c[0] -= rows.shape[0] - n
-                self.device_decisions += c
-        records = packed[:, :4]
-        cig_ops = cig_meta = None
-        if self.device_tb:
-            cig_meta = np.ascontiguousarray(packed[:, 4:8])
-            cig_ops = np.ascontiguousarray(packed[:, 8:])
-        idx = np.flatnonzero(oversized)
-        if idx.size:
-            records[idx] = np.array([REC_FALLBACK, 0, 0, 0], dtype=np.int32)
-        n_fb = int(((records[:R, 0] & 7) == REC_FALLBACK).sum())
-        self.n_units += R * per
-        self.n_fallback += n_fb * per
-        t2 = time.perf_counter()
-        self.stage_time["device collect"] += t2 - t1
-        self.native._finalize_se(
-            reads, arm, rp, records[:R], stats, out,
-            cig_ops=None if cig_ops is None else cig_ops[:R],
-            cig_meta=None if cig_meta is None else cig_meta[:R])
-        self.stage_time["native stage-2"] += time.perf_counter() - t2
+        tr = self.tracer
+        with tr.span("finish"):
+            if handle[0] == "events":
+                return self._finish_events(handle, stats, out)
+            reads, arm, rp, per, pending, oversized = handle
+            R = len(reads)
+            W = 8 + TB_NOPS if self.device_tb else 4
+            packed = np.zeros((max(R, 1), W), dtype=np.int32)
+            if self.device_tb:
+                packed[:, 4] = -1  # n_ops sentinel for rows without a chunk
+            with tr.span("collect"):
+                for start, n, rows, counts in pending:
+                    tr.device_wait(rows.device)
+                    packed[start : start + n] = rows.cpu().numpy()[:n]
+                    if counts is not None:
+                        # padded reads are unmapped (status 0): take them out
+                        c = counts.numpy().astype(np.int64)
+                        c[0] -= rows.shape[0] - n
+                        self.device_decisions += c
+            records = packed[:, :4]
+            cig_ops = cig_meta = None
+            if self.device_tb:
+                cig_meta = np.ascontiguousarray(packed[:, 4:8])
+                cig_ops = np.ascontiguousarray(packed[:, 8:])
+            idx = np.flatnonzero(oversized)
+            if idx.size:
+                records[idx] = np.array([REC_FALLBACK, 0, 0, 0],
+                                        dtype=np.int32)
+            n_fb = int(((records[:R, 0] & 7) == REC_FALLBACK).sum())
+            self.n_units += R * per
+            self.n_fallback += n_fb * per
+            self.native._finalize_se(
+                reads, arm, rp, records[:R], stats, out,
+                cig_ops=None if cig_ops is None else cig_ops[:R],
+                cig_meta=None if cig_meta is None else cig_meta[:R])
         return R
 
     def map_se_reads(self, reads, a_rich_mode, random_pbat, stats, out):
@@ -1544,84 +1548,88 @@ class TorchNativeEngine:
 
     def dispatch_pe(self, reads1, reads2, a_rich_mode, random_pbat):
         """Enqueues the PE device program for every chunk of the batch."""
-        t0 = time.perf_counter()
-        pnib_all, lens_all, per, oversized = self._pe_units_mat(
-            reads1, reads2, a_rich_mode, random_pbat)
-        is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
-        if not self.device_stage2:
-            # units 0 and 3 of an orientation block carry end 1, 1 and 2
-            # end 2 (the JAX _pe_units_flat order)
-            has = [np.fromiter((bool(s) for _, s in r), dtype=bool,
-                               count=len(r)) for r in (reads1, reads2)]
-            end2 = np.tile([False, True, True, False], per // 4)
-            wanted = np.where(end2[None, :], has[1][:, None],
-                              has[0][:, None]).reshape(-1)
-            return ("events", True, (reads1, reads2), a_rich_mode,
-                    random_pbat, per) + self._dispatch_events(
-                        pnib_all, lens_all, wanted, is_ga_pat, t0)
-        prog = self._stage12pe_prog(
-            per, self._budget_for((pnib_all, lens_all), is_ga_pat, per))
-        q = per * self.n_shards
-        B = max(q, self.unit_batch - (self.unit_batch % q))
-        ppc = B // per  # pairs per chunk
-        pe_dist = np.array([self.native.pe_min_dist,
-                            self.native.pe_max_dist], np.int32)
-        is_ga = np.tile(is_ga_pat, ppc)
-        if self.mesh is None:
-            tables = self.dev.tables()
-        pending = []
-        for start in range(0, len(reads1), ppc):
-            nu = min(ppc, len(reads1) - start) * per
-            preads = pnib_all[start * per : start * per + nu]
-            lens = lens_all[start * per : start * per + nu]
-            if B - nu:
-                preads = np.pad(preads, ((0, B - nu), (0, 0)))
-                lens = np.pad(lens, (0, B - nu))
-            # int(valid_frac * len) per unit (the ends differ in length)
-            max_diffs_u = (self.valid_frac
-                           * lens.astype(np.float64)).astype(np.int32)
-            if self.mesh is not None:
-                rows, _ = prog(self.replicas, preads, lens, is_ga,
-                               max_diffs_u, pe_dist)
-            else:
-                marks = [] if self.profile else None
-                rows = self.graphs.run(
-                    prog, tables, (preads, lens, is_ga, max_diffs_u,
-                                   pe_dist), marks)
-                if marks is not None:
-                    self.chunk_marks.append(marks)
-            pending.append((start, nu, rows))
-        self.stage_time["device dispatch"] += time.perf_counter() - t0
+        tr = self.tracer
+        with tr.span("dispatch"):
+            with tr.span("encode"):
+                pnib_all, lens_all, per, oversized = self._pe_units_mat(
+                    reads1, reads2, a_rich_mode, random_pbat)
+                is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
+                if self.device_stage2:
+                    prog = self._stage12pe_prog(per, self._budget_for(
+                        (pnib_all, lens_all), is_ga_pat, per))
+            if not self.device_stage2:
+                # units 0 and 3 of an orientation block carry end 1, 1 and
+                # 2 end 2 (the JAX _pe_units_flat order)
+                has = [np.fromiter((bool(s) for _, s in r), dtype=bool,
+                                   count=len(r)) for r in (reads1, reads2)]
+                end2 = np.tile([False, True, True, False], per // 4)
+                wanted = np.where(end2[None, :], has[1][:, None],
+                                  has[0][:, None]).reshape(-1)
+                return ("events", True, (reads1, reads2), a_rich_mode,
+                        random_pbat, per) + self._dispatch_events(
+                            pnib_all, lens_all, wanted, is_ga_pat)
+            q = per * self.n_shards
+            B = max(q, self.unit_batch - (self.unit_batch % q))
+            ppc = B // per  # pairs per chunk
+            pe_dist = np.array([self.native.pe_min_dist,
+                                self.native.pe_max_dist], np.int32)
+            is_ga = np.tile(is_ga_pat, ppc)
+            if self.mesh is None:
+                tables = self.dev.tables()
+            pending = []
+            for start in range(0, len(reads1), ppc):
+                nu = min(ppc, len(reads1) - start) * per
+                preads = pnib_all[start * per : start * per + nu]
+                lens = lens_all[start * per : start * per + nu]
+                if B - nu:
+                    preads = np.pad(preads, ((0, B - nu), (0, 0)))
+                    lens = np.pad(lens, (0, B - nu))
+                # int(valid_frac * len) per unit (the ends differ in length)
+                max_diffs_u = (self.valid_frac
+                               * lens.astype(np.float64)).astype(np.int32)
+                if self.mesh is not None:
+                    rows, _ = prog(self.replicas, preads, lens, is_ga,
+                                   max_diffs_u, pe_dist)
+                else:
+                    marks = [] if self.profile else None
+                    rows = self.graphs.run(
+                        prog, tables, (preads, lens, is_ga, max_diffs_u,
+                                       pe_dist), marks)
+                    if marks is not None:
+                        self.chunk_marks.append(marks)
+                pending.append((start, nu, rows))
         return (reads1, reads2, a_rich_mode, random_pbat, per, pending,
                 oversized)
 
     def finish_pe(self, handle, stats, out):
         """Collects the chunks' packed slot rows (one copy each) and hands
         them to the native PE finalize."""
-        if handle[0] == "events":
-            return self._finish_events(handle, stats, out)
-        reads1, reads2, arm, rp, per, pending, oversized = handle
-        t1 = time.perf_counter()
-        n_pairs = len(reads1)
-        n_units = per * n_pairs
-        K = 32
-        packed = np.zeros((max(n_units, 1), 2 * K + 6), dtype=np.int32)
-        packed[:, 2 * K] = -1  # cnt sentinel for rows without a chunk
-        for start, nu, rows in pending:
-            packed[start * per : start * per + nu] = rows.cpu().numpy()[:nu]
-        pos_all = np.ascontiguousarray(packed[:n_units, :K]).view(np.uint32)
-        ds_all = np.ascontiguousarray(packed[:n_units, K : 2 * K])
-        cnt_all = np.ascontiguousarray(packed[:n_units, 2 * K])
-        mate_all = np.ascontiguousarray(
-            packed[:n_units, 2 * K + 1 :].reshape(n_pairs, 5 * per))
-        cnt_all.reshape(n_pairs, per)[oversized] = -1
-        self.n_units += n_units
-        self.n_fallback += int((cnt_all < 0).sum())
-        t2 = time.perf_counter()
-        self.stage_time["device collect"] += t2 - t1
-        self.native._call_pe_slots(reads1, reads2, arm, rp, stats, out,
-                                   pos_all, ds_all, cnt_all, mate_all)
-        self.stage_time["native stage-2"] += time.perf_counter() - t2
+        tr = self.tracer
+        with tr.span("finish"):
+            if handle[0] == "events":
+                return self._finish_events(handle, stats, out)
+            reads1, reads2, arm, rp, per, pending, oversized = handle
+            n_pairs = len(reads1)
+            n_units = per * n_pairs
+            K = 32
+            packed = np.zeros((max(n_units, 1), 2 * K + 6), dtype=np.int32)
+            packed[:, 2 * K] = -1  # cnt sentinel for rows without a chunk
+            with tr.span("collect"):
+                for start, nu, rows in pending:
+                    tr.device_wait(rows.device)
+                    packed[start * per : start * per + nu] = (
+                        rows.cpu().numpy()[:nu])
+            pos_all = np.ascontiguousarray(packed[:n_units, :K]).view(
+                np.uint32)
+            ds_all = np.ascontiguousarray(packed[:n_units, K : 2 * K])
+            cnt_all = np.ascontiguousarray(packed[:n_units, 2 * K])
+            mate_all = np.ascontiguousarray(
+                packed[:n_units, 2 * K + 1 :].reshape(n_pairs, 5 * per))
+            cnt_all.reshape(n_pairs, per)[oversized] = -1
+            self.n_units += n_units
+            self.n_fallback += int((cnt_all < 0).sum())
+            self.native._call_pe_slots(reads1, reads2, arm, rp, stats, out,
+                                       pos_all, ds_all, cnt_all, mate_all)
         return n_pairs
 
     def map_pe_reads(self, reads1, reads2, a_rich_mode, random_pbat, stats,

@@ -3,10 +3,10 @@ single-end reads through one engine, timed over a few runs after a warm
 one, and its stage table.  For the native engine the table is the
 library's own nanosecond accounting (seed / align / format / parse,
 summed over worker threads); for the torch engine (TorchNativeEngine on
-the card) it is that of its native half beside the engine's host stage
-timers (unit prep / device dispatch / device collect / native stage-2,
-wall seconds).  --trace DIR writes a torch.profiler trace (Chrome JSON)
-of the timed runs into DIR.
+the card) it is that of its native half beside the spans of the engine's
+tracer (tracing.Tracer: total wall seconds by path, e.g. map/dispatch/
+encode).  --trace DIR writes a torch.profiler trace (Chrome JSON) of the
+timed runs into DIR, the tracer's spans on it as abismal:<name>.
 
 Usage: python -m abismal_tpu_torch.tools.profile [--engine native|torch]
            [--reads 10000] [--threads N] [--reps 3] [--trace DIR]
@@ -50,10 +50,10 @@ def run(index, genome, engine: str = "native", reads: int = 10000,
     native.lib.engine_set_profile(native._ctx, 1)
     ns = np.zeros(16, dtype=np.int64)
     native.lib.engine_stage_ns(native._ctx, _ptr(ns), 1)  # reset
-    st = getattr(eng, "stage_time", None)
-    if st:
-        for k in st:
-            st[k] = 0.0
+    tr = getattr(eng, "tracer", None) if engine == "torch" else None
+    if tr is not None:
+        tr.reset()
+        tr.on = True
 
     def timed_reps():
         t0 = time.perf_counter()
@@ -87,11 +87,13 @@ def run(index, genome, engine: str = "native", reads: int = 10000,
     for name, v in zip(("seed", "align", "format", "parse"), ns[:4]):
         res["native_cpu_s"][name] = int(v) / 1e9
         out(f"  {name:8s} {v / 1e9:8.2f}s  ({100 * int(v) // cpu}%)")
-    if st:
-        res["stage_wall_s"] = dict(st)
-        out("torch engine stage table (wall seconds):")
-        for k, v in st.items():
-            out(f"  {k:16s} {v:8.2f}s  ({100 * v / wall:.0f}%)")
+    if tr is not None:
+        tr.on = False
+        spans = tr.summary()["spans"]
+        res["stage_wall_s"] = {p: t for p, (_, t, _s) in spans.items()}
+        out("torch engine spans (wall seconds):")
+        for p, t in sorted(res["stage_wall_s"].items()):
+            out(f"  {p:32s} {t:8.2f}s  ({100 * t / wall:.0f}%)")
         out(f"  fallback units: {eng.n_fallback}/{eng.n_units}")
         res["fallback_frac"] = eng.n_fallback / max(1, eng.n_units)
     return res

@@ -2,8 +2,8 @@
 tools/tune_stage2.py): per unit_batch, the best verified reads/s of five
 maps of 10k simulated reads (seed 1; the SAM's md5 must equal the
 golden's, or at another --reads the native engine's), the fallback
-fraction and the engine's host stage timers (stage_time, wall seconds of
-the last map).  ABISMAL_TPU_K_SLOTS and ABISMAL_TPU_JOBS_PER_READ take
+fraction and the spans of the engine's tracer (tracing.Tracer: total wall
+seconds by path, of the last map).  ABISMAL_TPU_K_SLOTS and ABISMAL_TPU_JOBS_PER_READ take
 effect through build_stage12, which reads them.
 
 Usage: python -m abismal_tpu_torch.tools.tune_stage2 [unit_batch ...]
@@ -28,25 +28,25 @@ def tune(index, fq, sam, truth, device, unit_batch: int, threads: int,
     eng = TorchNativeEngine(index, unit_batch=unit_batch, n_threads=threads,
                             device=device, device_stage2=True)
 
-    def reset():
-        eng.stage_time = dict.fromkeys(eng.stage_time, 0.0)
-
+    eng.tracer.on = True
     try:
         warm, runs = W.timed_maps(index, fq, None, sam, W.engine_factory(eng),
-                                  threads, REPS, before=reset)
+                                  threads, REPS, before=eng.tracer.reset)
     finally:
+        eng.tracer.on = False
         eng.close()
     rates = [reads / wall for wall, _, m in runs if m == truth]
     return dict(unit_batch=unit_batch, best=max(rates, default=0.0),
                 verified=len(rates), reps=REPS, warm_s=warm,
                 fallback=eng.n_fallback / max(1, eng.n_units),
-                stages={k: round(v, 3) for k, v in eng.stage_time.items()})
+                stages={p: round(t, 3) for p, (_, t, _s)
+                        in eng.tracer.summary()["spans"].items()})
 
 
 def run(batches, device="cuda", threads: int = 1, reads: int = 10000,
         out=W.say) -> list[dict]:
     """One row per unit_batch: best reads/s, verified repetitions, warm
-    seconds, fallback fraction and stage_time."""
+    seconds, fallback fraction and the tracer's spans."""
     from ..index.serialize import read_index
 
     index = read_index(W.trex1_index_file(threads))

@@ -1248,14 +1248,20 @@ def port_map(factory, index, fq, sam, mstats, cl, threads, fq2=None, **kw):
     eng = factory(index, kw.get("allow_ambig", False), 0.1, 32, 3000)
     eng.profile = True
     u0, f0, c0 = eng.n_units, eng.n_fallback, len(eng.chunk_marks)
-    t0 = dict(eng.stage_time)
-    secs = map_with(factory, index, fq, sam, mstats, cl, threads, fq2, **kw)
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        secs = map_with(factory, index, fq, sam, mstats, cl, threads, fq2,
+                        **kw)
+    finally:
+        eng.tracer.on = False
     n = n_reads_of(fq)
     du = eng.n_units - u0
     unit = "pairs" if fq2 else "reads"
     st = {unit: n, "seconds": secs, f"{unit}_per_s": n / secs,
           "fallback_frac": (eng.n_fallback - f0) / max(1, du),
-          "host_s": {k: v - t0[k] for k, v in eng.stage_time.items()}}
+          "host_s": {p: t for p, (_, t, _s)
+                     in eng.tracer.summary()["spans"].items()}}
     st.update(chunk_device_ms(eng, c0, "mate_ms" if fq2 else "traceback_ms"))
     return st
 
@@ -2208,8 +2214,9 @@ def rates_in_turns(index, fq1, fq2, cl, same, engines, native, threads,
                    n_reads):
     """Whole-path rates (reads/s or pairs/s) of the eager and the graphed
     engine in GRAPH_TURNS, the native engine once; same(sam) checks each
-    SAM.  Also each mode's `device dispatch` seconds and the peak of
-    device memory a map allocates above what was resident before it."""
+    SAM.  Also each mode's dispatch seconds (the tracer's map/dispatch
+    span, on for these maps) and the peak of device memory a map
+    allocates above what was resident before it."""
     import torch
 
     from abismal_tpu_torch.tools._workload import engine_factory
@@ -2219,15 +2226,17 @@ def rates_in_turns(index, fq1, fq2, cl, same, engines, native, threads,
     sam = os.path.join(WORK, "graphs_rate.sam")
     for mode in GRAPH_TURNS:
         eng = engines[mode]
-        d0 = eng.stage_time["device dispatch"]
+        eng.tracer.reset()
+        eng.tracer.on = True
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         secs = map_with(engine_factory(eng), index, fq1, sam, None, cl,
                         threads, fq2)
+        eng.tracer.on = False
         out[mode]["per_s"].append(n_reads / secs)
-        out[mode]["dispatch_s"].append(eng.stage_time["device dispatch"]
-                                       - d0)
+        out[mode]["dispatch_s"].append(
+            eng.tracer.summary()["spans"]["map/dispatch"][1])
         out[mode]["peak_above_resident"].append(
             torch.cuda.max_memory_allocated() - resident)
         check(same(sam), f"graphs rates {mode}: the SAM differs")

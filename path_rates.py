@@ -89,7 +89,7 @@ def worker(tree, work, fa, fq, fq1, fq2):
         return {"per_s": st["pairs_per_s" if pair else "reads_per_s"],
                 "span_ms": st.get("total_ms"),
                 "score_ms": st.get("score_ms"),
-                "dispatch_s": st["host_s"].get("device dispatch")}, out
+                "dispatch_s": st["host_s"].get("map/dispatch")}, out
 
     md5s = {}
     for kind in KINDS:  # cold, then warm; the warm SAM is the one compared

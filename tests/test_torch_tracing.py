@@ -1,0 +1,208 @@
+"""The engine's host tracer (abismal_tpu_torch/tracing.py) on the CPU:
+off, a map records nothing and never enters the profiler; on, the SAM is
+the golden's byte for byte, the spans nest (self time >= 0, a child's
+total within its parent's) and count what the batch loop did; under
+torch.profiler the spans are abismal:<name> ranges, nested as they were
+opened; -v prints the tracer's table; the tracer switches the native
+library's worker timers on and off with itself."""
+
+import gzip
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_fixtures import (  # noqa: F401
+    GOLDEN, golden_file, port_index, release_engines,
+)
+
+# test workers share the CPU: one torch thread each, not one per core
+torch.set_num_threads(1)
+
+# (golden, paired, pbat); the command lines are the goldens' (MANIFEST)
+GOLDENS = [("small", False, False), ("small_pe", True, False),
+           ("small_pbat_pe", True, True)]
+
+
+def _golden(name):
+    with gzip.open(os.path.join(GOLDEN, name + ".gz"), "rt") as f:
+        return f.read()
+
+
+def _n_reads(fq):
+    with open(fq, "rb") as f:
+        return sum(1 for _ in f) // 4
+
+
+@pytest.fixture(scope="module")
+def engine(port_index):
+    """(factory, engine): the port's engine on the CPU, as the map tests
+    build it (two native threads, 128 units a chunk)."""
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    fac = make_torch_native_engine_factory("cpu", unit_batch=128,
+                                           n_threads=2)
+    return fac, fac(port_index, False, 0.1, 32, 3000)
+
+
+def _map(port_index, fac, name, paired, pbat, out, verbose=False):
+    """Maps golden `name` with its command line; (SAM text, reads in)."""
+    from abismal_tpu_torch.map.engine import run_map
+
+    fq1 = golden_file(name + "_1.fq")
+    fq2 = golden_file(name + "_2.fq") if paired else None
+    flag = "-P " if pbat else ""
+    ins = f"tests/{name}_1.fq" + (f" tests/{name}_2.fq" if paired else "")
+    cl = (f"map {flag}-s tests/{name}.mstats -o tests/{name}.sam "
+          f"-i tests/tRex1.idx {ins}")
+    run_map(port_index, fq1, fq2, str(out), None, cl, pbat=pbat,
+            engine_factory=fac, threads=2, verbose=verbose)
+    n = _n_reads(fq1) + (_n_reads(fq2) if paired else 0)
+    return out.read_text(), n
+
+
+@pytest.mark.parametrize("name,paired,pbat", GOLDENS)
+def test_off_records_nothing(tmp_path, port_index, engine, monkeypatch,
+                             name, paired, pbat):
+    fac, eng = engine
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    eng.tracer.on = False
+    eng.tracer.reset()
+    sam, _ = _map(port_index, fac, name, paired, pbat, tmp_path / "o.sam")
+    assert sam == _golden(name + ".sam")
+    s = eng.tracer.summary()
+    assert s["spans"] == {}
+    assert not any(v for v in s["counters"].values())
+
+
+@pytest.mark.parametrize("name,paired,pbat", GOLDENS)
+def test_on_same_bytes_and_spans_nest(tmp_path, port_index, engine, name,
+                                      paired, pbat):
+    fac, eng = engine
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        sam, n_reads = _map(port_index, fac, name, paired, pbat,
+                            tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    assert sam == _golden(name + ".sam")
+    s = eng.tracer.summary()
+    spans, c = s["spans"], s["counters"]
+    batches = c["batches"]
+    assert batches >= 2 and c["reads"] == n_reads
+    assert spans["map"][0] == 1
+    assert spans["map/dispatch"][0] == spans["map/finish"][0] == batches
+    assert spans["map/read"][0] == batches + 1  # and the empty last load
+    assert spans["map/dispatch/encode"][0] == batches
+    for leaf in ("collect", "pack", "native", "write"):
+        assert spans[f"map/finish/{leaf}"][0] == batches, leaf
+    assert spans["map/dispatch/run"][0] == c["chunks"] > 0
+    assert c["captures"] == 0  # the CPU runs the programs eagerly
+    assert not [p for p in spans if p.endswith("device_wait")]
+    for path, (calls, total, self_s) in spans.items():
+        assert calls > 0 and self_s >= 0 and total >= self_s, path
+        if "/" in path:
+            parent = spans[path.rsplit("/", 1)[0]]
+            assert total <= parent[1], path
+    assert {"native_seed_s", "native_align_s", "native_format_s"} <= set(c)
+
+
+def test_event_route_same_bytes(tmp_path, port_index):
+    """The event route (build_stage1's events replayed natively) has the
+    same span names: finish/collect is the wait for its collector
+    thread, whose own work records nothing."""
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    fac = make_torch_native_engine_factory("cpu", unit_batch=128,
+                                           n_threads=2, device_stage2=False)
+    eng = fac(port_index, False, 0.1, 32, 3000)
+    eng.tracer.on = True
+    try:
+        sam, n_reads = _map(port_index, fac, "small", False, False,
+                            tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    assert sam == _golden("small.sam")
+    s = eng.tracer.summary()
+    spans, batches = s["spans"], s["counters"]["batches"]
+    assert s["counters"]["reads"] == n_reads
+    for path in ("map/dispatch", "map/dispatch/encode", "map/finish",
+                 "map/finish/collect", "map/finish/pack",
+                 "map/finish/native", "map/finish/write"):
+        assert spans[path][0] == batches, path
+    assert spans["map/dispatch/run"][0] == s["counters"]["chunks"] > 0
+
+
+def test_spans_on_the_profiler_timeline(tmp_path, port_index, engine):
+    from torch.profiler import ProfilerActivity, profile
+
+    fac, eng = engine
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _map(port_index, fac, "small", False, False, tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("name", "").startswith("abismal:")]
+    names = {p.rsplit("/", 1)[-1] for p in eng.tracer.summary()["spans"]}
+    ranges = {}
+    for e in events:
+        ranges.setdefault(e["name"][8:], []).append(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    assert set(ranges) == names
+    for s, e in ranges["encode"]:
+        assert any(ds <= s and e <= de for ds, de in ranges["dispatch"])
+
+
+def test_verbose_prints_the_table(tmp_path, port_index, engine, capsys):
+    fac, eng = engine
+    eng.tracer.on = False
+    _map(port_index, fac, "small", False, False, tmp_path / "o.sam",
+         verbose=True)
+    err = capsys.readouterr().err
+    assert not eng.tracer.on  # on for that map alone
+    for path in ("map", "map/read", "map/dispatch/encode",
+                 "map/finish/native", "map/finish/write"):
+        assert f"[{path} " in err, path
+    assert "[counters: reads 500, batches 2," in err
+
+
+def test_native_timers_follow_the_tracer(tmp_path, port_index, engine):
+    """On, the library's StageTimers count the workers' seconds; turned
+    off, a map adds nothing to them."""
+    from abismal_tpu_torch.map.native_engine import _ptr
+
+    fac, eng = engine
+    nat = eng.native
+
+    def raw():
+        ns = np.zeros(16, dtype=np.int64)
+        nat.lib.engine_stage_ns(nat._ctx, _ptr(ns), 0)
+        return ns[:3]
+
+    eng.tracer.reset()
+    eng.tracer.on = True
+    _map(port_index, fac, "small", False, False, tmp_path / "o.sam")
+    c = eng.tracer.summary()["counters"]
+    assert c["native_align_s"] > 0 and c["native_format_s"] > 0
+    eng.tracer.on = False
+    before = raw()
+    _map(port_index, fac, "small", False, False, tmp_path / "o.sam")
+    assert (raw() == before).all()

@@ -2,8 +2,8 @@
 sweep_unit_batch.py, tune_stage2.py, tune_hybrid.py, multihost_scale.py ↔
 tools/ of the same names) through their main() with --device cpu at a
 tiny size: the sweep's SAM bodies agree across sizes, tune_stage2's
-repetitions are verified and its stage table has the engine's stage_time
-keys, tune_hybrid sets the pipeline depth for its runs only, and the
+repetitions are verified and its stage table has the spans of the
+engine's tracer (the eager runner's, on the CPU), tune_hybrid sets the pipeline depth for its runs only, and the
 weak-scaling tool prints one efficiency line per host count, with torch
 shards by default and with native shards on --engine native."""
 
@@ -20,7 +20,10 @@ from tests.test_torch_fixtures import (  # noqa: F401
 torch.set_num_threads(1)
 
 CPU = ["--device", "cpu", "--threads", "1"]
-STAGES = {"unit prep", "device dispatch", "device collect", "native stage-2"}
+STAGES = {"map", "map/read", "map/dispatch", "map/dispatch/encode",
+          "map/dispatch/stage_in", "map/dispatch/run", "map/finish",
+          "map/finish/collect", "map/finish/pack", "map/finish/native",
+          "map/finish/write"}
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +62,7 @@ def test_tune_stage2_verified_with_stage_keys(cache):
     assert row["verified"] == row["reps"] == tune_stage2.REPS
     assert row["best"] > 0 and 0 <= row["fallback"] <= 1
     assert set(row["stages"]) == STAGES
-    assert row["stages"]["device dispatch"] > 0
+    assert row["stages"]["map/dispatch"] > 0
 
 
 def test_tune_hybrid_sets_the_depth_for_its_runs(cache):
