@@ -1,52 +1,41 @@
 """FASTQ batch reader with the reference's read-cleaning rules
-(src/abismal.cpp:150-213)."""
+(src/abismal.cpp:150-213).
+
+ReadLoader parses a batch in one call to the native library (_engine.cpp
+parse_batch, the parser of the library's streaming loop); a file that
+cannot be read to its end, a gzip stream cut short or corrupt included,
+raises RuntimeError."""
 
 from __future__ import annotations
 
-from ..constants import MIN_READ_LENGTH, PADDING_SIZE
-from .genome import open_maybe_gzip
-
-_ACGT = set(b"ACGT")
-
-
-def clean_read(read: bytes) -> bytes:
-    """Blank reads with < MIN_READ_LENGTH non-N bases; otherwise trim N from
-    the 3' end then everything before the first ACGT (abismal.cpp:179-196)."""
-    if len(read) >= PADDING_SIZE:
-        raise RuntimeError(
-            f"found a read of size {len(read)}, which is too long. "
-            f"Maximum allowed read size = {PADDING_SIZE}"
-        )
-    n_informative = sum(1 for c in read if c != ord("N"))
-    if n_informative < MIN_READ_LENGTH:
-        return b""
-    read = read.rstrip(b"N")
-    for i, c in enumerate(read):
-        if c in _ACGT:
-            return read[i:]
-    raise RuntimeError("read has no ACGT bases after trimming")
+import ctypes
+import os
 
 
 class ReadLoader:
     """Streams (name, read) batches of `batch_size` reads
-    (abismal.cpp:150-209)."""
+    (abismal.cpp:150-209), each batch parsed by the native library."""
 
     def __init__(self, path: str, batch_size: int = 1000, skip: int = 0,
                  count: int | None = None):
         """skip/count select a contiguous read-range shard [skip,
         skip+count) of the file (multi-host / hybrid-split sharding)."""
+        from ..native import get_engine_lib
+
         self.path = path
         self.batch_size = batch_size
-        self._fh = open_maybe_gzip(path)
+        self._lib = get_engine_lib()
+        self._h = self._lib.fastq_open(os.fsencode(path))
+        if not self._h:
+            open(path, "rb").close()  # raises what opening it would
+            raise OSError(f"cannot open file: {path}")
         self._eof = False
         self.cur_line = 0
         self._remaining = count
         if skip:
-            import itertools
-
-            # consume 4*skip lines at C speed (file iteration is readline
-            # -based for Buffered/GzipFile, so mixing with readline is ok)
-            consumed = sum(1 for _ in itertools.islice(self._fh, 4 * skip))
+            consumed = self._lib.fastq_skip(self._h, 4 * skip)
+            if consumed < 0:
+                raise RuntimeError(self._lib.fastq_error_ptr(self._h).decode())
             self.cur_line += consumed
             if consumed < 4 * skip:
                 self._eof = True
@@ -55,46 +44,50 @@ class ReadLoader:
         return not self._eof and self._remaining != 0
 
     def load_batch(self):
-        out = []
         n = self.batch_size
         if self._remaining is not None:
             n = min(n, self._remaining)
-        for _ in range(n):
-            header = self._fh.readline()
-            if not header:
-                self._eof = True
-                break
-            header = header.rstrip(b"\n")
-            if not header:
-                raise RuntimeError(
-                    f"file {self.path} contains an empty read name at line "
-                    f"{self.cur_line}"
-                )
-            rest = header[1:]
-            cut = len(rest)
-            for d in (b" ", b"\t"):
-                p = rest.find(d)
-                if p != -1:
-                    cut = min(cut, p)
-            name = rest[:cut].decode()
-            seq = self._fh.readline().rstrip(b"\n")
-            self._fh.readline()  # '+'
-            self._fh.readline()  # quality
-            self.cur_line += 4
-            out.append((name, clean_read(seq)))
+        lib, h = self._lib, self._handle()
+        got = lib.fastq_next_batch(h, n)
+        if got < 0:
+            raise RuntimeError(lib.fastq_error_ptr(h).decode())
+        if got < n:
+            self._eof = True
+        self.cur_line += 4 * got
         if self._remaining is not None:
-            self._remaining -= len(out)
-        return out
+            self._remaining -= got
+        if not got:
+            return []
+        offs = ctypes.c_int64 * (got + 1)
+        ro = offs.from_address(lib.fastq_roffs_ptr(h))[:]
+        no = offs.from_address(lib.fastq_noffs_ptr(h))[:]
+        rb = ctypes.string_at(lib.fastq_rblob_ptr(h), ro[-1])
+        nb = ctypes.string_at(lib.fastq_nblob_ptr(h), no[-1])
+        return [(nb[no[i]:no[i + 1]].decode(), rb[ro[i]:ro[i + 1]])
+                for i in range(got)]
 
     @property
     def current_byte(self) -> int:
         """On-disk byte position (compressed for .gz inputs), mirroring
         ReadLoader::get_current_byte (abismal.cpp:160-162)."""
-        raw = getattr(self._fh, "raw_file", self._fh)
-        try:
-            return raw.tell()
-        except OSError:
-            return 0
+        return self._lib.fastq_byte_pos(self._handle())
+
+    @property
+    def bytes_parsed(self) -> int:
+        """Bytes of FASTQ text consumed so far, skipped records included
+        (uncompressed)."""
+        return self._lib.fastq_bytes_parsed(self._handle())
+
+    def _handle(self):
+        if not self._h:
+            raise ValueError("I/O operation on closed file.")
+        return self._h
 
     def close(self):
-        self._fh.close()
+        if self._h:
+            self._lib.fastq_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self.close()

@@ -496,6 +496,7 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
                               file=sys.stderr)
             while q:
                 n_processed += engine.finish_se(q.popleft(), stats, out)
+            tr.count("read_bytes", rl.bytes_parsed)
         else:
             stats = PEStats()
             rl1 = ReadLoader(reads_file1, batch_size, skip=skip, count=count)
@@ -521,6 +522,7 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
                               file=sys.stderr)
             while q:
                 n_processed += engine.finish_pe(q.popleft(), stats, out)
+            tr.count("read_bytes", rl1.bytes_parsed + rl2.bytes_parsed)
 
     if bar is not None and bar.prev < 100:
         bar.report(sys.stderr, bar.total)

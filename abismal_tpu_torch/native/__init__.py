@@ -302,5 +302,23 @@ def get_engine_lib() -> ctypes.CDLL:
             ctypes.c_int,  # out_bam
         ]
 
+        lib.fastq_open.restype = ctypes.c_void_p
+        lib.fastq_open.argtypes = [ctypes.c_char_p]
+        lib.fastq_close.restype = None
+        lib.fastq_close.argtypes = [ctypes.c_void_p]
+        lib.fastq_skip.restype = ctypes.c_int64
+        lib.fastq_skip.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.fastq_next_batch.restype = ctypes.c_int64
+        lib.fastq_next_batch.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        for name in ("fastq_rblob_ptr", "fastq_roffs_ptr", "fastq_nblob_ptr",
+                     "fastq_noffs_ptr"):
+            getattr(lib, name).restype = ctypes.c_void_p
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+        for name in ("fastq_bytes_parsed", "fastq_byte_pos"):
+            getattr(lib, name).restype = ctypes.c_int64
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+        lib.fastq_error_ptr.restype = ctypes.c_char_p
+        lib.fastq_error_ptr.argtypes = [ctypes.c_void_p]
+
         _LIBS["_engine"] = lib
         return lib

@@ -3165,6 +3165,8 @@ struct GzLines {
   int64_t pos = 0, len = 0;
   bool hit_eof = false;
   int64_t line_no = 0;  // 0-based count of lines consumed
+  int64_t n_in = 0;     // bytes gzread has handed over (uncompressed)
+  std::string error;    // why the file could not be read to its end
 
   explicit GzLines(const char *path) {
     f = gzopen(path, "rb");
@@ -3179,17 +3181,34 @@ struct GzLines {
   }
   bool ok() const { return f != nullptr; }
 
-  // consumes n lines without materializing them (multi-host shard skip)
+  // reads the next buffer; false at the end of the file, and also on a
+  // read error, a corrupt stream, or a gzip stream cut short (which zlib
+  // hands over as a short read with Z_BUF_ERROR), with the message in error
+  bool fill() {
+    len = gzread(f, buf.data(), (unsigned)buf.size());
+    pos = 0;
+    if (len > 0) {
+      n_in += len;
+      return true;
+    }
+    int code = Z_OK;
+    const char *msg = gzerror(f, &code);
+    if (len < 0 || code != Z_OK)
+      error = std::string("cannot read FASTQ ") + (msg ? msg : "");
+    hit_eof = true;
+    len = 0;
+    return false;
+  }
+
+  // consumes n lines without materializing them (multi-host shard skip);
+  // a last line with no '\n' counts as a line, as in next_line
   void skip_lines(int64_t n) {
+    bool partial = false;  // the last buffer ended inside a line
     while (n > 0) {
       if (pos >= len) {
-        if (hit_eof)
-          return;
-        len = gzread(f, buf.data(), (unsigned)buf.size());
-        pos = 0;
-        if (len <= 0) {
-          hit_eof = true;
-          len = 0;
+        if (hit_eof || !fill()) {
+          if (partial && error.empty())
+            ++line_no;
           return;
         }
       }
@@ -3199,9 +3218,11 @@ struct GzLines {
         pos += (nl - base) + 1;
         ++line_no;
         --n;
+        partial = false;
       }
       else {
         pos = len;
+        partial = true;
       }
     }
   }
@@ -3213,12 +3234,8 @@ struct GzLines {
       if (pos >= len) {
         if (hit_eof)
           return !out.empty();
-        len = gzread(f, buf.data(), (unsigned)buf.size());
-        pos = 0;
-        if (len <= 0) {
-          hit_eof = true;
-          len = 0;
-          if (out.empty())
+        if (!fill()) {
+          if (out.empty() || !error.empty())
             return false;
           ++line_no;
           return true;
@@ -3237,6 +3254,8 @@ struct GzLines {
     }
   }
   int64_t byte_pos() const { return f ? (int64_t)gzoffset(f) : 0; }
+  // bytes of the lines consumed (uncompressed)
+  int64_t consumed() const { return n_in - (len - pos); }
 };
 
 struct StreamBatch {
@@ -3477,7 +3496,8 @@ bool sam_text_to_bam(const std::string &text,
 }
 
 // one FASTQ record batch with the reference cleaning rules
-// (io/fastq.py clean_read; abismal.cpp:164-201).  0 = ok, -1 = error.
+// (abismal.cpp:164-201).  0 = ok, -1 = error, a file that cannot be read
+// to its end included.
 int parse_batch(GzLines &in, const char *path, int64_t batch_size,
                 StreamBatch &b, std::string &err) {
   b.rblob.clear();
@@ -3538,8 +3558,21 @@ int parse_batch(GzLines &in, const char *path, int64_t batch_size,
     b.max_len = std::max<int64_t>(b.max_len, (int64_t)seq.size());
     ++b.n;
   }
+  if (!in.error.empty()) {
+    err = in.error;
+    return -1;
+  }
   return 0;
 }
+
+// a FASTQ reader for the batch loops of the Python engines: parse_batch
+// behind a handle (fastq_* below)
+struct FastqReader {
+  GzLines in;
+  std::string path, err;
+  StreamBatch b;
+  explicit FastqReader(const char *p) : in(p), path(p) {}
+};
 
 struct StreamCtl {
   std::mutex read_mtx, write_mtx;
@@ -3627,6 +3660,68 @@ void engine_stage_ns(void *eng, int64_t *out16, int reset) {
       if (reset)
         w->tns[i] = 0;
     }
+}
+
+// FASTQ batches for the Python batch loops (io/fastq.py ReadLoader), by
+// the streaming loop's parser.  fastq_open returns null if the file cannot
+// be opened; fastq_next_batch returns the records parsed (fewer than n at
+// EOF), or -1 with the message in fastq_error_ptr; the blobs and their
+// n + 1 offsets stay valid until the next call.
+void *fastq_open(const char *path) {
+  auto *r = new FastqReader(path);
+  if (!r->in.ok()) {
+    delete r;
+    return nullptr;
+  }
+  return r;
+}
+
+void fastq_close(void *h) { delete (FastqReader *)h; }
+
+// consumes up to n_lines lines; returns the lines consumed, or -1 with
+// the message in fastq_error_ptr
+int64_t fastq_skip(void *h, int64_t n_lines) {
+  FastqReader &r = *(FastqReader *)h;
+  const int64_t l0 = r.in.line_no;
+  r.in.skip_lines(n_lines);
+  r.err = r.in.error;
+  return r.err.empty() ? r.in.line_no - l0 : -1;
+}
+
+int64_t fastq_next_batch(void *h, int64_t n) {
+  FastqReader &r = *(FastqReader *)h;
+  r.err.clear();
+  if (parse_batch(r.in, r.path.c_str(), n, r.b, r.err) != 0)
+    return -1;
+  return r.b.n;
+}
+
+const char *fastq_rblob_ptr(void *h) {
+  return ((FastqReader *)h)->b.rblob.data();
+}
+const int64_t *fastq_roffs_ptr(void *h) {
+  return ((FastqReader *)h)->b.roffs.data();
+}
+const char *fastq_nblob_ptr(void *h) {
+  return ((FastqReader *)h)->b.nblob.data();
+}
+const int64_t *fastq_noffs_ptr(void *h) {
+  return ((FastqReader *)h)->b.noffs.data();
+}
+const char *fastq_error_ptr(void *h) {
+  return ((FastqReader *)h)->err.c_str();
+}
+
+// bytes of the records consumed so far (uncompressed)
+int64_t fastq_bytes_parsed(void *h) {
+  return ((FastqReader *)h)->in.consumed();
+}
+
+// the on-disk position: compressed bytes read for a gzip file, the bytes
+// of the records consumed for a plain one
+int64_t fastq_byte_pos(void *h) {
+  GzLines &in = ((FastqReader *)h)->in;
+  return gzdirect(in.f) ? in.consumed() : in.byte_pos();
 }
 
 // Full SE mapping run: parses fq_path, maps with n_threads workers, writes

@@ -18,12 +18,14 @@ While on, device_wait blocks on the card's current stream before a
 blocking copy, in a span of its own, so that the copy's span is the
 transfer alone; off, no synchronize is added.
 
-Counters: reads (each mate counts), batches, chunks (graph replays or
-eager runs of a device program), captures (a capture during a map means a
-graph was built again), and the native library's worker nanoseconds in
-seed, align and format (engine_stage_ns).  Turning the tracer on and off
-sets and clears the library's StageTimers (engine_set_profile; the flag
-is the library's, one for the process).
+Counters: reads (each mate counts), batches, read_bytes (the FASTQ text
+the batch loop's reader parsed, uncompressed, both files of a pair,
+skipped records included; counted once a map),
+chunks (graph replays or eager runs of a device program), captures (a
+capture during a map means a graph was built again), and the native
+library's worker nanoseconds in seed, align and format (engine_stage_ns).
+Turning the tracer on and off sets and clears the library's StageTimers
+(engine_set_profile; the flag is the library's, one for the process).
 
 Only the thread that maps records: the event route's collector threads
 open no span.  The module imports torch only once a span records: the
@@ -37,7 +39,7 @@ from collections import defaultdict
 
 import numpy as np
 
-COUNTERS = ("reads", "batches", "chunks", "captures")
+COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures")
 NATIVE = ("seed", "align", "format")  # engine_stage_ns slots 0-2
 
 

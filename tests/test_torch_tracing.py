@@ -99,6 +99,9 @@ def test_on_same_bytes_and_spans_nest(tmp_path, port_index, engine, name,
     spans, c = s["spans"], s["counters"]
     batches = c["batches"]
     assert batches >= 2 and c["reads"] == n_reads
+    ends = ("_1.fq", "_2.fq") if paired else ("_1.fq",)
+    assert c["read_bytes"] == sum(os.path.getsize(golden_file(name + e))
+                                  for e in ends)
     assert spans["map"][0] == 1
     assert spans["map/dispatch"][0] == spans["map/finish"][0] == batches
     assert spans["map/read"][0] == batches + 1  # and the empty last load
