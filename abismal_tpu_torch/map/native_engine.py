@@ -410,7 +410,9 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
 
     The engine's tracer (tracing.Tracer) times the loop (map) and each
     batch's FASTQ reading (read), and counts reads and batches; verbose
-    turns it on for this map and prints its table (trace_table)."""
+    turns it on for this map and prints its table (trace_table).  Reads
+    longer than the engine's lmax (its n_oversized) are named in one line
+    on standard error at the end, verbose or not."""
     import sys
     import time as _time
 
@@ -456,6 +458,7 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
     batch_size = prb(paired, random_pbat) if prb else 1000
     tr = engine.tracer
     was_on = tr.on
+    long0 = getattr(engine, "n_oversized", 0)
     if verbose:  # -v: this map's spans and counters
         tr.reset()
         tr.on = True
@@ -536,6 +539,11 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
             print(line, file=sys.stderr)
         print(f"[total mapping time: "
               f"{_time.monotonic() - start_time:.2f}s]", file=sys.stderr)
+    n_long = getattr(engine, "n_oversized", 0) - long0
+    if n_long:
+        print(f"{n_long} reads longer than --lmax {engine.lmax} were mapped "
+              f"on the host; set --lmax to at least the longest read to "
+              f"keep them on the card", file=sys.stderr)
     return stats
 
 

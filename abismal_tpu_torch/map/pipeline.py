@@ -1144,6 +1144,7 @@ class TorchNativeEngine:
         self._stage12_progs = {}
         self.n_fallback = 0
         self.n_units = 0
+        self.n_oversized = 0  # reads (mates) longer than lmax, on the host
         self._pool = None  # collector threads of the event route
         self._counter_lock = threading.Lock()
         # per-chunk phase marks (CUDA events) when profile is on
@@ -1230,6 +1231,13 @@ class TorchNativeEngine:
         pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
         lens_u = np.repeat(L, per).astype(np.int32)
         return pnib, lens_u, per, oversized
+
+    def _count_oversized(self, n):
+        """n reads longer than lmax went up as zero-length rows: on the
+        engine's count (n_oversized) and the tracer's."""
+        if n:
+            self.n_oversized += n
+            self.tracer.count("oversized", n)
 
     def _put(self, a):
         return put(a, self.device)
@@ -1403,6 +1411,7 @@ class TorchNativeEngine:
             with tr.span("encode"):
                 pnib_all, lens_all, per, oversized = self._se_units_mat(
                     reads, a_rich_mode, random_pbat)
+                self._count_oversized(int(oversized.sum()))
                 scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
                 is_ga_pat = np.array(
                     [get_conv_is_ga(int(c)) for c in scode_pat], dtype=bool)
@@ -1553,6 +1562,10 @@ class TorchNativeEngine:
             with tr.span("encode"):
                 pnib_all, lens_all, per, oversized = self._pe_units_mat(
                     reads1, reads2, a_rich_mode, random_pbat)
+                if oversized.any():
+                    self._count_oversized(sum(
+                        len(s) > self.lmax for r in (reads1, reads2)
+                        for _, s in r))
                 is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
                 if self.device_stage2:
                     prog = self._stage12pe_prog(per, self._budget_for(

@@ -1827,24 +1827,28 @@ bool map_fragments(const Engine &E, Worker &w, const Events &ev,
       push_heap(res.v.data(), res.sz);
     }
   };
-  if (len1) {
-    encode_read(read1, len1, conv_a_rich, w.buf[b1]);
-    pread1 = w.buf[b1].data();
-    if (s1ok)
-      fill_slots(u1, sc1, res1);
-    else
-      seeds(E, w, ev, u1, pread1, len1, sc1, res1);
-  }
-  if (len2) {
-    revcomp_ascii(read2, len2, w.rcbuf[rcb]);
-    encode_read(w.rcbuf[rcb].data(), len2, conv_a_rich, w.buf[b2]);
-    pread2 = w.buf[b2].data();
-    if (s2ok)
-      fill_slots(u2, sc2, res2);
-    else
-      seeds(E, w, ev, u2, pread2, len2, sc2, res2);
+  {
+    StageTimer t(w.tns + 0);
+    if (len1) {
+      encode_read(read1, len1, conv_a_rich, w.buf[b1]);
+      pread1 = w.buf[b1].data();
+      if (s1ok)
+        fill_slots(u1, sc1, res1);
+      else
+        seeds(E, w, ev, u1, pread1, len1, sc1, res1);
+    }
+    if (len2) {
+      revcomp_ascii(read2, len2, w.rcbuf[rcb]);
+      encode_read(w.rcbuf[rcb].data(), len2, conv_a_rich, w.buf[b2]);
+      pread2 = w.buf[b2].data();
+      if (s2ok)
+        fill_slots(u2, sc2, res2);
+      else
+        seeds(E, w, ev, u2, pread2, len2, sc2, res2);
+    }
   }
   // select_maps (abismal.cpp:1833-1847)
+  StageTimer t(w.tns + 1);
   if (res1.should_align() && res2.should_align()) {
     res1.prepare_for_mating();
     res2.prepare_for_mating();
@@ -2097,6 +2101,7 @@ void finish_pe_pair(const Engine &E, Worker &w, PEBest &best, Cigar &cig1,
   cig_se1.clear();
   cig_se2.clear();
   if (!best.should_report(E.allow_ambig)) {
+    StageTimer t(w.tns + 1);
     align_se_fallback(E, w, p1t, p1t_rc, p1a, p1a_rc, w.se1, l1, best_se1,
                       cig_se1);
     align_se_fallback(E, w, p2t, p2t_rc, p2a, p2a_rc, w.se2, l2, best_se2,
@@ -2106,6 +2111,7 @@ void finish_pe_pair(const Engine &E, Worker &w, PEBest &best, Cigar &cig1,
   }
 
   // select_output (abismal.cpp:1073-1088)
+  StageTimer t(w.tns + 2);
   std::string pe_lines;
   const int pe_type = format_pe(E, best, cig1, cig2, name1, nl1, name2, nl2,
                                 read1, l1, read2, l2, pe_lines);
@@ -2499,7 +2505,11 @@ int64_t engine_map_pe_batch(void *eng, const uint8_t *reads1_blob,
 // PE finalize from device stage-1+2 candidate slots (pipeline.py
 // build_stage12pe): per-unit prescored candidate lists replace both the
 // event stream and the host score pass; units with cnt < 0 re-seed
-// natively.  Output is byte-identical at any fallback rate.
+// natively.  Output is byte-identical at any fallback rate.  With the
+// profile flag on, map_one_pe's parts add its workers' seconds to the
+// StageTimer slots: seed (seeding or slot fill, in map_fragments), align
+// (pair alignments there, single-end ones in finish_pe_pair), format
+// (finish_pe_pair's SAM text and stats).
 // ---------------------------------------------------------------------------
 // dense unit-matrix prep for the fused device programs (pipeline.py
 // _se_units_dense/_pe_units_dense): encodes reads into the device upload

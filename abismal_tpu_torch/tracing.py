@@ -22,8 +22,12 @@ Counters: reads (each mate counts), batches, read_bytes (the FASTQ text
 the batch loop's reader parsed, uncompressed, both files of a pair,
 skipped records included; counted once a map),
 chunks (graph replays or eager runs of a device program), captures (a
-capture during a map means a graph was built again), and the native
-library's worker nanoseconds in seed, align and format (engine_stage_ns).
+capture during a map means a graph was built again), oversized (the reads
+longer than the engine's lmax, each mate counted, that go up as
+zero-length rows and are mapped on the host whole), and the native
+library's worker nanoseconds in seed, align and format (engine_stage_ns:
+the SE finalize, and the PE slot finalize's seeding or slot fill, pair
+and single-end alignments, and SAM text).
 Turning the tracer on and off sets and clears the library's StageTimers
 (engine_set_profile; the flag is the library's, one for the process).
 
@@ -39,7 +43,8 @@ from collections import defaultdict
 
 import numpy as np
 
-COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures")
+COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures",
+            "oversized")
 NATIVE = ("seed", "align", "format")  # engine_stage_ns slots 0-2
 
 

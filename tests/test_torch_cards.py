@@ -56,19 +56,20 @@ def card_mesh(request):
     return "all", torch.cuda.device_count()
 
 
-def _map_golden(tmp_path, trex1, prefix, fac):
+def _map_golden(tmp_path, trex1, prefix, fac, pbat=False):
     from abismal_tpu_torch.map.engine import run_map
 
     index, goldens = trex1
     paired = prefix.endswith("_pe")
     tail = (f"tests/{prefix}_1.fq tests/{prefix}_2.fq" if paired
             else f"tests/{prefix}_1.fq")
-    cl = (f"map -s tests/{prefix}.mstats -o tests/{prefix}.sam "
+    flag = "-P " if pbat else ""
+    cl = (f"map {flag}-s tests/{prefix}.mstats -o tests/{prefix}.sam "
           f"-i tests/tRex1.idx {tail}")
     sam, mst = tmp_path / "out.sam", tmp_path / "out.mstats"
     run_map(index, _gunzip(prefix + "_1.fq", goldens),
             _gunzip(prefix + "_2.fq", goldens) if paired else None, str(sam),
-            str(mst), cl, engine_factory=fac, threads=2)
+            str(mst), cl, engine_factory=fac, threads=2, pbat=pbat)
     for path, ext in ((sam, ".sam.gz"), (mst, ".mstats.gz")):
         with gzip.open(os.path.join(GOLDEN, prefix + ext), "rt") as f:
             assert path.read_text() == f.read()
@@ -215,3 +216,21 @@ def test_card_graphs_give_the_goldens(tmp_path, trex1, prefix, stage2):
     assert replays >= 2
     # one warm run of each key captured here, then one K1 a replay
     assert popcount_compare.launches - k0 == replays + len(stats) - n0
+
+
+@pytest.mark.parametrize("prefix,pbat", [
+    ("reads_pe", False), ("reads_pbat_pe", True), ("reads_rpbat_pe", True)])
+def test_card_pe_goldens_at_lmax_160(tmp_path, trex1, prefix, pbat):
+    """The 10k-pair goldens (the rpbat ones mapped with -P, as in
+    tests/golden/MANIFEST.md) through the graphed fused PE program at
+    lmax 160, 2048 units a chunk: byte for byte, with K1 launched."""
+    from abismal_tpu_torch.kernels.popcount_compare import popcount_compare
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    fac = make_torch_native_engine_factory("cuda", lmax=160, n_threads=2)
+    k0 = popcount_compare.launches
+    eng = _map_golden(tmp_path, trex1, prefix, fac, pbat=pbat)
+    assert eng.lmax == 160 and eng.n_oversized == 0
+    assert popcount_compare.launches > k0

@@ -84,6 +84,38 @@ def port_index_file() -> str:
     return PORT_IDX
 
 
+def bs_pairs(index, n=64, length=150, frag=(150, 400), seed=7):
+    """n directional WGBS pairs of `length`-base mates from fragments of
+    the index's genome (either strand, length uniform in frag, 1% of the
+    bases substituted, then C->T at 98% on the fragment's strand): mate 1
+    the fragment's start, mate 2 the reverse complement of its end.
+    ([(name, seq)], [(name, seq)])."""
+    import numpy as np
+
+    from abismal_tpu_torch.utils.dna import unpack_nibbles_u64
+
+    nib = unpack_nibbles_u64(index.genome_words, index.genome_size)
+    nib_to_char = np.frombuffer(b"ZACMGRSVTWYHKDBN", dtype=np.uint8)
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    rng = np.random.default_rng(seed)
+    r1, r2 = [], []
+    for i in range(n):
+        f = int(rng.integers(frag[0], frag[1] + 1))
+        p = int(rng.integers(40000, index.genome_size - 40000 - f))
+        s = nib_to_char[nib[p : p + f]].tobytes().replace(b"Z", b"A")
+        if rng.random() < 0.5:
+            s = s.translate(comp)[::-1]
+        s = bytearray(s)
+        for k in np.flatnonzero(rng.random(f) < 0.01):
+            s[k] = b"ACGT"[(b"ACGT".find(s[k]) + 1) % 4]
+        conv = rng.random(f) < 0.98
+        s = bytes(ord("T") if c == ord("C") and k else c
+                  for c, k in zip(s, conv))
+        r1.append((f"p{i}", s[:length]))
+        r2.append((f"p{i}", s[-length:].translate(comp)[::-1]))
+    return r1, r2
+
+
 @pytest.fixture(scope="module")
 def port_index():
     """The tRex1 AbismalIndex, read back from port_index_file() with the

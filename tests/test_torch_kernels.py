@@ -561,12 +561,14 @@ def test_banded_score_kernel_cases(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["shift0", "past-end", "nw2", "nw16",
                                   "ragged-genome", "nw-words-18",
-                                  "nw-words-32"])
+                                  "nw-words-20", "nw-words-32"])
 def test_popcount_compare_kernel_cases(cuda_device, case):
     """K1 at the edges of its loads: every position on a word (pos & 7 ==
     0), positions past the end of the genome, the shortest and the longest
     word counts, a genome that does not end on a quad of words, and read
-    units that are not 16 words (18: no 128-bit rows; 32: two turns)."""
+    units that are not 16 words (18: no 128-bit rows; 20: an lmax 160
+    unit, its 150-base reads' 20 words in two turns, the second on one
+    lane of four; 32: two turns)."""
     from abismal_tpu_torch.kernels import popcount_compare as pc
 
     kw = dict(G=4099, B=64)
@@ -584,6 +586,8 @@ def test_popcount_compare_kernel_cases(cuda_device, case):
         nw_of[:] = 2
     elif case == "nw16":
         nw_of[:] = 16
+    elif case == "nw-words-20":
+        nw_of[::2] = 20
     args = _k1_torch(genome32, pos, pk, np.sort(b_of), nw_of,
                      device=cuda_device)
     got = pc.popcount_compare(*args)

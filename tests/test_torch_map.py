@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tests.test_torch_fixtures import (  # noqa: F401
-    GOLDEN, golden_file, port_index, ref_index, release_engines,
+    GOLDEN, bs_pairs, golden_file, port_index, ref_index, release_engines,
 )
 
 # test workers share the CPU: one torch thread each, not one per core
@@ -370,3 +370,50 @@ def test_lmax_256_long_reads(port_index, monkeypatch, device_stage2):
     assert port.n_units == 128
     if not device_stage2:
         assert port.n_fallback == 0, "long reads fell back to the host path"
+
+
+@pytest.fixture(scope="module")
+def synth_index(tmp_path_factory):
+    """The port's index of a random 400 kb genome (A, C, G, T alone)."""
+    from abismal_tpu_torch.index.build import create_index
+
+    rng = np.random.default_rng(3)
+    seq = "".join(rng.choice(list("ACGT"), size=400_000))
+    fa = tmp_path_factory.mktemp("synth") / "synth.fa"
+    fa.write_text(">chr1\n" + "\n".join(seq[i : i + 70] for i in
+                                         range(0, len(seq), 70)) + "\n")
+    return create_index(str(fa))
+
+
+@pytest.mark.parametrize("lmax", [160, 128])
+@pytest.mark.parametrize("device_stage2", [False, True],
+                         ids=["events", "fused"])
+def test_lmax_160_pe_150bp_pairs(synth_index, device_stage2, lmax):
+    """2x150 bp directional pairs give the native engine's SAM and stats
+    on both PE routes.  At lmax 160 every unit stays on the device (the
+    fused route mates every orientation there); at lmax 128 every mate is
+    too long, so every unit goes to the host and every mate is counted
+    oversized."""
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.pipeline import TorchNativeEngine
+    from abismal_tpu_torch.map.stats import PEStats
+
+    r1, r2 = bs_pairs(synth_index, n=96)
+    port = TorchNativeEngine(synth_index, lmax=lmax, unit_batch=128,
+                             n_threads=2, device="cpu",
+                             device_stage2=device_stage2)
+    outs = []
+    for eng in (port, NativeMappingEngine(synth_index, n_threads=2)):
+        out, st = io.StringIO(), PEStats()
+        eng.map_pe_reads(r1, r2, False, False, st, out)
+        outs.append((out.getvalue(), st.tostring(False)))
+    port.close()
+    assert outs[0] == outs[1]
+    assert outs[1][0].count("\tNM:i:") > 180
+    assert port.n_units == 4 * 96
+    if lmax == 160:
+        assert port.n_fallback == 0 and port.n_oversized == 0
+        assert port.native.n_device_mated == (192 if device_stage2 else 0)
+    else:
+        assert port.n_fallback == port.n_units
+        assert port.n_oversized == 192

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tests.test_torch_fixtures import (  # noqa: F401
-    golden_file, port_index, release_engines,
+    bs_pairs, golden_file, port_index, release_engines,
 )
 
 jax = pytest.importorskip("jax")
@@ -39,17 +39,15 @@ def tables(port_index):
     return _tables(port_index)
 
 
-def _pe_units(reads1, reads2, random_pbat, pbat=False):
+def _pe_units(reads1, reads2, random_pbat, pbat=False, lmax=LMAX):
     """One chunk of pairs as the engine lays it out: (pnib, lens, is_ga,
     max_diffs_u, per)."""
     from abismal_tpu.map.pipeline import TpuNativeEngine
     from abismal_tpu_torch.map.pipeline import TorchNativeEngine
 
-    class _Shape:
-        lmax = LMAX
-
+    shape = type("_Shape", (), {"lmax": lmax})()
     pnib, lens, per, _ = TorchNativeEngine._pe_units_mat(
-        _Shape(), reads1, reads2, pbat, random_pbat)
+        shape, reads1, reads2, pbat, random_pbat)
     is_ga = np.tile(TpuNativeEngine._pe_is_ga_pattern(pbat, random_pbat),
                     len(reads1))
     md = (0.1 * lens.astype(np.float64)).astype(np.int32)
@@ -63,17 +61,17 @@ def _golden_pairs(prefix, first, n):
         first : first + n] for e in (1, 2)]
 
 
-def _run_both(jdev, tdev, units, cand, pe_dist=(32, 3000)):
+def _run_both(jdev, tdev, units, cand, pe_dist=(32, 3000), lmax=LMAX):
     from abismal_tpu.map.pipeline import build_stage12pe as jax_stage12pe
     from abismal_tpu_torch.map.pipeline import build_stage12pe
 
     pnib, lens, is_ga, md, per = units
     dist = np.array(pe_dist, np.int32)
-    prog_j, _ = jax_stage12pe(LMAX, jdev.max_candidates, jdev.n_index2,
+    prog_j, _ = jax_stage12pe(lmax, jdev.max_candidates, jdev.n_index2,
                               jdev.n_index3, per=per, cand_per_unit=cand,
                               interpret=True, ext_iters=jdev.ext_iters)
     want = np.asarray(prog_j(*jdev.tables(), pnib, lens, is_ga, md, dist))
-    prog_t, _ = build_stage12pe(LMAX, jdev.max_candidates, jdev.n_index2,
+    prog_t, _ = build_stage12pe(lmax, jdev.max_candidates, jdev.n_index2,
                                 jdev.n_index3, per=per, cand_per_unit=cand,
                                 ext_iters=jdev.ext_iters)
     got = prog_t(*tdev.tables(), *(torch.from_numpy(np.ascontiguousarray(a))
@@ -86,19 +84,24 @@ def _mate(rows, per):
     return rows[:, 2 * K + 1 :].reshape(-1, per // 2, 10)
 
 
-@pytest.mark.parametrize("prefix,first,n_pairs,random_pbat,cand", [
-    ("small_pe", 0, 32, False, 52),  # per=4: 128 units
-    ("small_rpbat_pe", 100, 16, True, 44),  # per=8, random PBAT
+@pytest.mark.parametrize("prefix,first,n_pairs,random_pbat,cand,lmax", [
+    ("small_pe", 0, 32, False, 52, LMAX),  # per=4: 128 units
+    ("small_rpbat_pe", 100, 16, True, 44, LMAX),  # per=8, random PBAT
+    ("bs150", 0, 32, False, 52, 160),  # 2x150 bp: 20 read words a unit
 ])
-def test_stage12pe_packed_rows_match_jax(tables, prefix, first, n_pairs,
-                                         random_pbat, cand):
+def test_stage12pe_packed_rows_match_jax(tables, port_index, prefix, first,
+                                         n_pairs, random_pbat, cand, lmax):
     """Packed (B, 2K + 6) rows, whole, equal the JAX program's on one
     128-unit chunk; cand is distinct from other tests' budgets, so JAX
-    builds a fresh program."""
+    builds a fresh program.  bs150: directional 2x150 bp pairs of tRex1
+    (test_torch_fixtures.bs_pairs) at lmax 160."""
     jdev, tdev = tables
-    r1, r2 = _golden_pairs(prefix, first, n_pairs)
-    units = _pe_units(r1, r2, random_pbat)
-    got, want = _run_both(jdev, tdev, units, cand)
+    if prefix == "bs150":
+        r1, r2 = bs_pairs(port_index, n=n_pairs)
+    else:
+        r1, r2 = _golden_pairs(prefix, first, n_pairs)
+    units = _pe_units(r1, r2, random_pbat, lmax=lmax)
+    got, want = _run_both(jdev, tdev, units, cand, lmax=lmax)
     assert got.dtype == np.int32 and got.shape == want.shape == (128, 70)
     np.testing.assert_array_equal(got, want)
     cnt = want[:, 2 * K]

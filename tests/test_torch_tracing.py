@@ -4,7 +4,9 @@ the golden's byte for byte, the spans nest (self time >= 0, a child's
 total within its parent's) and count what the batch loop did; under
 torch.profiler the spans are abismal:<name> ranges, nested as they were
 opened; -v prints the tracer's table; the tracer switches the native
-library's worker timers on and off with itself."""
+library's worker timers on and off with itself, and the PE slot finalize
+reports its workers' seconds on them; reads longer than lmax are
+counted (oversized) and named on standard error at the end of a map."""
 
 import gzip
 import json
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from tests.test_torch_fixtures import (  # noqa: F401
-    GOLDEN, golden_file, port_index, release_engines,
+    GOLDEN, bs_pairs, golden_file, port_index, release_engines,
 )
 
 # test workers share the CPU: one torch thread each, not one per core
@@ -209,3 +211,88 @@ def test_native_timers_follow_the_tracer(tmp_path, port_index, engine):
     before = raw()
     _map(port_index, fac, "small", False, False, tmp_path / "o.sam")
     assert (raw() == before).all()
+
+
+def test_pe_finalize_worker_seconds(tmp_path, port_index, engine):
+    """A PE map through the slot finalize (engine_map_pe_batch_slots)
+    reports its workers' seconds in seed, align and format."""
+    fac, eng = engine
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        _map(port_index, fac, "small_pe", True, False, tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    c = eng.tracer.summary()["counters"]
+    assert c["native_seed_s"] > 0
+    assert c["native_align_s"] > 0
+    assert c["native_format_s"] > 0
+
+
+def _mixed(port_index):
+    """Two mate lists of 12 pairs: mate 1 of 150 bases in pairs 0-7, mate
+    2 of 150 in pairs 4-11, the others of 100; mates over 128 bases: 16."""
+    l1, l2 = bs_pairs(port_index, n=12, length=150)
+    s1, s2 = bs_pairs(port_index, n=12, length=100, frag=(100, 250), seed=8)
+    r1 = l1[:8] + s1[8:]
+    r2 = s2[:4] + l2[4:]
+    return r1, r2
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_oversized_counts_long_mates(port_index, engine, paired):
+    """At lmax 128, each read (mate) over 128 bases counts once: on the
+    engine always, on the tracer while it is on; 0 there while off."""
+    import io
+
+    from abismal_tpu_torch.map.stats import PEStats, SEStats
+
+    _, eng = engine
+    r1, r2 = _mixed(port_index)
+
+    def run():
+        out = io.StringIO()
+        if paired:
+            eng.map_pe_reads(r1, r2, False, False, PEStats(), out)
+        else:
+            eng.map_se_reads(r1 + r2, False, False, SEStats(), out)
+
+    for on in (True, False):
+        eng.tracer.reset()
+        eng.tracer.on = on
+        n0 = eng.n_oversized
+        try:
+            run()
+        finally:
+            eng.tracer.on = False
+        assert eng.n_oversized - n0 == 16
+        assert eng.tracer.summary()["counters"]["oversized"] == (
+            16 if on else 0)
+
+
+@pytest.mark.parametrize("lmax", [128, 160])
+def test_long_reads_named_on_stderr(tmp_path, port_index, capsys, lmax):
+    """A map with mates longer than --lmax names them in one line on
+    standard error, never in the SAM; with lmax above them, no line."""
+    from abismal_tpu_torch.map.engine import run_map
+    from abismal_tpu_torch.map.pipeline import (
+        make_torch_native_engine_factory,
+    )
+
+    r1, r2 = _mixed(port_index)
+    fqs = []
+    for e, reads in ((1, r1), (2, r2)):
+        fq = tmp_path / f"r_{e}.fq"
+        fq.write_bytes(b"".join(b"@%s\n%s\n+\n%s\n" % (
+            n.encode(), s, b"I" * len(s)) for n, s in reads))
+        fqs.append(str(fq))
+    fac = make_torch_native_engine_factory("cpu", lmax=lmax, unit_batch=128,
+                                           n_threads=2)
+    sam = tmp_path / "o.sam"
+    run_map(port_index, fqs[0], fqs[1], str(sam), None, "map",
+            engine_factory=fac, threads=2)
+    err = capsys.readouterr().err
+    line = ("16 reads longer than --lmax 128 were mapped on the host; set "
+            "--lmax to at least the longest read to keep them on the card")
+    assert (line in err.splitlines()) == (lmax == 128), err
+    assert "longer than" not in sam.read_text()
