@@ -14,7 +14,9 @@ reference (src/abismal.cpp:1435-2185)."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from collections import deque
 
 import numpy as np
 
@@ -57,13 +59,28 @@ def _ptr(a):
     return a.ctypes.data if a is not None else None
 
 
+def _add_stats(stats, raw):
+    """Adds the library's raw counters (6 SE, 18 PE: pair, end 1, end 2)
+    to stats (SEStats, or PEStats)."""
+    blocks = ((stats,) if raw.size == 6 else
+              (stats.read_pair_stats, stats.end1_stats, stats.end2_stats))
+    for blk, dst in enumerate(blocks):
+        for i, f in enumerate(_SE_FIELDS):
+            setattr(dst, f, getattr(dst, f) + int(raw[6 * blk + i]))
+
+
 class NativeMappingEngine:
     """Drop-in engine for run_map: map_se_reads / map_pe_reads over the
     native library, with internal threading (`n_threads`).  tracer (a
     tracing.Tracer, its own by default; TorchNativeEngine hands it its
     own) times each batch call's input blobs (pack), the library's call
     (native) and the SAM text out (write), and reads the library's
-    worker counters."""
+    worker counters.
+
+    The device route's finalize (_finalize_se, _call_pe_slots) hands each
+    batch to the library's finalize pool as a job and returns; _write_jobs
+    writes the finished jobs in batch order, each to the out and stats it
+    came with."""
 
     supports_pipeline = True
 
@@ -106,6 +123,9 @@ class NativeMappingEngine:
         )
         self.tracer = Tracer() if tracer is None else tracer
         self.tracer.bind_native(self)
+        # the finalize pool's jobs, oldest first: (job, raw stats size,
+        # stats, out, the arrays the library reads until it is released)
+        self._jobs = deque()
 
     def __del__(self):
         ctx = getattr(self, "_ctx", None)
@@ -149,8 +169,7 @@ class NativeMappingEngine:
                 _ptr(noffs), len(reads), int(a_rich_mode), int(random_pbat),
                 *self._event_args(events), self.n_threads, _ptr(st))
         self._emit(n, out)
-        for i, f in enumerate(_SE_FIELDS):
-            setattr(stats, f, getattr(stats, f) + int(st[i]))
+        _add_stats(stats, st)
 
     def _call_pe(self, reads1, reads2, a_rich_mode, random_pbat, stats, out,
                  events):
@@ -171,46 +190,34 @@ class NativeMappingEngine:
                 len(reads1), int(a_rich_mode), int(random_pbat),
                 *self._event_args(events), self.n_threads, _ptr(st))
         self._emit(n, out)
-        for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
-                                   stats.end2_stats)):
-            for i, f in enumerate(_SE_FIELDS):
-                setattr(dst, f, getattr(dst, f) + int(st[6 * blk + i]))
+        _add_stats(stats, st)
 
     def _call_pe_slots(self, reads1, reads2, a_rich_mode, random_pbat,
                        stats, out, sl_pos, sl_ds, sl_cnt, mate=None):
         """PE finalize from device stage-1+2 candidate slots (pipeline.py
         build_stage12pe): per-unit prescored candidate lists replace the
         event stream and the host score pass; units with cnt < 0 re-seed
-        natively (byte-identical at any fallback rate)."""
+        natively (byte-identical at any fallback rate).  A job on the
+        finalize pool (_submit)."""
         if len(reads1) != len(reads2):
             raise RuntimeError(
                 f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
                 f"Batch 2: {len(reads2)}. Are you sure your paired-end "
                 "inputs have the same number of reads?")
-        tr = self.tracer
-        with tr.span("pack"):
-            (r1b, r1o, n1b, n1o, r2b, r2o, n2b,
-             n2o) = _pair_blobs(reads1, reads2)
+        with self.tracer.span("pack"):
+            blobs = _pair_blobs(reads1, reads2)
             sl_pos = np.ascontiguousarray(sl_pos, dtype=np.uint32)
             sl_ds = np.ascontiguousarray(sl_ds, dtype=np.int32)
             sl_cnt = np.ascontiguousarray(sl_cnt, dtype=np.int32)
             if mate is not None:
                 mate = np.ascontiguousarray(mate, dtype=np.int32)
-            st = np.zeros(18, dtype=np.int64)
-        with tr.span("native"):
-            n = self.lib.engine_map_pe_batch_slots(
-                self._ctx, _ptr(r1b), _ptr(r1o), _ptr(n1b), _ptr(n1o),
-                _ptr(r2b), _ptr(r2o), _ptr(n2b), _ptr(n2o),
-                len(reads1), int(a_rich_mode), int(random_pbat),
-                _ptr(sl_pos), _ptr(sl_ds), _ptr(sl_cnt), sl_pos.shape[1],
-                _ptr(mate) if mate is not None else None,
-                mate.shape[1] if mate is not None else 0,
-                self.n_threads, _ptr(st))
-        self._emit(n, out)
-        for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
-                                   stats.end2_stats)):
-            for i, f in enumerate(_SE_FIELDS):
-                setattr(dst, f, getattr(dst, f) + int(st[6 * blk + i]))
+        self._submit(
+            self.lib.engine_pe_slots_submit,
+            (*map(_ptr, blobs), len(reads1), int(a_rich_mode),
+             int(random_pbat), _ptr(sl_pos), _ptr(sl_ds), _ptr(sl_cnt),
+             sl_pos.shape[1], _ptr(mate),
+             mate.shape[1] if mate is not None else 0),
+            (blobs, sl_pos, sl_ds, sl_cnt, mate), 18, stats, out)
 
     # ---- device stage-2 finalize (pipeline.py build_stage12) ---------------
     def _finalize_se(self, reads, a_rich_mode, random_pbat, records, stats,
@@ -219,30 +226,73 @@ class NativeMappingEngine:
         native side does traceback-for-winners + SAM + stats, or a full
         exact re-map for REC_FALLBACK rows.  cig_ops/cig_meta (optional):
         device-traceback output (kernels.banded_align, K3) -- aligned rows
-        with meta n_ops >= 0 skip the host aligner entirely."""
-        tr = self.tracer
-        with tr.span("pack"):
+        with meta n_ops >= 0 skip the host aligner entirely.  A job on the
+        finalize pool (_submit)."""
+        with self.tracer.span("pack"):
             names, seqs = zip(*reads) if reads else ((), ())
-            rblob, roffs = _blob(list(seqs))
-            nblob, noffs = _blob([n.encode() for n in names])
+            blobs = (_blob(list(seqs)) + _blob([n.encode() for n in names]))
             records = np.ascontiguousarray(records, dtype=np.int32)
             tb_nops = 0
             if cig_ops is not None:
                 cig_ops = np.ascontiguousarray(cig_ops, dtype=np.int32)
                 cig_meta = np.ascontiguousarray(cig_meta, dtype=np.int32)
                 tb_nops = cig_ops.shape[1]
-            st = np.zeros(6, dtype=np.int64)
+        self._submit(
+            self.lib.engine_se_finalize_submit,
+            (*map(_ptr, blobs), len(reads), int(a_rich_mode),
+             int(random_pbat), _ptr(records), _ptr(cig_ops), _ptr(cig_meta),
+             tb_nops),
+            (blobs, records, cig_ops, cig_meta), 6, stats, out)
+
+    # ---- the finalize pool -------------------------------------------------
+    def _submit(self, submit, args, refs, n_raw, stats, out):
+        """Hands a batch to the library's finalize pool (submit: its
+        submit entry, args: what follows the context, n_threads added)
+        and returns; refs, the arrays the library reads, live on the job
+        until _write_jobs releases it.  Counts the job (pool_jobs) and the
+        items the card handed back, which the pool claims first
+        (pool_first)."""
+        tr = self.tracer
         with tr.span("native"):
-            n = self.lib.engine_se_finalize(
-                self._ctx, _ptr(rblob), _ptr(roffs), _ptr(nblob),
-                _ptr(noffs), len(reads), int(a_rich_mode), int(random_pbat),
-                _ptr(records),
-                _ptr(cig_ops) if cig_ops is not None else None,
-                _ptr(cig_meta) if cig_meta is not None else None, tb_nops,
-                self.n_threads, _ptr(st))
-        self._emit(n, out)
-        for i, f in enumerate(_SE_FIELDS):
-            setattr(stats, f, getattr(stats, f) + int(st[i]))
+            job = submit(self._ctx, *args, self.n_threads)
+        self._jobs.append((job, n_raw, stats, out, refs))
+        tr.count("pool_jobs")
+        tr.count("pool_first", self.lib.engine_job_first(self._ctx, job))
+
+    def _write_jobs(self, keep: int) -> None:
+        """Writes the pool's finished jobs, oldest first, each to the out
+        and stats it came with, and stops at the first unfinished job once
+        at most keep are left; above keep it waits for that job
+        (finish/native_wait), and a call that waited counts once
+        (pool_waits).  keep 0 writes every job."""
+        lib, ctx, tr = self.lib, self._ctx, self.tracer
+        waited = False
+        while self._jobs:
+            job, n_raw, stats, out, _refs = self._jobs[0]
+            if not lib.engine_job_done(ctx, job):
+                if len(self._jobs) <= keep:
+                    break
+                waited = True
+                with tr.span("native_wait"):
+                    lib.engine_job_wait(ctx, job, None)
+            st = np.zeros(n_raw, dtype=np.int64)
+            n = lib.engine_job_wait(ctx, job, _ptr(st))
+            with tr.span("write"):
+                out.write(ctypes.string_at(lib.engine_job_out_ptr(ctx, job),
+                                           n).decode())
+            self._jobs.popleft()
+            lib.engine_job_release(ctx, job)
+            _add_stats(stats, st)
+        if waited:
+            tr.count("pool_waits")
+
+    def drop_jobs(self) -> None:
+        """Waits for the pool's jobs and releases them unwritten: what a
+        map that raised leaves behind never reaches a later map."""
+        while self._jobs:
+            job = self._jobs.popleft()[0]
+            self.lib.engine_job_wait(self._ctx, job, None)
+            self.lib.engine_job_release(self._ctx, job)
 
     # ---- two-phase SE interface for device-side batched alignment ---------
     def _phase1_se(self, reads, a_rich_mode, random_pbat, events):
@@ -273,8 +323,7 @@ class NativeMappingEngine:
             n = self.lib.engine_se_phase2(self._ctx, _ptr(scores),
                                           self.n_threads, _ptr(st))
         self._emit(n, out)
-        for i, f in enumerate(_SE_FIELDS):
-            setattr(stats, f, getattr(stats, f) + int(st[i]))
+        _add_stats(stats, st)
         self._phase_refs = None
 
     # ---- two-phase PE interface for device-side batched alignment ---------
@@ -310,10 +359,7 @@ class NativeMappingEngine:
             n = self.lib.engine_pe_phase2(self._ctx, _ptr(scores),
                                           self.n_threads, _ptr(st))
         self._emit(n, out)
-        for blk, dst in enumerate((stats.read_pair_stats, stats.end1_stats,
-                                   stats.end2_stats)):
-            for i, f in enumerate(_SE_FIELDS):
-                setattr(dst, f, getattr(dst, f) + int(st[6 * blk + i]))
+        _add_stats(stats, st)
         self._phase_refs = None
 
     # ---- fully-native streaming loop (engine_run_se/pe) --------------------
@@ -396,6 +442,19 @@ class NativeMappingEngine:
                       None)
 
 
+@contextlib.contextmanager
+def _jobs_dropped_on_error(engine):
+    """A map that raises drops the jobs it left on the engine's finalize
+    pool (drop_jobs), so that none is written into a later map."""
+    try:
+        yield
+    except BaseException:
+        drop = getattr(engine, "drop_jobs", None)
+        if drop is not None:
+            drop()
+        raise
+
+
 def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
                       command_line, a_rich=False, pbat=False,
                       random_pbat=False, bam=False, verbose=False,
@@ -469,7 +528,7 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
         from ..utils.progress import file_progress
 
         bar = file_progress(reads_file1)
-    with tr.span("map"), open_sam_output(
+    with tr.span("map"), _jobs_dropped_on_error(engine), open_sam_output(
             out_path, bam, bam_emit_header=write_header) as out:
         if write_header or bam:
             # BAM sinks always consume the header text: with write_header
@@ -549,7 +608,9 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
 
 def trace_table(summary: dict) -> list[str]:
     """The -v lines of a tracer summary: each span's calls, total and self
-    seconds and its share of the map's total, then the counters."""
+    seconds and its share of the map's total, then the counters, and the
+    finalize pool's engagement (1 - pool_waits / pool_jobs) where it ran
+    jobs."""
     spans = summary["spans"]
     whole = max((t for p, (_, t, _s) in spans.items() if "/" not in p),
                 default=0.0) or 1.0
@@ -559,7 +620,13 @@ def trace_table(summary: dict) -> list[str]:
         calls, total, self_s = spans[path]
         lines.append(f"[{path:32s} {calls:7d} {total:9.3f} {self_s:9.3f} "
                      f"{100 * total / whole:6.1f}%]")
+    c = summary["counters"]
     lines.append("[counters: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
-        for k, v in summary["counters"].items()) + "]")
+        for k, v in c.items()) + "]")
+    if c.get("pool_jobs"):
+        lines.append(f"[finalize pool: {c['pool_jobs']} jobs, "
+                     f"{c['pool_waits']} finish calls waited, engagement "
+                     f"{1 - c['pool_waits'] / c['pool_jobs']:.3f}, "
+                     f"{c['pool_first']} items first]")
     return lines

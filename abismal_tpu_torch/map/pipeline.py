@@ -1066,10 +1066,24 @@ class TorchNativeEngine:
     dispatch (encode: the units, patterns and budget; then the runner's
     stage_in, replay or capture) and finish (collect: the rows' copies
     out, each after a device_wait while on; then the native half's pack,
-    native and write)."""
+    native and write).
+
+    The fused route's finish hands its batch to the native finalize pool
+    and returns once the batches before it that are done are written (in
+    batch order), waiting (native_wait) only while more than
+    finalize_depth are in flight, and for all of them once no dispatched
+    batch is left unfinished: when the batch it hands over is the last
+    one dispatched (the end of a map's input, finish(dispatch(...))), or
+    as many batches were finished as dispatched.  So every caller has
+    its whole output once its last finish returns."""
 
     supports_pipeline = True
     pipeline_depth = 2  # batches in flight ahead of the native finish
+    # finalize jobs a finish may leave on the native pool: the longest
+    # item measured (a PE pair's host re-map, 343 ms on an H100 host at
+    # 3.1 Gb) over the batch loop's own period (5-10 ms a batch), so one
+    # slow item holds no batch loop (PERF.md section 5)
+    finalize_depth = 64
 
     def __init__(self, index, allow_ambig=False, valid_frac=0.1,
                  pe_min_dist=32, pe_max_dist=3000, lmax: int = 128,
@@ -1146,6 +1160,9 @@ class TorchNativeEngine:
         self.n_units = 0
         self.n_oversized = 0  # reads (mates) longer than lmax, on the host
         self._pool = None  # collector threads of the event route
+        # fused-route batches dispatched (the last one's number) and
+        # finished
+        self._dispatched = self._finished = 0
         self._counter_lock = threading.Lock()
         # per-chunk phase marks (CUDA events) when profile is on
         self.profile = False
@@ -1458,7 +1475,9 @@ class TorchNativeEngine:
                     if marks is not None:
                         self.chunk_marks.append(marks)
                 pending.append((start, n, rows, counts))
-        return (reads, a_rich_mode, random_pbat, per, pending, oversized)
+        self._dispatched += 1
+        return (reads, a_rich_mode, random_pbat, per, pending, oversized,
+                self._dispatched)
 
     def finish_se(self, handle, stats, out):
         """Collects the chunks' packed rows (one copy each) and hands them
@@ -1467,7 +1486,7 @@ class TorchNativeEngine:
         with tr.span("finish"):
             if handle[0] == "events":
                 return self._finish_events(handle, stats, out)
-            reads, arm, rp, per, pending, oversized = handle
+            reads, arm, rp, per, pending, oversized, seq = handle
             R = len(reads)
             W = 8 + TB_NOPS if self.device_tb else 4
             packed = np.zeros((max(R, 1), W), dtype=np.int32)
@@ -1498,7 +1517,20 @@ class TorchNativeEngine:
                 reads, arm, rp, records[:R], stats, out,
                 cig_ops=None if cig_ops is None else cig_ops[:R],
                 cig_meta=None if cig_meta is None else cig_meta[:R])
+            self._write_batches(seq)
         return R
+
+    def _write_batches(self, seq):
+        """After batch seq went to the native pool: the finished batches
+        written, all of them once no dispatched batch is left unfinished
+        (class docstring)."""
+        self._finished += 1
+        drain = seq == self._dispatched or self._finished >= self._dispatched
+        self.native._write_jobs(0 if drain else self.finalize_depth)
+
+    def drop_jobs(self):
+        """The native pool's jobs released unwritten (a map that raised)."""
+        self.native.drop_jobs()
 
     def map_se_reads(self, reads, a_rich_mode, random_pbat, stats, out):
         self.finish_se(self.dispatch_se(reads, a_rich_mode, random_pbat),
@@ -1611,8 +1643,9 @@ class TorchNativeEngine:
                     if marks is not None:
                         self.chunk_marks.append(marks)
                 pending.append((start, nu, rows))
+        self._dispatched += 1
         return (reads1, reads2, a_rich_mode, random_pbat, per, pending,
-                oversized)
+                oversized, self._dispatched)
 
     def finish_pe(self, handle, stats, out):
         """Collects the chunks' packed slot rows (one copy each) and hands
@@ -1621,7 +1654,7 @@ class TorchNativeEngine:
         with tr.span("finish"):
             if handle[0] == "events":
                 return self._finish_events(handle, stats, out)
-            reads1, reads2, arm, rp, per, pending, oversized = handle
+            reads1, reads2, arm, rp, per, pending, oversized, seq = handle
             n_pairs = len(reads1)
             n_units = per * n_pairs
             K = 32
@@ -1643,6 +1676,7 @@ class TorchNativeEngine:
             self.n_fallback += int((cnt_all < 0).sum())
             self.native._call_pe_slots(reads1, reads2, arm, rp, stats, out,
                                        pos_all, ds_all, cnt_all, mate_all)
+            self._write_batches(seq)
         return n_pairs
 
     def map_pe_reads(self, reads1, reads2, a_rich_mode, random_pbat, stats,

@@ -214,15 +214,16 @@ def get_engine_lib() -> ctypes.CDLL:
             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             + _ev + [ctypes.c_int, ctypes.c_void_p]
         )
-        lib.engine_se_finalize.restype = ctypes.c_int64
-        lib.engine_se_finalize.argtypes = (
+        # the finalize pool: a submit returns a job, read by engine_job_*
+        lib.engine_se_finalize_submit.restype = ctypes.c_void_p
+        lib.engine_se_finalize_submit.argtypes = (
             [ctypes.c_void_p]
             + [ctypes.c_void_p] * 4  # reads blob/offs, names blob/offs
             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p]  # records (n_reads, 4) i32
             + [ctypes.c_void_p] * 2  # device cigar ops/meta (nullable)
             + [ctypes.c_int64]  # tb_nops (ops row stride)
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int]  # n_threads
         )
         lib.engine_map_pe_batch.restype = ctypes.c_int64
         lib.engine_map_pe_batch.argtypes = (
@@ -231,16 +232,25 @@ def get_engine_lib() -> ctypes.CDLL:
             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             + _ev + [ctypes.c_int, ctypes.c_void_p]
         )
-        lib.engine_map_pe_batch_slots.restype = ctypes.c_int64
-        lib.engine_map_pe_batch_slots.argtypes = (
+        lib.engine_pe_slots_submit.restype = ctypes.c_void_p
+        lib.engine_pe_slots_submit.argtypes = (
             [ctypes.c_void_p]
             + [ctypes.c_void_p] * 8  # two ends x (reads, offs, names, offs)
             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 3  # slot pos / ds / cnt
             + [ctypes.c_int64]       # k2 (slots per unit)
             + [ctypes.c_void_p, ctypes.c_int64]  # mate records, stride
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int]  # n_threads
         )
+        lib.engine_job_done.restype = ctypes.c_int
+        lib.engine_job_wait.restype = ctypes.c_int64
+        lib.engine_job_wait.argtypes = [ctypes.c_void_p] * 3  # stats_out
+        lib.engine_job_out_ptr.restype = ctypes.c_void_p
+        lib.engine_job_first.restype = ctypes.c_int64
+        lib.engine_job_release.restype = None
+        for name in ("engine_job_done", "engine_job_out_ptr",
+                     "engine_job_first", "engine_job_release"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p] * 2
         lib.engine_out_ptr.restype = ctypes.c_void_p
         lib.engine_out_ptr.argtypes = [ctypes.c_void_p]
 

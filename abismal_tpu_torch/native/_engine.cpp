@@ -26,6 +26,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <cctype>
+#include <deque>
 #include <mutex>
 #include <string>
 #include <thread>
@@ -870,6 +871,10 @@ struct Engine {
   std::string out;
   std::string err;
   std::vector<struct Worker *> workers;
+  // the finalize pool's workers, apart from run_threads' (a pool job may
+  // run while a run_threads call of the same engine resets those)
+  std::vector<struct Worker *> pool_workers;
+  struct Pool *pool = nullptr;
   struct SEPhase *se_phase = nullptr;
   struct PEPhase *pe_phase = nullptr;
 };
@@ -2388,10 +2393,14 @@ void *engine_create(const uint8_t *genome_nib, const uint64_t *genome_words,
 namespace {
 void se_phase_delete(SEPhase *p);
 void pe_phase_delete(struct PEPhase *p);
+void pool_delete(Pool *p);
 }  // namespace
 
 void engine_destroy(void *eng) {
   Engine *E = (Engine *)eng;
+  pool_delete(E->pool);
+  for (auto *w : E->pool_workers)
+    delete w;
   for (auto *w : E->workers)
     delete w;
   se_phase_delete(E->se_phase);
@@ -2426,36 +2435,6 @@ int64_t engine_map_se_batch(void *eng, const uint8_t *reads_blob,
                  reads_blob + read_offs[ri],
                  (int)(read_offs[ri + 1] - read_offs[ri]), a_rich_mode != 0,
                  random_pbat != 0);
-    }
-  });
-  sum_stats(E, stats_out, 6);
-  return (int64_t)E.out.size();
-}
-
-// device stage-2 finalize batch entry: records is (n_reads, 4) int32
-int64_t engine_se_finalize(void *eng, const uint8_t *reads_blob,
-                           const int64_t *read_offs,
-                           const uint8_t *names_blob,
-                           const int64_t *name_offs, int64_t n_reads,
-                           int a_rich_mode, int random_pbat,
-                           const int32_t *records, const int32_t *cig_ops,
-                           const int32_t *cig_meta, int64_t tb_nops,
-                           int n_threads, int64_t *stats_out) {
-  Engine &E = *(Engine *)eng;
-  int max_len = 1;
-  for (int64_t i = 0; i < n_reads; ++i)
-    max_len = std::max<int64_t>(max_len, read_offs[i + 1] - read_offs[i]);
-
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      finalize_one_se(E, w, records + 4 * ri, ri,
-                      names_blob + name_offs[ri],
-                      name_offs[ri + 1] - name_offs[ri],
-                      reads_blob + read_offs[ri],
-                      (int)(read_offs[ri + 1] - read_offs[ri]),
-                      a_rich_mode != 0, random_pbat != 0, cig_ops,
-                      cig_meta, tb_nops);
     }
   });
   sum_stats(E, stats_out, 6);
@@ -2502,14 +2481,6 @@ int64_t engine_map_pe_batch(void *eng, const uint8_t *reads1_blob,
   return (int64_t)E.out.size();
 }
 
-// PE finalize from device stage-1+2 candidate slots (pipeline.py
-// build_stage12pe): per-unit prescored candidate lists replace both the
-// event stream and the host score pass; units with cnt < 0 re-seed
-// natively.  Output is byte-identical at any fallback rate.  With the
-// profile flag on, map_one_pe's parts add its workers' seconds to the
-// StageTimer slots: seed (seeding or slot fill, in map_fragments), align
-// (pair alignments there, single-end ones in finish_pe_pair), format
-// (finish_pe_pair's SAM text and stats).
 // ---------------------------------------------------------------------------
 // dense unit-matrix prep for the fused device programs (pipeline.py
 // _se_units_dense/_pe_units_dense): encodes reads into the device upload
@@ -2616,44 +2587,341 @@ extern "C" void engine_prep_pe_units(
   });
 }
 
-int64_t engine_map_pe_batch_slots(
+// ---------------------------------------------------------------------------
+// the finalize pool: the device route's batch finalize (pipeline.py
+// finish_se / finish_pe) as jobs on n_threads persistent workers.  A job is
+// one batch: SE, the records of build_stage12 (finalize_one_se); PE, the
+// candidate slots of build_stage12pe (map_one_pe: units with cnt < 0
+// re-seed natively).  The submitting thread returns at once; workers claim
+// a job's items from the oldest job with items left, and move on to the
+// next job once all of a job's items are claimed, so the long items of one
+// batch no longer hold its other items, nor the batches after it, on one
+// thread.  The items the card handed back (SE status 3, PE pairs with a
+// unit of cnt < 0) are claimed first, one a claim, the rest in claims of
+// POOL_GRAIN items in item order.  Each claim writes its SAM text and
+// stats apart; the last claim of a job joins them in item order, so the
+// bytes and the stats are run_threads' at any thread count.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int64_t POOL_GRAIN = 16;  // items a claim of the rest
+
+struct PoolJob {
+  bool pe = false;
+  // SE: the reads and names of the batch (end 1); PE: both ends
+  const uint8_t *r1 = nullptr, *nm1 = nullptr, *r2 = nullptr, *nm2 = nullptr;
+  const int64_t *r1o = nullptr, *nm1o = nullptr, *r2o = nullptr,
+                *nm2o = nullptr;
+  int64_t n = 0;
+  bool a_rich = false, rpbat = false;
+  const int32_t *records = nullptr, *cig_ops = nullptr, *cig_meta = nullptr;
+  int64_t tb_nops = 0;
+  Events ev{};
+  int max_len = 1;
+  // claims 0 .. first.size() - 1: one item of `first` each; then the
+  // grains of POOL_GRAIN items, without the items of `first`
+  std::vector<int64_t> first;
+  std::vector<uint8_t> is_first;
+  int64_t n_claims = 0, next = 0, claims_done = 0;  // under Pool::mu
+  std::vector<std::string> text;  // a claim's SAM text
+  std::vector<int64_t> st;        // a claim's 18 stats counters
+  std::vector<int64_t> item_claim, item_off, item_len;  // an item's text
+  std::atomic<bool> done{false};
+  std::string out;
+  int64_t stats[18] = {0};
+};
+
+struct Pool {
+  std::mutex mu;
+  std::condition_variable cv_work, cv_done;
+  std::deque<PoolJob *> queue;  // jobs with unclaimed items, oldest first
+  std::vector<PoolJob *> live;  // submitted and not released
+  std::vector<std::thread> threads;
+  bool stop = false;
+};
+
+void pool_item(const Engine &E, Worker &w, const PoolJob &j, int64_t i) {
+  if (!j.pe) {
+    finalize_one_se(E, w, j.records + 4 * i, i, j.nm1 + j.nm1o[i],
+                    j.nm1o[i + 1] - j.nm1o[i], j.r1 + j.r1o[i],
+                    (int)(j.r1o[i + 1] - j.r1o[i]), j.a_rich, j.rpbat,
+                    j.cig_ops, j.cig_meta, j.tb_nops);
+    return;
+  }
+  map_one_pe(E, w, j.ev, i, j.nm1 + j.nm1o[i], j.nm1o[i + 1] - j.nm1o[i],
+             j.r1 + j.r1o[i], (int)(j.r1o[i + 1] - j.r1o[i]),
+             j.nm2 + j.nm2o[i], j.nm2o[i + 1] - j.nm2o[i], j.r2 + j.r2o[i],
+             (int)(j.r2o[i + 1] - j.r2o[i]), j.a_rich, j.rpbat);
+}
+
+void pool_claim(const Engine &E, Worker &w, PoolJob &j, int64_t c) {
+  w.out.clear();
+  std::memset(w.st, 0, sizeof(w.st));
+  w.aln.reset(j.max_len);
+  auto item = [&](int64_t i) {
+    const size_t off = w.out.size();
+    pool_item(E, w, j, i);
+    j.item_claim[i] = c;
+    j.item_off[i] = (int64_t)off;
+    j.item_len[i] = (int64_t)(w.out.size() - off);
+  };
+  const int64_t n_first = (int64_t)j.first.size();
+  if (c < n_first) {
+    item(j.first[c]);
+  }
+  else {
+    const int64_t lo = (c - n_first) * POOL_GRAIN;
+    const int64_t hi = std::min(j.n, lo + POOL_GRAIN);
+    for (int64_t i = lo; i < hi; ++i)
+      if (!j.is_first[i])
+        item(i);
+  }
+  std::swap(j.text[c], w.out);
+  std::memcpy(j.st.data() + 18 * c, w.st, sizeof(w.st));
+}
+
+// the job's SAM text in item order and its stats, once every claim is in
+void pool_join(PoolJob &j) {
+  size_t total = 0;
+  for (const auto &t : j.text)
+    total += t.size();
+  j.out.reserve(total);
+  for (int64_t i = 0; i < j.n; ++i)
+    j.out.append(j.text[j.item_claim[i]], (size_t)j.item_off[i],
+                 (size_t)j.item_len[i]);
+  for (int64_t c = 0; c < j.n_claims; ++c)
+    for (int k = 0; k < 18; ++k)
+      j.stats[k] += j.st[18 * c + k];
+  std::vector<std::string>().swap(j.text);
+}
+
+void pool_loop(const Engine &E, Pool &P, Worker &w) {
+  std::unique_lock<std::mutex> lk(P.mu);
+  for (;;) {
+    P.cv_work.wait(lk, [&] { return P.stop || !P.queue.empty(); });
+    if (P.stop)
+      return;
+    PoolJob *j = P.queue.front();
+    const int64_t c = j->next++;
+    if (j->next == j->n_claims)
+      P.queue.pop_front();
+    lk.unlock();
+    pool_claim(E, w, *j, c);
+    lk.lock();
+    if (++j->claims_done == j->n_claims) {
+      lk.unlock();
+      pool_join(*j);
+      lk.lock();
+      j->done = true;
+      P.cv_done.notify_all();
+    }
+  }
+}
+
+void pool_stop(Pool &P) {
+  {
+    std::lock_guard<std::mutex> g(P.mu);
+    P.stop = true;
+  }
+  P.cv_work.notify_all();
+  for (auto &t : P.threads)
+    t.join();
+  P.threads.clear();
+  P.stop = false;
+}
+
+// stops the workers once their claims in hand are done; jobs not yet
+// claimed in full are dropped unfinished
+void pool_delete(Pool *p) {
+  if (!p)
+    return;
+  pool_stop(*p);
+  for (auto *j : p->live)
+    delete j;
+  delete p;
+}
+
+// the engine's pool at n_threads workers: started on first use, and
+// started anew, once its jobs are done, where n_threads changed
+Pool &pool_of(Engine &E, int n_threads) {
+  n_threads = std::max(1, n_threads);
+  if (!E.pool)
+    E.pool = new Pool();
+  Pool &P = *E.pool;
+  if ((int)P.threads.size() == n_threads)
+    return P;
+  if (!P.threads.empty()) {
+    {
+      std::unique_lock<std::mutex> lk(P.mu);
+      P.cv_done.wait(lk, [&] {
+        for (auto *j : P.live)
+          if (!j->done)
+            return false;
+        return true;
+      });
+    }
+    pool_stop(P);
+  }
+  while ((int)E.pool_workers.size() < n_threads)
+    E.pool_workers.push_back(new Worker(E.gnib));
+  for (int t = 0; t < n_threads; ++t) {
+    Worker *w = E.pool_workers[t];
+    P.threads.emplace_back([&E, &P, w] { pool_loop(E, P, *w); });
+  }
+  return P;
+}
+
+// queues j, whose inputs and is_first are set
+PoolJob *pool_submit(Engine &E, PoolJob *j, int n_threads) {
+  for (int64_t i = 0; i < j->n; ++i)
+    if (j->is_first[i])
+      j->first.push_back(i);
+  j->n_claims =
+    (int64_t)j->first.size() + (j->n + POOL_GRAIN - 1) / POOL_GRAIN;
+  j->text.resize(j->n_claims);
+  j->st.assign(18 * j->n_claims, 0);
+  j->item_claim.assign(j->n, 0);
+  j->item_off.assign(j->n, 0);
+  j->item_len.assign(j->n, 0);
+  Pool &P = pool_of(E, n_threads);
+  {
+    std::lock_guard<std::mutex> g(P.mu);
+    P.live.push_back(j);
+    if (j->n_claims)
+      P.queue.push_back(j);
+    else
+      j->done = true;
+  }
+  P.cv_work.notify_all();
+  return j;
+}
+
+int max_read_len(const int64_t *offs, int64_t n, int m = 1) {
+  for (int64_t i = 0; i < n; ++i)
+    m = std::max<int64_t>(m, offs[i + 1] - offs[i]);
+  return m;
+}
+
+}  // namespace
+
+// device stage-2 SE finalize, records (n_reads, 4) int32: a job on the
+// pool; read it with engine_job_wait
+void *engine_se_finalize_submit(void *eng, const uint8_t *reads_blob,
+                                const int64_t *read_offs,
+                                const uint8_t *names_blob,
+                                const int64_t *name_offs, int64_t n_reads,
+                                int a_rich_mode, int random_pbat,
+                                const int32_t *records,
+                                const int32_t *cig_ops,
+                                const int32_t *cig_meta, int64_t tb_nops,
+                                int n_threads) {
+  Engine &E = *(Engine *)eng;
+  auto *j = new PoolJob();
+  j->r1 = reads_blob;
+  j->r1o = read_offs;
+  j->nm1 = names_blob;
+  j->nm1o = name_offs;
+  j->n = n_reads;
+  j->a_rich = a_rich_mode != 0;
+  j->rpbat = random_pbat != 0;
+  j->records = records;
+  j->cig_ops = cig_ops;
+  j->cig_meta = cig_meta;
+  j->tb_nops = tb_nops;
+  j->max_len = max_read_len(read_offs, n_reads);
+  j->is_first.resize(n_reads);
+  for (int64_t i = 0; i < n_reads; ++i)
+    j->is_first[i] = (records[4 * i] & 7) == 3;  // REC_FALLBACK
+  return pool_submit(E, j, n_threads);
+}
+
+// PE finalize from device stage-1+2 candidate slots (pipeline.py
+// build_stage12pe): per-unit prescored candidate lists replace both the
+// event stream and the host score pass; units with cnt < 0 re-seed
+// natively.  Output is byte-identical at any fallback rate.  With the
+// profile flag on, map_one_pe's parts add its workers' seconds to the
+// StageTimer slots: seed (seeding or slot fill, in map_fragments), align
+// (pair alignments there, single-end ones in finish_pe_pair), format
+// (finish_pe_pair's SAM text and stats).  A job on the pool, as above.
+void *engine_pe_slots_submit(
   void *eng, const uint8_t *reads1_blob, const int64_t *read1_offs,
   const uint8_t *names1_blob, const int64_t *name1_offs,
   const uint8_t *reads2_blob, const int64_t *read2_offs,
   const uint8_t *names2_blob, const int64_t *name2_offs, int64_t n_reads,
   int a_rich_mode, int random_pbat, const uint32_t *sl_pos,
   const int32_t *sl_ds, const int32_t *sl_cnt, int64_t k2,
-  const int32_t *mate, int64_t m_stride, int n_threads,
-  int64_t *stats_out) {
+  const int32_t *mate, int64_t m_stride, int n_threads) {
   Engine &E = *(Engine *)eng;
-  Events ev{};
-  ev.sl_pos = sl_pos;
-  ev.sl_ds = sl_ds;
-  ev.sl_cnt = sl_cnt;
-  ev.k2 = k2;
-  ev.mate = mate;
-  ev.m_stride = m_stride;
-  int max_len = 1;
-  for (int64_t i = 0; i < n_reads; ++i) {
-    max_len = std::max<int64_t>(max_len, read1_offs[i + 1] - read1_offs[i]);
-    max_len = std::max<int64_t>(max_len, read2_offs[i + 1] - read2_offs[i]);
+  auto *j = new PoolJob();
+  j->pe = true;
+  j->r1 = reads1_blob;
+  j->r1o = read1_offs;
+  j->nm1 = names1_blob;
+  j->nm1o = name1_offs;
+  j->r2 = reads2_blob;
+  j->r2o = read2_offs;
+  j->nm2 = names2_blob;
+  j->nm2o = name2_offs;
+  j->n = n_reads;
+  j->a_rich = a_rich_mode != 0;
+  j->rpbat = random_pbat != 0;
+  j->ev.sl_pos = sl_pos;
+  j->ev.sl_ds = sl_ds;
+  j->ev.sl_cnt = sl_cnt;
+  j->ev.k2 = k2;
+  j->ev.mate = mate;
+  j->ev.m_stride = m_stride;
+  j->max_len = max_read_len(read2_offs, n_reads,
+                            max_read_len(read1_offs, n_reads));
+  const int per = random_pbat ? 8 : 4;  // units a pair
+  j->is_first.resize(n_reads);
+  for (int64_t i = 0; i < n_reads; ++i)
+    for (int u = 0; u < per; ++u)
+      j->is_first[i] |= sl_cnt[per * i + u] < 0;
+  return pool_submit(E, j, n_threads);
+}
+
+// 1 once the job's SAM text and stats are ready, else 0; never blocks
+int engine_job_done(void *eng, void *job) {
+  (void)eng;
+  return ((PoolJob *)job)->done.load() ? 1 : 0;
+}
+
+// waits for the job; stats_out (nullable): its 6 (SE) or 18 (PE) counters;
+// returns the bytes of its SAM text
+int64_t engine_job_wait(void *eng, void *job, int64_t *stats_out) {
+  Engine &E = *(Engine *)eng;
+  PoolJob &j = *(PoolJob *)job;
+  {
+    std::unique_lock<std::mutex> lk(E.pool->mu);
+    E.pool->cv_done.wait(lk, [&] { return j.done.load(); });
   }
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      map_one_pe(E, w, ev, ri, names1_blob + name1_offs[ri],
-                 name1_offs[ri + 1] - name1_offs[ri],
-                 reads1_blob + read1_offs[ri],
-                 (int)(read1_offs[ri + 1] - read1_offs[ri]),
-                 names2_blob + name2_offs[ri],
-                 name2_offs[ri + 1] - name2_offs[ri],
-                 reads2_blob + read2_offs[ri],
-                 (int)(read2_offs[ri + 1] - read2_offs[ri]),
-                 a_rich_mode != 0, random_pbat != 0);
-    }
-  });
-  sum_stats(E, stats_out, 18);
-  return (int64_t)E.out.size();
+  if (stats_out)
+    std::memcpy(stats_out, j.stats, (j.pe ? 18 : 6) * sizeof(int64_t));
+  return (int64_t)j.out.size();
+}
+
+const char *engine_job_out_ptr(void *eng, void *job) {
+  (void)eng;
+  return ((PoolJob *)job)->out.data();
+}
+
+// the items the job put first (the card's fallbacks)
+int64_t engine_job_first(void *eng, void *job) {
+  (void)eng;
+  return (int64_t)((PoolJob *)job)->first.size();
+}
+
+// frees a job engine_job_wait returned; its inputs may go after this
+void engine_job_release(void *eng, void *job) {
+  Engine &E = *(Engine *)eng;
+  auto *j = (PoolJob *)job;
+  {
+    std::lock_guard<std::mutex> g(E.pool->mu);
+    auto &live = E.pool->live;
+    live.erase(std::find(live.begin(), live.end(), j));
+  }
+  delete j;
 }
 
 
@@ -3664,12 +3932,13 @@ void engine_stage_ns(void *eng, int64_t *out16, int reset) {
   Engine &E = *(Engine *)eng;
   for (int i = 0; i < 16; ++i)
     out16[i] = 0;
-  for (auto *w : E.workers)
-    for (int i = 0; i < 16; ++i) {
-      out16[i] += w->tns[i];
-      if (reset)
-        w->tns[i] = 0;
-    }
+  for (auto *ws : {&E.workers, &E.pool_workers})
+    for (auto *w : *ws)
+      for (int i = 0; i < 16; ++i) {
+        out16[i] += w->tns[i];
+        if (reset)
+          w->tns[i] = 0;
+      }
 }
 
 // FASTQ batches for the Python batch loops (io/fastq.py ReadLoader), by

@@ -24,7 +24,12 @@ skipped records included; counted once a map),
 chunks (graph replays or eager runs of a device program), captures (a
 capture during a map means a graph was built again), oversized (the reads
 longer than the engine's lmax, each mate counted, that go up as
-zero-length rows and are mapped on the host whole), and the native
+zero-length rows and are mapped on the host whole), pool_jobs (batches
+handed to the native finalize pool), pool_waits (finish calls that
+blocked on the pool, in finish/native_wait: 1 - pool_waits / pool_jobs
+is the share of batches whose finalize the batch loop did not wait for),
+pool_first (items the card handed back, which the pool claims first:
+SE reads of status 3, PE pairs with a unit of cnt < 0), and the native
 library's worker nanoseconds in seed, align and format (engine_stage_ns:
 the SE finalize, and the PE slot finalize's seeding or slot fill, pair
 and single-end alignments, and SAM text).
@@ -44,7 +49,7 @@ from collections import defaultdict
 import numpy as np
 
 COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures",
-            "oversized")
+            "oversized", "pool_jobs", "pool_waits", "pool_first")
 NATIVE = ("seed", "align", "format")  # engine_stage_ns slots 0-2
 
 

@@ -1,7 +1,8 @@
 """The engine's host tracer (abismal_tpu_torch/tracing.py) on the CPU:
 off, a map records nothing and never enters the profiler; on, the SAM is
 the golden's byte for byte, the spans nest (self time >= 0, a child's
-total within its parent's) and count what the batch loop did; under
+total within its parent's) and count what the batch loop did, the
+native finalize pool's jobs, waits and items claimed first too; under
 torch.profiler the spans are abismal:<name> ranges, nested as they were
 opened; -v prints the tracer's table; the tracer switches the native
 library's worker timers on and off with itself, and the PE slot finalize
@@ -83,6 +84,7 @@ def test_off_records_nothing(tmp_path, port_index, engine, monkeypatch,
     s = eng.tracer.summary()
     assert s["spans"] == {}
     assert not any(v for v in s["counters"].values())
+    assert not eng.native._jobs  # the map's jobs ran, uncounted
 
 
 @pytest.mark.parametrize("name,paired,pbat", GOLDENS)
@@ -119,6 +121,45 @@ def test_on_same_bytes_and_spans_nest(tmp_path, port_index, engine, name,
             parent = spans[path.rsplit("/", 1)[0]]
             assert total <= parent[1], path
     assert {"native_seed_s", "native_align_s", "native_format_s"} <= set(c)
+    # the finalize pool: a job a batch, a wait at most a job, and a
+    # native_wait span where a finish waited
+    assert c["pool_jobs"] == batches
+    assert c["pool_waits"] <= c["pool_jobs"]
+    assert (c["pool_waits"] > 0) == ("map/finish/native_wait" in spans)
+
+
+@pytest.mark.parametrize("name,paired,pbat", GOLDENS)
+def test_pool_first_counts_the_fallbacks(tmp_path, port_index, engine,
+                                         monkeypatch, name, paired, pbat):
+    """pool_first counts the items the device program handed back, read
+    from the finalize's own inputs: SE reads of status 3, PE pairs with
+    a unit of cnt < 0."""
+    fac, eng = engine
+    nat = eng.native
+    want = []
+    se, pe = nat._finalize_se, nat._call_pe_slots
+
+    def finalize_se(reads, arm, rp, records, *a, **k):
+        want.append(int(((records[:, 0] & 7) == 3).sum()))
+        return se(reads, arm, rp, records, *a, **k)
+
+    def call_pe_slots(r1, r2, arm, rp, st, out, pos, ds, cnt, *a):
+        want.append(int((cnt.reshape(len(r1), -1) < 0).any(1).sum()))
+        return pe(r1, r2, arm, rp, st, out, pos, ds, cnt, *a)
+
+    monkeypatch.setattr(nat, "_finalize_se", finalize_se)
+    monkeypatch.setattr(nat, "_call_pe_slots", call_pe_slots)
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        sam, _ = _map(port_index, fac, name, paired, pbat,
+                      tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    assert sam == _golden(name + ".sam")
+    c = eng.tracer.summary()["counters"]
+    assert len(want) == c["pool_jobs"] == c["batches"]
+    assert c["pool_first"] == sum(want) > 0
 
 
 def test_event_route_same_bytes(tmp_path, port_index):
@@ -214,7 +255,7 @@ def test_native_timers_follow_the_tracer(tmp_path, port_index, engine):
 
 
 def test_pe_finalize_worker_seconds(tmp_path, port_index, engine):
-    """A PE map through the slot finalize (engine_map_pe_batch_slots)
+    """A PE map through the slot finalize (engine_pe_slots_submit)
     reports its workers' seconds in seed, align and format."""
     fac, eng = engine
     eng.tracer.reset()

@@ -61,7 +61,8 @@ def test_tune_stage2_verified_with_stage_keys(cache):
     (row,) = tune_stage2.main(["128", "--reads", "100", *CPU])
     assert row["verified"] == row["reps"] == tune_stage2.REPS
     assert row["best"] > 0 and 0 <= row["fallback"] <= 1
-    assert set(row["stages"]) == STAGES
+    # finish/native_wait: where a finish waited for the finalize pool
+    assert STAGES <= set(row["stages"]) <= STAGES | {"map/finish/native_wait"}
     assert row["stages"]["map/dispatch"] > 0
 
 
