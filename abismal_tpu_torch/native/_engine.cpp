@@ -27,6 +27,8 @@
 #include <cstring>
 #include <cctype>
 #include <deque>
+#include <functional>
+#include <memory>
 #include <mutex>
 #include <string>
 #include <thread>
@@ -870,11 +872,8 @@ struct Engine {
   int64_t pe_min, pe_max;
   std::string out;
   std::string err;
-  std::vector<struct Worker *> workers;
-  // the finalize pool's workers, apart from run_threads' (a pool job may
-  // run while a run_threads call of the same engine resets those)
-  std::vector<struct Worker *> pool_workers;
-  struct Pool *pool = nullptr;
+  struct Pool *pool = nullptr;  // the workers every entry point runs on
+  int64_t parse_ns = 0;  // the streaming loop's FASTQ parse (StageTimer)
   struct SEPhase *se_phase = nullptr;
   struct PEPhase *pe_phase = nullptr;
 };
@@ -2169,42 +2168,6 @@ void finish_pe_pair(const Engine &E, Worker &w, PEBest &best, Cigar &cig1,
 // ---------------------------------------------------------------------------
 namespace {
 
-Worker *get_worker(Engine &E, int i) {
-  while ((int)E.workers.size() <= i)
-    E.workers.push_back(new Worker(E.gnib));
-  return E.workers[i];
-}
-
-template <class Fn>
-void run_threads(Engine &E, int64_t n_items, int n_threads, Fn fn) {
-  n_threads = std::max(1, n_threads);
-  if (n_items < n_threads)
-    n_threads = std::max<int64_t>(1, n_items);
-  const int64_t chunk = (n_items + n_threads - 1) / n_threads;
-  // sum_stats adds up every worker the engine ever started: also those an
-  // earlier call with more threads left behind start this call at zero
-  get_worker(E, n_threads - 1);
-  for (auto *w : E.workers) {
-    w->out.clear();
-    std::memset(w->st, 0, sizeof(w->st));
-  }
-  std::vector<std::thread> ts;
-  for (int t = 0; t < n_threads; ++t) {
-    Worker *w = E.workers[t];
-    const int64_t lo = t * chunk;
-    const int64_t hi = std::min<int64_t>(n_items, lo + chunk);
-    if (lo >= hi)
-      continue;
-    ts.emplace_back([=, &E]() { fn(*w, lo, hi); });
-  }
-  for (auto &t : ts)
-    t.join();
-  E.out.clear();
-  for (int t = 0; t < n_threads; ++t)
-    if (t < (int)E.workers.size())
-      E.out += E.workers[t]->out;
-}
-
 // -----------------------------------------------------------------------
 // device stage-2 finalize (pipeline.py build_stage12): one 16-byte record
 // per read -- status 0 unmapped / 1 exact / 2 aligned / 3 fallback, col0 =
@@ -2305,15 +2268,6 @@ void finalize_one_se(const Engine &E, Worker &w, const int32_t *rec,
              E.allow_ambig);
 }
 
-void sum_stats(Engine &E, int64_t *stats_out, int n) {
-  for (int i = 0; i < n; ++i) {
-    int64_t s = 0;
-    for (auto *w : E.workers)
-      s += w->st[i];
-    stats_out[i] = s;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -2399,230 +2353,46 @@ void pool_delete(Pool *p);
 void engine_destroy(void *eng) {
   Engine *E = (Engine *)eng;
   pool_delete(E->pool);
-  for (auto *w : E->pool_workers)
-    delete w;
-  for (auto *w : E->workers)
-    delete w;
   se_phase_delete(E->se_phase);
   pe_phase_delete(E->pe_phase);
   delete E;
 }
 
-// reads_blob/read_offs: concatenated ASCII reads with n+1 offsets; names
-// likewise.  ev_* may be null (pure native seeding); ev_count[u] < 0 routes
-// unit u to native seeding.  stats_out: 6 counters (total, unique, ambig,
-// skipped, edits, bases).
-int64_t engine_map_se_batch(void *eng, const uint8_t *reads_blob,
-                            const int64_t *read_offs,
-                            const uint8_t *names_blob,
-                            const int64_t *name_offs, int64_t n_reads,
-                            int a_rich_mode, int random_pbat,
-                            const uint32_t *ev_pos, const int32_t *ev_diffs,
-                            const int32_t *ev_rank, const int64_t *ev_start,
-                            const int64_t *ev_count, int64_t ev_boundary,
-                            int n_threads, int64_t *stats_out) {
-  Engine &E = *(Engine *)eng;
-  Events ev{ev_pos, ev_diffs, ev_rank, ev_start, ev_count, ev_boundary};
-  int max_len = 1;
-  for (int64_t i = 0; i < n_reads; ++i)
-    max_len = std::max<int64_t>(max_len, read_offs[i + 1] - read_offs[i]);
-
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      map_one_se(E, w, ev, ri, names_blob + name_offs[ri],
-                 name_offs[ri + 1] - name_offs[ri],
-                 reads_blob + read_offs[ri],
-                 (int)(read_offs[ri + 1] - read_offs[ri]), a_rich_mode != 0,
-                 random_pbat != 0);
-    }
-  });
-  sum_stats(E, stats_out, 6);
-  return (int64_t)E.out.size();
-}
-
-// stats_out: 18 counters (pair[6], end1[6], end2[6])
-int64_t engine_map_pe_batch(void *eng, const uint8_t *reads1_blob,
-                            const int64_t *read1_offs,
-                            const uint8_t *names1_blob,
-                            const int64_t *name1_offs,
-                            const uint8_t *reads2_blob,
-                            const int64_t *read2_offs,
-                            const uint8_t *names2_blob,
-                            const int64_t *name2_offs, int64_t n_reads,
-                            int a_rich_mode, int random_pbat,
-                            const uint32_t *ev_pos, const int32_t *ev_diffs,
-                            const int32_t *ev_rank, const int64_t *ev_start,
-                            const int64_t *ev_count, int64_t ev_boundary,
-                            int n_threads, int64_t *stats_out) {
-  Engine &E = *(Engine *)eng;
-  Events ev{ev_pos, ev_diffs, ev_rank, ev_start, ev_count, ev_boundary};
-  int max_len = 1;
-  for (int64_t i = 0; i < n_reads; ++i) {
-    max_len = std::max<int64_t>(max_len, read1_offs[i + 1] - read1_offs[i]);
-    max_len = std::max<int64_t>(max_len, read2_offs[i + 1] - read2_offs[i]);
-  }
-
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      map_one_pe(E, w, ev, ri, names1_blob + name1_offs[ri],
-                 name1_offs[ri + 1] - name1_offs[ri],
-                 reads1_blob + read1_offs[ri],
-                 (int)(read1_offs[ri + 1] - read1_offs[ri]),
-                 names2_blob + name2_offs[ri],
-                 name2_offs[ri + 1] - name2_offs[ri],
-                 reads2_blob + read2_offs[ri],
-                 (int)(read2_offs[ri + 1] - read2_offs[ri]),
-                 a_rich_mode != 0, random_pbat != 0);
-    }
-  });
-  sum_stats(E, stats_out, 18);
-  return (int64_t)E.out.size();
-}
-
 // ---------------------------------------------------------------------------
-// dense unit-matrix prep for the fused device programs (pipeline.py
-// _se_units_dense/_pe_units_dense): encodes reads into the device upload
-// format (two 4-bit bases per byte) without per-read Python work.  Rows
-// follow the unit-id enumeration; empty or oversized reads produce
-// zero-length rows, oversized ones additionally flag `oversized`.
-// ---------------------------------------------------------------------------
-namespace {
-
-inline void prep_pack_row(const uint8_t *ascii, int len, bool a_rich,
-                          bool rc, std::vector<uint8_t> &nib,
-                          std::vector<uint8_t> &rcb, uint8_t *row,
-                          int32_t *len_out) {
-  const uint8_t *src = ascii;
-  if (rc) {
-    revcomp_ascii(ascii, len, rcb);
-    src = rcb.data();
-  }
-  encode_read(src, len, a_rich, nib);
-  for (int i = 0; i < len; ++i)
-    row[i >> 1] |= (uint8_t)(nib[i] << ((i & 1) * 4));
-  *len_out = len;
-}
-
-}  // namespace
-
-extern "C" void engine_prep_se_units(
-  void *eng, const uint8_t *reads_blob, const int64_t *offs,
-  int64_t n_reads, int a_rich_mode, int random_pbat, int64_t lmax,
-  int64_t stride, uint8_t *pnib, int32_t *lens, uint8_t *oversized,
-  int n_threads) {
-  Engine &E = *(Engine *)eng;
-  const int per = random_pbat ? 4 : 2;
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    (void)w;
-    std::vector<uint8_t> nib, rcb;
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      const uint8_t *r = reads_blob + offs[ri];
-      const int len = (int)(offs[ri + 1] - offs[ri]);
-      uint8_t *rows = pnib + (int64_t)per * ri * stride;
-      if (len == 0 || len > lmax) {
-        oversized[ri] = len > lmax;
-        continue;  // rows stay zero, lens stay zero
-      }
-      int32_t *lo_lens = lens + per * ri;
-      if (!random_pbat) {
-        prep_pack_row(r, len, a_rich_mode != 0, false, nib, rcb, rows,
-                      lo_lens);
-        prep_pack_row(r, len, a_rich_mode == 0, true, nib, rcb,
-                      rows + stride, lo_lens + 1);
-      }
-      else {
-        prep_pack_row(r, len, false, false, nib, rcb, rows, lo_lens);
-        prep_pack_row(r, len, true, false, nib, rcb, rows + stride,
-                      lo_lens + 1);
-        prep_pack_row(r, len, false, true, nib, rcb, rows + 2 * stride,
-                      lo_lens + 2);
-        prep_pack_row(r, len, true, true, nib, rcb, rows + 3 * stride,
-                      lo_lens + 3);
-      }
-    }
-  });
-}
-
-extern "C" void engine_prep_pe_units(
-  void *eng, const uint8_t *r1_blob, const int64_t *o1,
-  const uint8_t *r2_blob, const int64_t *o2, int64_t n_pairs,
-  int a_rich_mode, int random_pbat, int64_t lmax, int64_t stride,
-  uint8_t *pnib, int32_t *lens, uint8_t *oversized, int n_threads) {
-  Engine &E = *(Engine *)eng;
-  const int per = random_pbat ? 8 : 4;
-  run_threads(E, n_pairs, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    (void)w;
-    std::vector<uint8_t> nib, rcb;
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      const uint8_t *r1 = r1_blob + o1[ri];
-      const int l1 = (int)(o1[ri + 1] - o1[ri]);
-      const uint8_t *r2 = r2_blob + o2[ri];
-      const int l2 = (int)(o2[ri + 1] - o2[ri]);
-      if ((l1 && l1 > lmax) || (l2 && l2 > lmax)) {
-        oversized[ri] = 1;
-        continue;
-      }
-      uint8_t *rows = pnib + (int64_t)per * ri * stride;
-      int32_t *lp = lens + per * ri;
-      const int n_conv = random_pbat ? 2 : 1;
-      for (int c = 0; c < n_conv; ++c) {
-        const bool conv = random_pbat ? (c != 0) : (a_rich_mode != 0);
-        if (l1)
-          prep_pack_row(r1, l1, conv, false, nib, rcb, rows, lp);
-        if (l2) {
-          prep_pack_row(r2, l2, conv, true, nib, rcb, rows + stride,
-                        lp + 1);
-          prep_pack_row(r2, l2, !conv, false, nib, rcb, rows + 2 * stride,
-                        lp + 2);
-        }
-        if (l1)
-          prep_pack_row(r1, l1, !conv, true, nib, rcb, rows + 3 * stride,
-                        lp + 3);
-        rows += 4 * stride;
-        lp += 4;
-      }
-    }
-  });
-}
-
-// ---------------------------------------------------------------------------
-// the finalize pool: the device route's batch finalize (pipeline.py
-// finish_se / finish_pe) as jobs on n_threads persistent workers.  A job is
-// one batch: SE, the records of build_stage12 (finalize_one_se); PE, the
-// candidate slots of build_stage12pe (map_one_pe: units with cnt < 0
-// re-seed natively).  The submitting thread returns at once; workers claim
-// a job's items from the oldest job with items left, and move on to the
-// next job once all of a job's items are claimed, so the long items of one
-// batch no longer hold its other items, nor the batches after it, on one
-// thread.  The items the card handed back (SE status 3, PE pairs with a
-// unit of cnt < 0) are claimed first, one a claim, the rest in claims of
-// POOL_GRAIN items in item order.  Each claim writes its SAM text and
-// stats apart; the last claim of a job joins them in item order, so the
-// bytes and the stats are run_threads' at any thread count.
+// the pool: the work of every entry point as jobs on the engine's n_threads
+// persistent workers.  A job is one batch of items (reads or pairs) and the
+// function that maps one item on a worker, its SAM text to Worker::out and
+// its counters to Worker::st.  Workers claim items from the oldest job with
+// items left, and move on to the next job once all of a job's items are
+// claimed, so the long items of one batch hold neither its other items nor
+// the batches after it on one thread.  The items a job puts first (the
+// device route's: those the card handed back) are claimed one a claim, the
+// rest in claims of POOL_GRAIN items in item order.  Each claim writes its
+// text and counters apart; the last claim of a job joins them in item
+// order, so the bytes and the counters do not depend on the thread count.
+// The device route's finalize (pipeline.py finish_se / finish_pe) submits
+// its jobs and reads them later (engine_*_submit, engine_job_*); the batch
+// and phase entry points submit one job and wait for it; the streaming loop
+// keeps up to n_threads jobs in flight.
 // ---------------------------------------------------------------------------
 namespace {
 
 constexpr int64_t POOL_GRAIN = 16;  // items a claim of the rest
 
 struct PoolJob {
-  bool pe = false;
-  // SE: the reads and names of the batch (end 1); PE: both ends
-  const uint8_t *r1 = nullptr, *nm1 = nullptr, *r2 = nullptr, *nm2 = nullptr;
-  const int64_t *r1o = nullptr, *nm1o = nullptr, *r2o = nullptr,
-                *nm2o = nullptr;
-  int64_t n = 0;
-  bool a_rich = false, rpbat = false;
-  const int32_t *records = nullptr, *cig_ops = nullptr, *cig_meta = nullptr;
-  int64_t tb_nops = 0;
-  Events ev{};
-  int max_len = 1;
+  // maps item i on w: its SAM text to w.out, its counters to w.st
+  std::function<void(Worker &, int64_t)> item;
+  // run on the job's text by the worker that joins it (may be empty)
+  std::function<void(std::string &)> post;
+  int64_t n = 0;    // items
+  int max_len = 1;  // the longest read, to size the workers' aligners
+  int n_stats = 6;  // the counters a job reports: 6 SE, 18 PE
   // claims 0 .. first.size() - 1: one item of `first` each; then the
   // grains of POOL_GRAIN items, without the items of `first`
   std::vector<int64_t> first;
-  std::vector<uint8_t> is_first;
+  std::vector<uint8_t> is_first;  // left empty: none goes first
   int64_t n_claims = 0, next = 0, claims_done = 0;  // under Pool::mu
+  bool dropped = false;                              // under Pool::mu
   std::vector<std::string> text;  // a claim's SAM text
   std::vector<int64_t> st;        // a claim's 18 stats counters
   std::vector<int64_t> item_claim, item_off, item_len;  // an item's text
@@ -2637,30 +2407,17 @@ struct Pool {
   std::deque<PoolJob *> queue;  // jobs with unclaimed items, oldest first
   std::vector<PoolJob *> live;  // submitted and not released
   std::vector<std::thread> threads;
+  std::vector<Worker *> workers;  // one a thread, kept across restarts
   bool stop = false;
 };
 
-void pool_item(const Engine &E, Worker &w, const PoolJob &j, int64_t i) {
-  if (!j.pe) {
-    finalize_one_se(E, w, j.records + 4 * i, i, j.nm1 + j.nm1o[i],
-                    j.nm1o[i + 1] - j.nm1o[i], j.r1 + j.r1o[i],
-                    (int)(j.r1o[i + 1] - j.r1o[i]), j.a_rich, j.rpbat,
-                    j.cig_ops, j.cig_meta, j.tb_nops);
-    return;
-  }
-  map_one_pe(E, w, j.ev, i, j.nm1 + j.nm1o[i], j.nm1o[i + 1] - j.nm1o[i],
-             j.r1 + j.r1o[i], (int)(j.r1o[i + 1] - j.r1o[i]),
-             j.nm2 + j.nm2o[i], j.nm2o[i + 1] - j.nm2o[i], j.r2 + j.r2o[i],
-             (int)(j.r2o[i + 1] - j.r2o[i]), j.a_rich, j.rpbat);
-}
-
-void pool_claim(const Engine &E, Worker &w, PoolJob &j, int64_t c) {
+void pool_claim(Worker &w, PoolJob &j, int64_t c) {
   w.out.clear();
   std::memset(w.st, 0, sizeof(w.st));
   w.aln.reset(j.max_len);
   auto item = [&](int64_t i) {
     const size_t off = w.out.size();
-    pool_item(E, w, j, i);
+    j.item(w, i);
     j.item_claim[i] = c;
     j.item_off[i] = (int64_t)off;
     j.item_len[i] = (int64_t)(w.out.size() - off);
@@ -2693,9 +2450,11 @@ void pool_join(PoolJob &j) {
     for (int k = 0; k < 18; ++k)
       j.stats[k] += j.st[18 * c + k];
   std::vector<std::string>().swap(j.text);
+  if (j.post)
+    j.post(j.out);
 }
 
-void pool_loop(const Engine &E, Pool &P, Worker &w) {
+void pool_loop(Pool &P, Worker &w) {
   std::unique_lock<std::mutex> lk(P.mu);
   for (;;) {
     P.cv_work.wait(lk, [&] { return P.stop || !P.queue.empty(); });
@@ -2706,12 +2465,14 @@ void pool_loop(const Engine &E, Pool &P, Worker &w) {
     if (j->next == j->n_claims)
       P.queue.pop_front();
     lk.unlock();
-    pool_claim(E, w, *j, c);
+    pool_claim(w, *j, c);
     lk.lock();
     if (++j->claims_done == j->n_claims) {
-      lk.unlock();
-      pool_join(*j);
-      lk.lock();
+      if (!j->dropped) {
+        lk.unlock();
+        pool_join(*j);
+        lk.lock();
+      }
       j->done = true;
       P.cv_done.notify_all();
     }
@@ -2738,11 +2499,14 @@ void pool_delete(Pool *p) {
   pool_stop(*p);
   for (auto *j : p->live)
     delete j;
+  for (auto *w : p->workers)
+    delete w;
   delete p;
 }
 
 // the engine's pool at n_threads workers: started on first use, and
-// started anew, once its jobs are done, where n_threads changed
+// started anew, once its jobs are done, where n_threads changed.  The only
+// place that starts a thread.
 Pool &pool_of(Engine &E, int n_threads) {
   n_threads = std::max(1, n_threads);
   if (!E.pool)
@@ -2762,17 +2526,18 @@ Pool &pool_of(Engine &E, int n_threads) {
     }
     pool_stop(P);
   }
-  while ((int)E.pool_workers.size() < n_threads)
-    E.pool_workers.push_back(new Worker(E.gnib));
+  while ((int)P.workers.size() < n_threads)
+    P.workers.push_back(new Worker(E.gnib));
   for (int t = 0; t < n_threads; ++t) {
-    Worker *w = E.pool_workers[t];
-    P.threads.emplace_back([&E, &P, w] { pool_loop(E, P, *w); });
+    Worker *w = P.workers[t];
+    P.threads.emplace_back([&P, w] { pool_loop(P, *w); });
   }
   return P;
 }
 
-// queues j, whose inputs and is_first are set
+// queues j, whose item function, n and is_first are set
 PoolJob *pool_submit(Engine &E, PoolJob *j, int n_threads) {
+  j->is_first.resize(j->n);
   for (int64_t i = 0; i < j->n; ++i)
     if (j->is_first[i])
       j->first.push_back(i);
@@ -2796,6 +2561,51 @@ PoolJob *pool_submit(Engine &E, PoolJob *j, int n_threads) {
   return j;
 }
 
+// waits for j; stats_out (nullable): its counters; returns the bytes of
+// its SAM text
+int64_t pool_wait(Pool &P, PoolJob &j, int64_t *stats_out) {
+  {
+    std::unique_lock<std::mutex> lk(P.mu);
+    P.cv_done.wait(lk, [&] { return j.done.load(); });
+  }
+  if (stats_out)
+    std::memcpy(stats_out, j.stats, j.n_stats * sizeof(int64_t));
+  return (int64_t)j.out.size();
+}
+
+// takes j's unclaimed items off the queue and waits for its claims in hand
+void pool_drop(Pool &P, PoolJob &j) {
+  std::unique_lock<std::mutex> lk(P.mu);
+  auto it = std::find(P.queue.begin(), P.queue.end(), &j);
+  if (it != P.queue.end()) {
+    P.queue.erase(it);
+    j.n_claims = j.next;
+    j.dropped = true;
+    if (j.claims_done == j.n_claims)
+      j.done = true;
+  }
+  P.cv_done.wait(lk, [&] { return j.done.load(); });
+}
+
+// frees a job that is done; its inputs may go after this
+void pool_release(Pool &P, PoolJob *j) {
+  {
+    std::lock_guard<std::mutex> g(P.mu);
+    P.live.erase(std::find(P.live.begin(), P.live.end(), j));
+  }
+  delete j;
+}
+
+// runs j on the pool and waits for it: E.out takes its SAM text and
+// stats_out (nullable) its counters; returns the bytes of the text
+int64_t pool_run(Engine &E, PoolJob *j, int n_threads, int64_t *stats_out) {
+  pool_submit(E, j, n_threads);
+  pool_wait(*E.pool, *j, stats_out);
+  E.out = std::move(j->out);
+  pool_release(*E.pool, j);
+  return (int64_t)E.out.size();
+}
+
 int max_read_len(const int64_t *offs, int64_t n, int m = 1) {
   for (int64_t i = 0; i < n; ++i)
     m = std::max<int64_t>(m, offs[i + 1] - offs[i]);
@@ -2803,6 +2613,68 @@ int max_read_len(const int64_t *offs, int64_t n, int m = 1) {
 }
 
 }  // namespace
+
+// reads_blob/read_offs: concatenated ASCII reads with n+1 offsets; names
+// likewise.  ev_* may be null (pure native seeding); ev_count[u] < 0 routes
+// unit u to native seeding.  stats_out: 6 counters (total, unique, ambig,
+// skipped, edits, bases).
+int64_t engine_map_se_batch(void *eng, const uint8_t *reads_blob,
+                            const int64_t *read_offs,
+                            const uint8_t *names_blob,
+                            const int64_t *name_offs, int64_t n_reads,
+                            int a_rich_mode, int random_pbat,
+                            const uint32_t *ev_pos, const int32_t *ev_diffs,
+                            const int32_t *ev_rank, const int64_t *ev_start,
+                            const int64_t *ev_count, int64_t ev_boundary,
+                            int n_threads, int64_t *stats_out) {
+  Engine &E = *(Engine *)eng;
+  const Events ev{ev_pos, ev_diffs, ev_rank, ev_start, ev_count, ev_boundary};
+  auto *j = new PoolJob();
+  j->n = n_reads;
+  j->max_len = max_read_len(read_offs, n_reads);
+  j->item = [&](Worker &w, int64_t ri) {
+    map_one_se(E, w, ev, ri, names_blob + name_offs[ri],
+               name_offs[ri + 1] - name_offs[ri], reads_blob + read_offs[ri],
+               (int)(read_offs[ri + 1] - read_offs[ri]), a_rich_mode != 0,
+               random_pbat != 0);
+  };
+  return pool_run(E, j, n_threads, stats_out);
+}
+
+// stats_out: 18 counters (pair[6], end1[6], end2[6])
+int64_t engine_map_pe_batch(void *eng, const uint8_t *reads1_blob,
+                            const int64_t *read1_offs,
+                            const uint8_t *names1_blob,
+                            const int64_t *name1_offs,
+                            const uint8_t *reads2_blob,
+                            const int64_t *read2_offs,
+                            const uint8_t *names2_blob,
+                            const int64_t *name2_offs, int64_t n_reads,
+                            int a_rich_mode, int random_pbat,
+                            const uint32_t *ev_pos, const int32_t *ev_diffs,
+                            const int32_t *ev_rank, const int64_t *ev_start,
+                            const int64_t *ev_count, int64_t ev_boundary,
+                            int n_threads, int64_t *stats_out) {
+  Engine &E = *(Engine *)eng;
+  const Events ev{ev_pos, ev_diffs, ev_rank, ev_start, ev_count, ev_boundary};
+  auto *j = new PoolJob();
+  j->n = n_reads;
+  j->n_stats = 18;
+  j->max_len = max_read_len(read2_offs, n_reads,
+                            max_read_len(read1_offs, n_reads));
+  j->item = [&](Worker &w, int64_t ri) {
+    map_one_pe(E, w, ev, ri, names1_blob + name1_offs[ri],
+               name1_offs[ri + 1] - name1_offs[ri],
+               reads1_blob + read1_offs[ri],
+               (int)(read1_offs[ri + 1] - read1_offs[ri]),
+               names2_blob + name2_offs[ri],
+               name2_offs[ri + 1] - name2_offs[ri],
+               reads2_blob + read2_offs[ri],
+               (int)(read2_offs[ri + 1] - read2_offs[ri]), a_rich_mode != 0,
+               random_pbat != 0);
+  };
+  return pool_run(E, j, n_threads, stats_out);
+}
 
 // device stage-2 SE finalize, records (n_reads, 4) int32: a job on the
 // pool; read it with engine_job_wait
@@ -2817,18 +2689,14 @@ void *engine_se_finalize_submit(void *eng, const uint8_t *reads_blob,
                                 int n_threads) {
   Engine &E = *(Engine *)eng;
   auto *j = new PoolJob();
-  j->r1 = reads_blob;
-  j->r1o = read_offs;
-  j->nm1 = names_blob;
-  j->nm1o = name_offs;
   j->n = n_reads;
-  j->a_rich = a_rich_mode != 0;
-  j->rpbat = random_pbat != 0;
-  j->records = records;
-  j->cig_ops = cig_ops;
-  j->cig_meta = cig_meta;
-  j->tb_nops = tb_nops;
   j->max_len = max_read_len(read_offs, n_reads);
+  j->item = [=, &E](Worker &w, int64_t i) {
+    finalize_one_se(E, w, records + 4 * i, i, names_blob + name_offs[i],
+                    name_offs[i + 1] - name_offs[i], reads_blob + read_offs[i],
+                    (int)(read_offs[i + 1] - read_offs[i]), a_rich_mode != 0,
+                    random_pbat != 0, cig_ops, cig_meta, tb_nops);
+  };
   j->is_first.resize(n_reads);
   for (int64_t i = 0; i < n_reads; ++i)
     j->is_first[i] = (records[4 * i] & 7) == 3;  // REC_FALLBACK
@@ -2852,27 +2720,27 @@ void *engine_pe_slots_submit(
   const int32_t *sl_ds, const int32_t *sl_cnt, int64_t k2,
   const int32_t *mate, int64_t m_stride, int n_threads) {
   Engine &E = *(Engine *)eng;
+  Events ev{};
+  ev.sl_pos = sl_pos;
+  ev.sl_ds = sl_ds;
+  ev.sl_cnt = sl_cnt;
+  ev.k2 = k2;
+  ev.mate = mate;
+  ev.m_stride = m_stride;
   auto *j = new PoolJob();
-  j->pe = true;
-  j->r1 = reads1_blob;
-  j->r1o = read1_offs;
-  j->nm1 = names1_blob;
-  j->nm1o = name1_offs;
-  j->r2 = reads2_blob;
-  j->r2o = read2_offs;
-  j->nm2 = names2_blob;
-  j->nm2o = name2_offs;
   j->n = n_reads;
-  j->a_rich = a_rich_mode != 0;
-  j->rpbat = random_pbat != 0;
-  j->ev.sl_pos = sl_pos;
-  j->ev.sl_ds = sl_ds;
-  j->ev.sl_cnt = sl_cnt;
-  j->ev.k2 = k2;
-  j->ev.mate = mate;
-  j->ev.m_stride = m_stride;
+  j->n_stats = 18;
   j->max_len = max_read_len(read2_offs, n_reads,
                             max_read_len(read1_offs, n_reads));
+  j->item = [=, &E](Worker &w, int64_t i) {
+    map_one_pe(E, w, ev, i, names1_blob + name1_offs[i],
+               name1_offs[i + 1] - name1_offs[i], reads1_blob + read1_offs[i],
+               (int)(read1_offs[i + 1] - read1_offs[i]),
+               names2_blob + name2_offs[i], name2_offs[i + 1] - name2_offs[i],
+               reads2_blob + read2_offs[i],
+               (int)(read2_offs[i + 1] - read2_offs[i]), a_rich_mode != 0,
+               random_pbat != 0);
+  };
   const int per = random_pbat ? 8 : 4;  // units a pair
   j->is_first.resize(n_reads);
   for (int64_t i = 0; i < n_reads; ++i)
@@ -2890,15 +2758,7 @@ int engine_job_done(void *eng, void *job) {
 // waits for the job; stats_out (nullable): its 6 (SE) or 18 (PE) counters;
 // returns the bytes of its SAM text
 int64_t engine_job_wait(void *eng, void *job, int64_t *stats_out) {
-  Engine &E = *(Engine *)eng;
-  PoolJob &j = *(PoolJob *)job;
-  {
-    std::unique_lock<std::mutex> lk(E.pool->mu);
-    E.pool->cv_done.wait(lk, [&] { return j.done.load(); });
-  }
-  if (stats_out)
-    std::memcpy(stats_out, j.stats, (j.pe ? 18 : 6) * sizeof(int64_t));
-  return (int64_t)j.out.size();
+  return pool_wait(*((Engine *)eng)->pool, *(PoolJob *)job, stats_out);
 }
 
 const char *engine_job_out_ptr(void *eng, void *job) {
@@ -2914,14 +2774,7 @@ int64_t engine_job_first(void *eng, void *job) {
 
 // frees a job engine_job_wait returned; its inputs may go after this
 void engine_job_release(void *eng, void *job) {
-  Engine &E = *(Engine *)eng;
-  auto *j = (PoolJob *)job;
-  {
-    std::lock_guard<std::mutex> g(E.pool->mu);
-    auto &live = E.pool->live;
-    live.erase(std::find(live.begin(), live.end(), j));
-  }
-  delete j;
+  pool_release(*((Engine *)eng)->pool, (PoolJob *)job);
 }
 
 
@@ -2995,46 +2848,47 @@ engine_se_phase1(void *eng, const uint8_t *reads_blob,
   P.a_rich = a_rich_mode != 0;
   P.rpbat = random_pbat != 0;
 
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      SEState &st = P.states[ri];
-      const uint8_t *read = reads_blob + read_offs[ri];
-      const int len = (int)(read_offs[ri + 1] - read_offs[ri]);
-      st.len = len;
-      st.n_cand = -1;
-      if (!len)
-        continue;
-      w.se.reset(len);
-      const uint8_t *enc[4];
-      se_seed_read(E, w, ev, ri, read, len, P.a_rich, P.rpbat, enc);
-      st.best = w.se.best;
-      // keep the encodings for phase-2 traceback / host-side scoring
-      st.enc[0].assign(enc[0], enc[0] + len);
-      st.enc[1].assign(enc[1], enc[1] + len);
-      if (P.rpbat) {
-        st.enc[2].assign(enc[2], enc[2] + len);
-        st.enc[3].assign(enc[3], enc[3] + len);
-      }
-      if (w.se.has_exact())
-        continue;
-      st.n_cand = w.se.prepare_for_alignments(st.cand);
-      const int32_t max_diffs = diffs_cutoff(len, E.valid_frac);
-      int i = 0;
-      while (i < st.n_cand && elem_empty(st.cand[i]))
-        ++i;
-      for (; i < st.n_cand; ++i) {
-        const Elem &e = st.cand[i];
-        if (valid_hit(e.d, len)) {
-          st.jobs.push_back((int32_t)ri);
-          st.jobs.push_back(enc_sel(e));
-          st.jobs.push_back((int32_t)e.p);
-          st.jobs.push_back(band_width(e.d, max_diffs));
-          st.jobs.push_back(len);
-        }
+  auto *j = new PoolJob();
+  j->n = n_reads;
+  j->max_len = max_read_len(read_offs, n_reads);
+  j->item = [&](Worker &w, int64_t ri) {
+    SEState &st = P.states[ri];
+    const uint8_t *read = reads_blob + read_offs[ri];
+    const int len = (int)(read_offs[ri + 1] - read_offs[ri]);
+    st.len = len;
+    st.n_cand = -1;
+    if (!len)
+      return;
+    w.se.reset(len);
+    const uint8_t *enc[4];
+    se_seed_read(E, w, ev, ri, read, len, P.a_rich, P.rpbat, enc);
+    st.best = w.se.best;
+    // keep the encodings for phase-2 traceback / host-side scoring
+    st.enc[0].assign(enc[0], enc[0] + len);
+    st.enc[1].assign(enc[1], enc[1] + len);
+    if (P.rpbat) {
+      st.enc[2].assign(enc[2], enc[2] + len);
+      st.enc[3].assign(enc[3], enc[3] + len);
+    }
+    if (w.se.has_exact())
+      return;
+    st.n_cand = w.se.prepare_for_alignments(st.cand);
+    const int32_t max_diffs = diffs_cutoff(len, E.valid_frac);
+    int i = 0;
+    while (i < st.n_cand && elem_empty(st.cand[i]))
+      ++i;
+    for (; i < st.n_cand; ++i) {
+      const Elem &e = st.cand[i];
+      if (valid_hit(e.d, len)) {
+        st.jobs.push_back((int32_t)ri);
+        st.jobs.push_back(enc_sel(e));
+        st.jobs.push_back((int32_t)e.p);
+        st.jobs.push_back(band_width(e.d, max_diffs));
+        st.jobs.push_back(len);
       }
     }
-  });
-  E.out.clear();  // run_threads collected per-worker text; none is produced
+  };
+  pool_run(E, j, n_threads, nullptr);  // no text is produced in phase 1
 
   P.jobs.clear();
   int64_t n_jobs = 0;
@@ -3060,55 +2914,53 @@ engine_se_phase2(void *eng, const int32_t *scores, int n_threads,
   for (int64_t i = 0; i < P.n_reads; ++i)
     max_len = std::max(max_len, P.states[i].len);
 
-  run_threads(E, P.n_reads, n_threads,
-              [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      SEState &st = P.states[ri];
-      const uint8_t *read = P.reads_blob + P.read_offs[ri];
-      const uint8_t *name = P.names_blob + P.name_offs[ri];
-      const int64_t name_len = P.name_offs[ri + 1] - P.name_offs[ri];
-      Elem best{MAX_DIFFS, 0, 0};
-      Cigar cig;
-      cig.clear();
-      if (st.len) {
-        // rebuild the candidate set snapshot; prepare_for_alignments is
-        // idempotent on the already sorted+deduped list
-        w.se.reset(st.len);
-        w.se.best = st.best;
-        if (st.n_cand >= 0) {
-          for (int i = 0; i < st.n_cand; ++i)
-            w.se.v[i] = st.cand[i];
-          w.se.sz = std::max(st.n_cand, 1);
-        }
-        const uint8_t *pt = st.enc[0].data();
-        const uint8_t *pt_rc = st.enc[1].data();
-        const uint8_t *pa = P.rpbat ? st.enc[2].data() : pt;
-        const uint8_t *pa_rc = P.rpbat ? st.enc[3].data() : pt_rc;
-        int64_t jp = st.job_start;
-        align_se_candidates_impl(
-          pt, pt_rc, pa, pa_rc, st.len, E.valid_frac, w.se, w, best, cig,
-          [&](const Elem &e, const uint8_t *q, int32_t max_diffs) {
-            const int32_t s = scores[jp++];
-            if (s != INT32_MIN)
-              return s;
-            return (int32_t)w.aln.align(e.d, max_diffs, q, st.len, e.p,
-                                        false);
-          });
-        const int map_type =
-          format_se(E, best, cig, name, name_len, read, st.len, w.out);
-        if (map_type == MAP_UNMAPPED) {
-          best.d = MAX_DIFFS;
-          best.p = 0;
-        }
+  auto *j = new PoolJob();
+  j->n = P.n_reads;
+  j->max_len = max_len;
+  j->item = [&](Worker &w, int64_t ri) {
+    SEState &st = P.states[ri];
+    const uint8_t *read = P.reads_blob + P.read_offs[ri];
+    const uint8_t *name = P.names_blob + P.name_offs[ri];
+    const int64_t name_len = P.name_offs[ri + 1] - P.name_offs[ri];
+    Elem best{MAX_DIFFS, 0, 0};
+    Cigar cig;
+    cig.clear();
+    if (st.len) {
+      // rebuild the candidate set snapshot; prepare_for_alignments is
+      // idempotent on the already sorted+deduped list
+      w.se.reset(st.len);
+      w.se.best = st.best;
+      if (st.n_cand >= 0) {
+        for (int i = 0; i < st.n_cand; ++i)
+          w.se.v[i] = st.cand[i];
+        w.se.sz = std::max(st.n_cand, 1);
       }
-      SEStatsAcc acc{w.st};
-      acc.update(st.len == 0, !elem_empty(best), elem_ambig(best), best.d,
-                 cig, E.allow_ambig);
+      const uint8_t *pt = st.enc[0].data();
+      const uint8_t *pt_rc = st.enc[1].data();
+      const uint8_t *pa = P.rpbat ? st.enc[2].data() : pt;
+      const uint8_t *pa_rc = P.rpbat ? st.enc[3].data() : pt_rc;
+      int64_t jp = st.job_start;
+      align_se_candidates_impl(
+        pt, pt_rc, pa, pa_rc, st.len, E.valid_frac, w.se, w, best, cig,
+        [&](const Elem &e, const uint8_t *q, int32_t max_diffs) {
+          const int32_t s = scores[jp++];
+          if (s != INT32_MIN)
+            return s;
+          return (int32_t)w.aln.align(e.d, max_diffs, q, st.len, e.p,
+                                      false);
+        });
+      const int map_type =
+        format_se(E, best, cig, name, name_len, read, st.len, w.out);
+      if (map_type == MAP_UNMAPPED) {
+        best.d = MAX_DIFFS;
+        best.p = 0;
+      }
     }
-  });
-  sum_stats(E, stats_out, 6);
-  return (int64_t)E.out.size();
+    SEStatsAcc acc{w.st};
+    acc.update(st.len == 0, !elem_empty(best), elem_ambig(best), best.d,
+               cig, E.allow_ambig);
+  };
+  return pool_run(E, j, n_threads, stats_out);
 }
 
 }  // extern "C"
@@ -3220,81 +3072,83 @@ engine_pe_phase1(void *eng, const uint8_t *reads1_blob,
   const int per = P.rpbat ? 8 : 4;
   const int n_slots = P.rpbat ? 8 : 4;
 
-  run_threads(E, n_reads, n_threads, [&](Worker &w, int64_t lo, int64_t hi) {
-    PEFragCfg cfg[4];
-    const int nf = pe_cfgs(P.a_rich, P.rpbat, cfg);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      PEPairState &st = P.states[ri];
-      const uint8_t *read1 = reads1_blob + read1_offs[ri];
-      const int l1 = (int)(read1_offs[ri + 1] - read1_offs[ri]);
-      const uint8_t *read2 = reads2_blob + read2_offs[ri];
-      const int l2 = (int)(read2_offs[ri + 1] - read2_offs[ri]);
-      st.l1 = l1;
-      st.l2 = l2;
-      w.se1.reset(l1);
-      w.se2.reset(l2);
-      for (int s = 0; s < n_slots; ++s)
-        w.buf[s].clear();
-      for (int f = 0; f < nf; ++f) {
-        const PEFragCfg &c = cfg[f];
-        PEFragSnap &sn = st.frag[f];
-        const uint8_t *ra = c.read2_first ? read2 : read1;
-        const int la = c.read2_first ? l2 : l1;
-        const uint8_t *rb = c.read2_first ? read1 : read2;
-        const int lb = c.read2_first ? l1 : l2;
-        PECand &res1 = w.pe1;
-        PECand &res2 = w.pe2;
-        res1.reset(la);
-        res2.reset(lb);
-        sn.ok = la || lb;
-        if (!sn.ok)
-          continue;
-        if (la) {
-          encode_read(ra, la, c.conv, w.buf[c.b1]);
-          seeds(E, w, ev, (int64_t)per * ri + c.du1, w.buf[c.b1].data(), la,
-                c.sc1, res1);
-        }
-        if (lb) {
-          revcomp_ascii(rb, lb, w.rcbuf[c.rcb]);
-          encode_read(w.rcbuf[c.rcb].data(), lb, c.conv, w.buf[c.b2]);
-          seeds(E, w, ev, (int64_t)per * ri + c.du2, w.buf[c.b2].data(), lb,
-                c.sc2, res2);
-        }
-        if (res1.should_align() && res2.should_align()) {
-          res1.prepare_for_mating();
-          res2.prepare_for_mating();
-          sn.swept = true;
-          sn.c1.assign(res1.v.begin(), res1.v.begin() + res1.sz);
-          sn.c2.assign(res2.v.begin(), res2.v.begin() + res2.sz);
-          const int32_t md1 = diffs_cutoff(la, E.valid_frac);
-          const int32_t md2 = diffs_cutoff(lb, E.valid_frac);
-          sn.js1 = (int64_t)st.jobs.size() / 5;
-          for (const Elem &e : sn.c1) {
-            st.jobs.push_back((int32_t)ri);
-            st.jobs.push_back(c.b1);
-            st.jobs.push_back((int32_t)e.p);
-            st.jobs.push_back(band_width(e.d, md1));
-            st.jobs.push_back(la);
-          }
-          sn.js2 = (int64_t)st.jobs.size() / 5;
-          for (const Elem &e : sn.c2) {
-            st.jobs.push_back((int32_t)ri);
-            st.jobs.push_back(c.b2);
-            st.jobs.push_back((int32_t)e.p);
-            st.jobs.push_back(band_width(e.d, md2));
-            st.jobs.push_back(lb);
-          }
-        }
-        best_single(res1, c.read2_first ? w.se2 : w.se1);
-        best_single(res2, c.read2_first ? w.se1 : w.se2);
+  PEFragCfg cfg[4];
+  const int nf = pe_cfgs(P.a_rich, P.rpbat, cfg);
+  auto *j = new PoolJob();
+  j->n = n_reads;
+  j->max_len = max_read_len(read2_offs, n_reads,
+                            max_read_len(read1_offs, n_reads));
+  j->item = [&](Worker &w, int64_t ri) {
+    PEPairState &st = P.states[ri];
+    const uint8_t *read1 = reads1_blob + read1_offs[ri];
+    const int l1 = (int)(read1_offs[ri + 1] - read1_offs[ri]);
+    const uint8_t *read2 = reads2_blob + read2_offs[ri];
+    const int l2 = (int)(read2_offs[ri + 1] - read2_offs[ri]);
+    st.l1 = l1;
+    st.l2 = l2;
+    w.se1.reset(l1);
+    w.se2.reset(l2);
+    for (int s = 0; s < n_slots; ++s)
+      w.buf[s].clear();
+    for (int f = 0; f < nf; ++f) {
+      const PEFragCfg &c = cfg[f];
+      PEFragSnap &sn = st.frag[f];
+      const uint8_t *ra = c.read2_first ? read2 : read1;
+      const int la = c.read2_first ? l2 : l1;
+      const uint8_t *rb = c.read2_first ? read1 : read2;
+      const int lb = c.read2_first ? l1 : l2;
+      PECand &res1 = w.pe1;
+      PECand &res2 = w.pe2;
+      res1.reset(la);
+      res2.reset(lb);
+      sn.ok = la || lb;
+      if (!sn.ok)
+        continue;
+      if (la) {
+        encode_read(ra, la, c.conv, w.buf[c.b1]);
+        seeds(E, w, ev, (int64_t)per * ri + c.du1, w.buf[c.b1].data(), la,
+              c.sc1, res1);
       }
-      st.se1 = w.se1;
-      st.se2 = w.se2;
-      for (int s = 0; s < n_slots; ++s)
-        st.encb[s] = w.buf[s];
+      if (lb) {
+        revcomp_ascii(rb, lb, w.rcbuf[c.rcb]);
+        encode_read(w.rcbuf[c.rcb].data(), lb, c.conv, w.buf[c.b2]);
+        seeds(E, w, ev, (int64_t)per * ri + c.du2, w.buf[c.b2].data(), lb,
+              c.sc2, res2);
+      }
+      if (res1.should_align() && res2.should_align()) {
+        res1.prepare_for_mating();
+        res2.prepare_for_mating();
+        sn.swept = true;
+        sn.c1.assign(res1.v.begin(), res1.v.begin() + res1.sz);
+        sn.c2.assign(res2.v.begin(), res2.v.begin() + res2.sz);
+        const int32_t md1 = diffs_cutoff(la, E.valid_frac);
+        const int32_t md2 = diffs_cutoff(lb, E.valid_frac);
+        sn.js1 = (int64_t)st.jobs.size() / 5;
+        for (const Elem &e : sn.c1) {
+          st.jobs.push_back((int32_t)ri);
+          st.jobs.push_back(c.b1);
+          st.jobs.push_back((int32_t)e.p);
+          st.jobs.push_back(band_width(e.d, md1));
+          st.jobs.push_back(la);
+        }
+        sn.js2 = (int64_t)st.jobs.size() / 5;
+        for (const Elem &e : sn.c2) {
+          st.jobs.push_back((int32_t)ri);
+          st.jobs.push_back(c.b2);
+          st.jobs.push_back((int32_t)e.p);
+          st.jobs.push_back(band_width(e.d, md2));
+          st.jobs.push_back(lb);
+        }
+      }
+      best_single(res1, c.read2_first ? w.se2 : w.se1);
+      best_single(res2, c.read2_first ? w.se1 : w.se2);
     }
-  });
-  E.out.clear();  // no text is produced in phase 1
+    st.se1 = w.se1;
+    st.se2 = w.se2;
+    for (int s = 0; s < n_slots; ++s)
+      st.encb[s] = w.buf[s];
+  };
+  pool_run(E, j, n_threads, nullptr);  // no text is produced in phase 1
 
   P.jobs.clear();
   int64_t n_jobs = 0;
@@ -3322,98 +3176,97 @@ engine_pe_phase2(void *eng, const int32_t *scores, int n_threads,
     max_len = std::max(max_len, st.l2);
   }
 
-  run_threads(E, P.n_reads, n_threads,
-              [&](Worker &w, int64_t lo, int64_t hi) {
-    w.aln.reset(max_len);
-    PEFragCfg cfg[4];
-    const int nf = pe_cfgs(P.a_rich, P.rpbat, cfg);
-    for (int64_t ri = lo; ri < hi; ++ri) {
-      PEPairState &st = P.states[ri];
-      const uint8_t *read1 = P.r1_blob + P.r1_offs[ri];
-      const uint8_t *name1 = P.n1_blob + P.n1_offs[ri];
-      const int64_t nl1 = P.n1_offs[ri + 1] - P.n1_offs[ri];
-      const uint8_t *read2 = P.r2_blob + P.r2_offs[ri];
-      const uint8_t *name2 = P.n2_blob + P.n2_offs[ri];
-      const int64_t nl2 = P.n2_offs[ri + 1] - P.n2_offs[ri];
-      const int l1 = st.l1, l2 = st.l2;
+  PEFragCfg cfg[4];
+  const int nf = pe_cfgs(P.a_rich, P.rpbat, cfg);
+  auto *j = new PoolJob();
+  j->n = P.n_reads;
+  j->n_stats = 18;
+  j->max_len = max_len;
+  j->item = [&](Worker &w, int64_t ri) {
+    PEPairState &st = P.states[ri];
+    const uint8_t *read1 = P.r1_blob + P.r1_offs[ri];
+    const uint8_t *name1 = P.n1_blob + P.n1_offs[ri];
+    const int64_t nl1 = P.n1_offs[ri + 1] - P.n1_offs[ri];
+    const uint8_t *read2 = P.r2_blob + P.r2_offs[ri];
+    const uint8_t *name2 = P.n2_blob + P.n2_offs[ri];
+    const int64_t nl2 = P.n2_offs[ri + 1] - P.n2_offs[ri];
+    const int l1 = st.l1, l2 = st.l2;
 
-      w.se1 = st.se1;
-      w.se2 = st.se2;
-      PEBest best;
-      best.init(l1, l2);
-      Cigar cig1, cig2;
-      cig1.clear();
-      cig2.clear();
-      bool any_ok = false;
-      auto enc_of = [&](int slot) -> const uint8_t * {
-        return st.encb[slot].empty() ? nullptr : st.encb[slot].data();
-      };
-      for (int f = 0; f < nf; ++f) {
-        const PEFragCfg &c = cfg[f];
-        PEFragSnap &sn = st.frag[f];
-        any_ok = any_ok || sn.ok;
-        if (!sn.swept)
-          continue;
-        const int la = c.read2_first ? l2 : l1;
-        const int lb = c.read2_first ? l1 : l2;
-        PECand &res1 = w.pe1;
-        PECand &res2 = w.pe2;
-        res1.sz = (int)sn.c1.size();
-        std::copy(sn.c1.begin(), sn.c1.end(), res1.v.begin());
-        res2.sz = (int)sn.c2.size();
-        std::copy(sn.c2.begin(), sn.c2.end(), res2.v.begin());
-        const uint8_t *pr1 = enc_of(c.b1);
-        const uint8_t *pr2 = enc_of(c.b2);
-        const int32_t md1 = diffs_cutoff(la, E.valid_frac);
-        const int32_t md2 = diffs_cutoff(lb, E.valid_frac);
-        const int32_t *s1 = scores + st.job_start + sn.js1;
-        const int32_t *s2 = scores + st.job_start + sn.js2;
-        Cigar nc1, nc2;
-        const bool bp = best_pair_impl(
-          E, w, res1, res2, pr1, la, pr2, lb, best, c.read2_first, nc1, nc2,
-          [&](int64_t j, const Elem &e) {
-            const int32_t v = s1[j];
-            if (v != INT32_MIN)
-              return v;
-            return (int32_t)w.aln.align(e.d, md1, pr1, la, e.p, false);
-          },
-          [&](int64_t j, const Elem &e) {
-            const int32_t v = s2[j];
-            if (v != INT32_MIN)
-              return v;
-            return (int32_t)w.aln.align(e.d, md2, pr2, lb, e.p, false);
-          });
-        if (bp) {
-          *(c.read2_first ? &cig2 : &cig1) = nc1;
-          *(c.read2_first ? &cig1 : &cig2) = nc2;
-        }
+    w.se1 = st.se1;
+    w.se2 = st.se2;
+    PEBest best;
+    best.init(l1, l2);
+    Cigar cig1, cig2;
+    cig1.clear();
+    cig2.clear();
+    bool any_ok = false;
+    auto enc_of = [&](int slot) -> const uint8_t * {
+      return st.encb[slot].empty() ? nullptr : st.encb[slot].data();
+    };
+    for (int f = 0; f < nf; ++f) {
+      const PEFragCfg &c = cfg[f];
+      PEFragSnap &sn = st.frag[f];
+      any_ok = any_ok || sn.ok;
+      if (!sn.swept)
+        continue;
+      const int la = c.read2_first ? l2 : l1;
+      const int lb = c.read2_first ? l1 : l2;
+      PECand &res1 = w.pe1;
+      PECand &res2 = w.pe2;
+      res1.sz = (int)sn.c1.size();
+      std::copy(sn.c1.begin(), sn.c1.end(), res1.v.begin());
+      res2.sz = (int)sn.c2.size();
+      std::copy(sn.c2.begin(), sn.c2.end(), res2.v.begin());
+      const uint8_t *pr1 = enc_of(c.b1);
+      const uint8_t *pr2 = enc_of(c.b2);
+      const int32_t md1 = diffs_cutoff(la, E.valid_frac);
+      const int32_t md2 = diffs_cutoff(lb, E.valid_frac);
+      const int32_t *s1 = scores + st.job_start + sn.js1;
+      const int32_t *s2 = scores + st.job_start + sn.js2;
+      Cigar nc1, nc2;
+      const bool bp = best_pair_impl(
+        E, w, res1, res2, pr1, la, pr2, lb, best, c.read2_first, nc1, nc2,
+        [&](int64_t k, const Elem &e) {
+          const int32_t v = s1[k];
+          if (v != INT32_MIN)
+            return v;
+          return (int32_t)w.aln.align(e.d, md1, pr1, la, e.p, false);
+        },
+        [&](int64_t k, const Elem &e) {
+          const int32_t v = s2[k];
+          if (v != INT32_MIN)
+            return v;
+          return (int32_t)w.aln.align(e.d, md2, pr2, lb, e.p, false);
+        });
+      if (bp) {
+        *(c.read2_first ? &cig2 : &cig1) = nc1;
+        *(c.read2_first ? &cig1 : &cig2) = nc2;
       }
-
-      const uint8_t *p1t, *p1t_rc, *p1a, *p1a_rc;
-      const uint8_t *p2t, *p2t_rc, *p2a, *p2a_rc;
-      if (!P.rpbat) {
-        p1t = p1a = enc_of(0);
-        p1t_rc = p1a_rc = enc_of(3);
-        p2t = p2a = enc_of(2);
-        p2t_rc = p2a_rc = enc_of(1);
-      }
-      else {
-        p1t = enc_of(0);
-        p1t_rc = enc_of(7);
-        p1a = enc_of(4);
-        p1a_rc = enc_of(3);
-        p2t = enc_of(6);
-        p2t_rc = enc_of(1);
-        p2a = enc_of(2);
-        p2a_rc = enc_of(5);
-      }
-      finish_pe_pair(E, w, best, cig1, cig2, p1t, p1t_rc, p1a, p1a_rc, p2t,
-                     p2t_rc, p2a, p2a_rc, name1, nl1, read1, l1, name2, nl2,
-                     read2, l2, any_ok);
     }
-  });
-  sum_stats(E, stats_out, 18);
-  return (int64_t)E.out.size();
+
+    const uint8_t *p1t, *p1t_rc, *p1a, *p1a_rc;
+    const uint8_t *p2t, *p2t_rc, *p2a, *p2a_rc;
+    if (!P.rpbat) {
+      p1t = p1a = enc_of(0);
+      p1t_rc = p1a_rc = enc_of(3);
+      p2t = p2a = enc_of(2);
+      p2t_rc = p2a_rc = enc_of(1);
+    }
+    else {
+      p1t = enc_of(0);
+      p1t_rc = enc_of(7);
+      p1a = enc_of(4);
+      p1a_rc = enc_of(3);
+      p2t = enc_of(6);
+      p2t_rc = enc_of(1);
+      p2a = enc_of(2);
+      p2a_rc = enc_of(5);
+    }
+    finish_pe_pair(E, w, best, cig1, cig2, p1t, p1t_rc, p1a, p1a_rc, p2t,
+                   p2t_rc, p2a, p2a_rc, name1, nl1, read1, l1, name2, nl2,
+                   read2, l2, any_ok);
+  };
+  return pool_run(E, j, n_threads, stats_out);
 }
 
 }  // extern "C"
@@ -3425,14 +3278,14 @@ const char *engine_out_ptr(void *eng) { return ((Engine *)eng)->out.data(); }
 // ===========================================================================
 // streaming full-native mapping loop: FASTQ(.gz) -> map -> ordered SAM.
 //
-// This is the TPU-framework equivalent of the reference's `runner`
-// (abismal.cpp:2187-2263): N worker threads claim read batches under a
-// read mutex, map them lock-free, and emit records under a write mutex --
-// except output here is ordered by batch sequence number (condition
-// variable hand-off), so the result is byte-identical at any thread
-// count, where the reference is nondeterministic for -t > 1.  Parsing
-// (with the reference's read-cleaning rules, abismal.cpp:164-201) and SAM
-// writing both live inside this loop, so no Python runs per read.
+// This is the counterpart of the reference's `runner` (abismal.cpp:
+// 2187-2263), whose N threads each read a batch under a read mutex, map it
+// and write its records under a write mutex.  Here the calling thread reads
+// and parses the batches (with the reference's read-cleaning rules,
+// abismal.cpp:164-201), maps each as a job on the engine's pool, and writes
+// the jobs in batch order, so the result is byte-identical at any thread
+// count, where the reference is nondeterministic for -t > 1.  No Python
+// runs per read.
 // ===========================================================================
 namespace {
 
@@ -3852,17 +3705,9 @@ struct FastqReader {
   explicit FastqReader(const char *p) : in(p), path(p) {}
 };
 
+// the streaming loop's output and progress
 struct StreamCtl {
-  std::mutex read_mtx, write_mtx;
-  std::condition_variable cv;
-  int64_t next_seq = 0, next_write = 0;
-  // read by workers between the two critical sections, so atomic
-  // (relaxed suffices: they only ever go false->true)
-  std::atomic<bool> done{false}, failed{false};
-  std::string err;
-  int64_t n_reads = 0;
-  int64_t remaining = -1;  // shard read budget; < 0 = unlimited
-  FILE *out = nullptr;
+  int64_t n_reads = 0;  // reads written
   bool bam = false;
   std::unordered_map<std::string, int> ref_idx;  // RNAME -> BAM refID
   // progress
@@ -3895,24 +3740,177 @@ void stream_progress(StreamCtl &C, int64_t bpos) {
   fflush(stderr);
 }
 
-void stream_init(Engine &E, StreamCtl &C, const char *fq1, FILE *out,
-                 int n_threads, int verbose, int out_bam) {
-  C.out = out;
+// a batch of the streaming loop: its reads (PE: both ends) and its job
+struct StreamSlot {
+  StreamBatch b1, b2;
+  int64_t bpos = 0;  // the input's position after the batch
+  PoolJob *job = nullptr;
+  bool bam_ok = true;
+};
+
+// the streaming loop of engine_run_se (fq2 null) and engine_run_pe
+int64_t stream_map(Engine &E, const char *fq1, const char *fq2,
+                   const char *out_path, const uint8_t *header,
+                   int64_t header_len, int a_rich_mode, int random_pbat,
+                   int64_t batch_size, int n_threads, int64_t *stats_out,
+                   int verbose, int64_t skip_reads, int64_t max_reads,
+                   int out_bam) {
+  E.err.clear();
+  const bool pe = fq2 != nullptr;
+  GzLines in1(fq1);
+  std::unique_ptr<GzLines> in2(pe ? new GzLines(fq2) : nullptr);
+  if (!in1.ok() || (pe && !in2->ok())) {
+    E.err = std::string("cannot open file: ") + (in1.ok() ? fq2 : fq1);
+    return -1;
+  }
+  if (skip_reads > 0) {
+    in1.skip_lines(4 * skip_reads);
+    if (pe)
+      in2->skip_lines(4 * skip_reads);
+  }
+  FILE *out = fopen(out_path, "w");
+  if (!out) {
+    E.err = std::string("cannot open output file: ") + out_path;
+    return -1;
+  }
+  if (out_bam) {
+    // `header` holds the uncompressed BAM header payload (magic + text +
+    // reference list, built host-side); BGZF-compress it here
+    std::string hz;
+    bgzf_compress((const char *)header, (size_t)header_len, hz);
+    fwrite(hz.data(), 1, hz.size(), out);
+  }
+  else {
+    fwrite(header, 1, header_len, out);
+  }
+  n_threads = std::max(1, n_threads);
+  StreamCtl C;
   C.verbose = verbose;
   C.bam = out_bam != 0;
   if (C.bam)
     for (int64_t i = 1; i + 1 < E.n_chroms; ++i)
       C.ref_idx.emplace(E.names[i], (int)(i - 1));
   C.tty = verbose && isatty(2);
-  struct stat st;
-  if (stat(fq1, &st) == 0)
-    C.total_bytes = std::max<int64_t>(1, (int64_t)st.st_size);
-  for (int t = 0; t < n_threads; ++t)
-    get_worker(E, t);
-  for (auto *w : E.workers) {
-    std::memset(w->st, 0, sizeof(w->st));
-    w->out.clear();
+  struct stat fs;
+  if (stat(fq1, &fs) == 0)
+    C.total_bytes = std::max<int64_t>(1, (int64_t)fs.st_size);
+  const bool a_rich = a_rich_mode != 0, rpbat = random_pbat != 0;
+  const int n_stats = pe ? 18 : 6;
+  int64_t stats[18] = {0};
+  std::string err;
+  int64_t remaining = max_reads;  // the shard's reads left; < 0: no limit
+  // batch k in ring[k % n_threads]: at most n_threads batches unwritten
+  std::vector<StreamSlot> ring(n_threads);
+  int64_t n_read = 0, n_written = 0;  // batches
+  // writes the oldest batch not yet written, once its job is done; false
+  // where its BAM conversion failed
+  auto write_next = [&]() {
+    StreamSlot &s = ring[n_written++ % n_threads];
+    int64_t st[18];
+    pool_wait(*E.pool, *s.job, st);
+    if (s.bam_ok) {
+      fwrite(s.job->out.data(), 1, s.job->out.size(), out);
+      for (int k = 0; k < n_stats; ++k)
+        stats[k] += st[k];
+      C.n_reads += s.b1.n;
+      stream_progress(C, s.bpos);
+    }
+    else {
+      err = "BAM conversion failed (read name over 254 chars?)";
+    }
+    pool_release(*E.pool, s.job);
+    s.job = nullptr;
+    return s.bam_ok;
+  };
+  bool failed = false;
+  for (;;) {
+    if (n_read - n_written == n_threads && !write_next()) {
+      failed = true;
+      break;
+    }
+    StreamSlot &s = ring[n_read % n_threads];
+    const int64_t bs =
+      remaining < 0 ? batch_size : std::min(batch_size, remaining);
+    {
+      StageTimer pt(&E.parse_ns);
+      failed = parse_batch(in1, fq1, bs, s.b1, err) != 0 ||
+               (pe && parse_batch(*in2, fq2, bs, s.b2, err) != 0);
+    }
+    if (!failed && pe && s.b1.n != s.b2.n) {
+      failed = true;
+      err = "paired-end batch sizes differ. Batch 1: " +
+            std::to_string(s.b1.n) + ", Batch 2: " + std::to_string(s.b2.n) +
+            ". Are you sure your paired-end inputs have the same number of "
+            "reads?";
+    }
+    if (failed || s.b1.n == 0)
+      break;
+    if (remaining >= 0)
+      remaining -= s.b1.n;
+    s.bpos = in1.byte_pos();
+    s.bam_ok = true;
+    StreamSlot *sp = &s;
+    auto *j = new PoolJob();
+    j->n = s.b1.n;
+    j->n_stats = n_stats;
+    j->max_len = pe ? std::max(s.b1.max_len, s.b2.max_len) : s.b1.max_len;
+    j->item = [&E, sp, pe, a_rich, rpbat](Worker &w, int64_t ri) {
+      const Events ev{};
+      const StreamBatch &b1 = sp->b1, &b2 = sp->b2;
+      const uint8_t *r1 = (const uint8_t *)b1.rblob.data();
+      const uint8_t *n1 = (const uint8_t *)b1.nblob.data();
+      if (!pe) {
+        map_one_se(E, w, ev, ri, n1 + b1.noffs[ri],
+                   b1.noffs[ri + 1] - b1.noffs[ri], r1 + b1.roffs[ri],
+                   (int)(b1.roffs[ri + 1] - b1.roffs[ri]), a_rich, rpbat);
+        return;
+      }
+      const uint8_t *r2 = (const uint8_t *)b2.rblob.data();
+      const uint8_t *n2 = (const uint8_t *)b2.nblob.data();
+      map_one_pe(E, w, ev, ri, n1 + b1.noffs[ri],
+                 b1.noffs[ri + 1] - b1.noffs[ri], r1 + b1.roffs[ri],
+                 (int)(b1.roffs[ri + 1] - b1.roffs[ri]), n2 + b2.noffs[ri],
+                 b2.noffs[ri + 1] - b2.noffs[ri], r2 + b2.roffs[ri],
+                 (int)(b2.roffs[ri + 1] - b2.roffs[ri]), a_rich, rpbat);
+    };
+    if (C.bam)  // BGZF on the worker that joins the batch
+      j->post = [&C, sp](std::string &text) {
+        if (text.empty())
+          return;
+        std::string payload;
+        sp->bam_ok = sam_text_to_bam(text, C.ref_idx, payload);
+        text.clear();
+        if (sp->bam_ok)
+          bgzf_compress(payload.data(), payload.size(), text);
+      };
+    s.job = pool_submit(E, j, n_threads);
+    ++n_read;
+    while (!failed && n_written < n_read &&
+           ring[n_written % n_threads].job->done.load())
+      failed = !write_next();
+    if (failed)
+      break;
   }
+  while (!failed && n_written < n_read)
+    failed = !write_next();
+  for (; n_written < n_read; ++n_written) {  // after an error: dropped
+    StreamSlot &s = ring[n_written % n_threads];
+    pool_drop(*E.pool, *s.job);
+    pool_release(*E.pool, s.job);
+  }
+  if (C.tty && C.prev_pct < 100) {
+    C.prev_pct = 99;  // force the 100% line
+    stream_progress(C, C.total_bytes);
+  }
+  if (C.bam && !failed)
+    fwrite(BGZF_EOF_BLOCK, 1, sizeof(BGZF_EOF_BLOCK), out);
+  fclose(out);
+  if (failed) {
+    E.err = err;
+    return -1;
+  }
+  std::memcpy(stats_out, stats, n_stats * sizeof(int64_t));
+  return C.n_reads;
 }
 
 }  // namespace
@@ -3932,13 +3930,16 @@ void engine_stage_ns(void *eng, int64_t *out16, int reset) {
   Engine &E = *(Engine *)eng;
   for (int i = 0; i < 16; ++i)
     out16[i] = 0;
-  for (auto *ws : {&E.workers, &E.pool_workers})
-    for (auto *w : *ws)
+  if (E.pool)
+    for (auto *w : E.pool->workers)
       for (int i = 0; i < 16; ++i) {
         out16[i] += w->tns[i];
         if (reset)
           w->tns[i] = 0;
       }
+  out16[3] += E.parse_ns;
+  if (reset)
+    E.parse_ns = 0;
 }
 
 // FASTQ batches for the Python batch loops (io/fastq.py ReadLoader), by
@@ -4014,124 +4015,10 @@ int64_t engine_run_se(void *eng, const char *fq_path, const char *out_path,
                       int a_rich_mode, int random_pbat, int64_t batch_size,
                       int n_threads, int64_t *stats_out, int verbose,
                       int64_t skip_reads, int64_t max_reads, int out_bam) {
-  Engine &E = *(Engine *)eng;
-  E.err.clear();
-  GzLines in(fq_path);
-  if (!in.ok()) {
-    E.err = std::string("cannot open file: ") + fq_path;
-    return -1;
-  }
-  if (skip_reads > 0)
-    in.skip_lines(4 * skip_reads);
-  FILE *out = fopen(out_path, "w");
-  if (!out) {
-    E.err = std::string("cannot open output file: ") + out_path;
-    return -1;
-  }
-  if (out_bam) {
-    // `header` holds the uncompressed BAM header payload (magic + text +
-    // reference list, built host-side); BGZF-compress it here
-    std::string hz;
-    bgzf_compress((const char *)header, (size_t)header_len, hz);
-    fwrite(hz.data(), 1, hz.size(), out);
-  }
-  else {
-    fwrite(header, 1, header_len, out);
-  }
-  n_threads = std::max(1, n_threads);
-  StreamCtl C;
-  stream_init(E, C, fq_path, out, n_threads, verbose, out_bam);
-  C.remaining = max_reads;
-  const Events ev{};
-
-  std::vector<std::thread> ts;
-  for (int t = 0; t < n_threads; ++t) {
-    Worker *wp = E.workers[t];
-    ts.emplace_back([&, wp]() {
-      Worker &w = *wp;
-      StreamBatch b;
-      for (;;) {
-        int64_t my_seq;
-        int64_t bpos = 0;
-        {
-          std::lock_guard<std::mutex> lk(C.read_mtx);
-          if (C.done || C.failed)
-            break;
-          my_seq = C.next_seq++;
-          std::string err;
-          int prc;
-          const int64_t bs = C.remaining < 0
-                               ? batch_size
-                               : std::min(batch_size, C.remaining);
-          {
-            StageTimer pt(w.tns + 3);
-            prc = parse_batch(in, fq_path, bs, b, err);
-          }
-          if (prc != 0) {
-            C.failed = true;
-            C.err = err;
-          }
-          else if (b.n == 0)
-            C.done = true;
-          else if (C.remaining >= 0)
-            C.remaining -= b.n;
-          bpos = in.byte_pos();
-        }
-        w.out.clear();
-        if (!C.failed && b.n) {
-          w.aln.reset(b.max_len);
-          const uint8_t *rb = (const uint8_t *)b.rblob.data();
-          const uint8_t *nb = (const uint8_t *)b.nblob.data();
-          for (int64_t ri = 0; ri < b.n; ++ri)
-            map_one_se(E, w, ev, ri, nb + b.noffs[ri],
-                       b.noffs[ri + 1] - b.noffs[ri], rb + b.roffs[ri],
-                       (int)(b.roffs[ri + 1] - b.roffs[ri]),
-                       a_rich_mode != 0, random_pbat != 0);
-        }
-        std::string bam_blocks;
-        bool bam_ok = true;
-        if (C.bam && !C.failed && b.n && !w.out.empty()) {
-          std::string payload;
-          bam_ok = sam_text_to_bam(w.out, C.ref_idx, payload);
-          if (bam_ok)
-            bgzf_compress(payload.data(), payload.size(), bam_blocks);
-        }
-        {
-          std::unique_lock<std::mutex> lk(C.write_mtx);
-          C.cv.wait(lk, [&] { return C.next_write == my_seq; });
-          if (!bam_ok && !C.failed) {
-            C.failed = true;
-            C.err = "BAM conversion failed (read name over 254 chars?)";
-          }
-          if (!C.failed && b.n) {
-            if (C.bam)
-              fwrite(bam_blocks.data(), 1, bam_blocks.size(), C.out);
-            else
-              fwrite(w.out.data(), 1, w.out.size(), C.out);
-            C.n_reads += b.n;
-            stream_progress(C, bpos);
-          }
-          ++C.next_write;
-          C.cv.notify_all();
-        }
-      }
-    });
-  }
-  for (auto &t : ts)
-    t.join();
-  if (C.tty && C.prev_pct < 100) {
-    C.prev_pct = 99;  // force the 100% line
-    stream_progress(C, C.total_bytes);
-  }
-  if (C.bam && !C.failed)
-    fwrite(BGZF_EOF_BLOCK, 1, sizeof(BGZF_EOF_BLOCK), out);
-  fclose(out);
-  if (C.failed) {
-    E.err = C.err;
-    return -1;
-  }
-  sum_stats(E, stats_out, 6);
-  return C.n_reads;
+  return stream_map(*(Engine *)eng, fq_path, nullptr, out_path, header,
+                    header_len, a_rich_mode, random_pbat, batch_size,
+                    n_threads, stats_out, verbose, skip_reads, max_reads,
+                    out_bam);
 }
 
 // Full PE mapping run; stats_out holds 18 counters (pair, end1, end2).
@@ -4141,141 +4028,10 @@ int64_t engine_run_pe(void *eng, const char *fq1_path, const char *fq2_path,
                       int64_t batch_size, int n_threads, int64_t *stats_out,
                       int verbose, int64_t skip_reads, int64_t max_reads,
                       int out_bam) {
-  Engine &E = *(Engine *)eng;
-  E.err.clear();
-  GzLines in1(fq1_path), in2(fq2_path);
-  if (!in1.ok() || !in2.ok()) {
-    E.err = std::string("cannot open file: ") +
-            (in1.ok() ? fq2_path : fq1_path);
-    return -1;
-  }
-  if (skip_reads > 0) {
-    in1.skip_lines(4 * skip_reads);
-    in2.skip_lines(4 * skip_reads);
-  }
-  FILE *out = fopen(out_path, "w");
-  if (!out) {
-    E.err = std::string("cannot open output file: ") + out_path;
-    return -1;
-  }
-  if (out_bam) {
-    // `header` holds the uncompressed BAM header payload (magic + text +
-    // reference list, built host-side); BGZF-compress it here
-    std::string hz;
-    bgzf_compress((const char *)header, (size_t)header_len, hz);
-    fwrite(hz.data(), 1, hz.size(), out);
-  }
-  else {
-    fwrite(header, 1, header_len, out);
-  }
-  n_threads = std::max(1, n_threads);
-  StreamCtl C;
-  stream_init(E, C, fq1_path, out, n_threads, verbose, out_bam);
-  C.remaining = max_reads;
-  const Events ev{};
-
-  std::vector<std::thread> ts;
-  for (int t = 0; t < n_threads; ++t) {
-    Worker *wp = E.workers[t];
-    ts.emplace_back([&, wp]() {
-      Worker &w = *wp;
-      StreamBatch b1, b2;
-      for (;;) {
-        int64_t my_seq;
-        int64_t bpos = 0;
-        {
-          std::lock_guard<std::mutex> lk(C.read_mtx);
-          if (C.done || C.failed)
-            break;
-          my_seq = C.next_seq++;
-          std::string err;
-          int prc;
-          const int64_t bs = C.remaining < 0
-                               ? batch_size
-                               : std::min(batch_size, C.remaining);
-          {
-            StageTimer pt(w.tns + 3);
-            prc = (parse_batch(in1, fq1_path, bs, b1, err) != 0 ||
-                   parse_batch(in2, fq2_path, bs, b2, err) != 0);
-          }
-          if (prc) {
-            C.failed = true;
-            C.err = err;
-          }
-          else if (b1.n != b2.n) {
-            C.failed = true;
-            C.err = "paired-end batch sizes differ. Batch 1: " +
-                    std::to_string(b1.n) +
-                    ", Batch 2: " + std::to_string(b2.n) +
-                    ". Are you sure your paired-end inputs have the same "
-                    "number of reads?";
-          }
-          else if (b1.n == 0)
-            C.done = true;
-          else if (C.remaining >= 0)
-            C.remaining -= b1.n;
-          bpos = in1.byte_pos();
-        }
-        w.out.clear();
-        if (!C.failed && b1.n) {
-          w.aln.reset(std::max(b1.max_len, b2.max_len));
-          const uint8_t *r1 = (const uint8_t *)b1.rblob.data();
-          const uint8_t *n1 = (const uint8_t *)b1.nblob.data();
-          const uint8_t *r2 = (const uint8_t *)b2.rblob.data();
-          const uint8_t *n2 = (const uint8_t *)b2.nblob.data();
-          for (int64_t ri = 0; ri < b1.n; ++ri)
-            map_one_pe(E, w, ev, ri, n1 + b1.noffs[ri],
-                       b1.noffs[ri + 1] - b1.noffs[ri], r1 + b1.roffs[ri],
-                       (int)(b1.roffs[ri + 1] - b1.roffs[ri]),
-                       n2 + b2.noffs[ri], b2.noffs[ri + 1] - b2.noffs[ri],
-                       r2 + b2.roffs[ri],
-                       (int)(b2.roffs[ri + 1] - b2.roffs[ri]),
-                       a_rich_mode != 0, random_pbat != 0);
-        }
-        std::string bam_blocks;
-        bool bam_ok = true;
-        if (C.bam && !C.failed && b1.n && !w.out.empty()) {
-          std::string payload;
-          bam_ok = sam_text_to_bam(w.out, C.ref_idx, payload);
-          if (bam_ok)
-            bgzf_compress(payload.data(), payload.size(), bam_blocks);
-        }
-        {
-          std::unique_lock<std::mutex> lk(C.write_mtx);
-          C.cv.wait(lk, [&] { return C.next_write == my_seq; });
-          if (!bam_ok && !C.failed) {
-            C.failed = true;
-            C.err = "BAM conversion failed (read name over 254 chars?)";
-          }
-          if (!C.failed && b1.n) {
-            if (C.bam)
-              fwrite(bam_blocks.data(), 1, bam_blocks.size(), C.out);
-            else
-              fwrite(w.out.data(), 1, w.out.size(), C.out);
-            C.n_reads += b1.n;
-            stream_progress(C, bpos);
-          }
-          ++C.next_write;
-          C.cv.notify_all();
-        }
-      }
-    });
-  }
-  for (auto &t : ts)
-    t.join();
-  if (C.tty && C.prev_pct < 100) {
-    C.prev_pct = 99;
-    stream_progress(C, C.total_bytes);
-  }
-  if (C.bam && !C.failed)
-    fwrite(BGZF_EOF_BLOCK, 1, sizeof(BGZF_EOF_BLOCK), out);
-  fclose(out);
-  if (C.failed) {
-    E.err = C.err;
-    return -1;
-  }
-  sum_stats(E, stats_out, 18);
-  return C.n_reads;
+  return stream_map(*(Engine *)eng, fq1_path, fq2_path, out_path, header,
+                    header_len, a_rich_mode, random_pbat, batch_size,
+                    n_threads, stats_out, verbose, skip_reads, max_reads,
+                    out_bam);
 }
 
 }  // extern "C"

@@ -6,7 +6,10 @@ back by the device program (mates longer than lmax, tRex1's repeats),
 claimed first and finishing out of batch order, at the default number
 of jobs in flight and at one; two files in a row on one engine;
 map_se_reads / map_pe_reads and interleaved dispatches complete when
-their last finish returns; a map that raises leaves no job behind."""
+their last finish returns; a map that raises leaves no job behind; and
+every other entry point of the library on the same pool (the streaming
+loop, to SAM and BAM, the event route's batch and phase calls) gives the
+goldens at 1 and 8 threads."""
 
 import gzip
 import io
@@ -305,3 +308,80 @@ def test_many_jobs_on_more_threads_than_cores(port_index, mixed_files):
     assert st.__dict__ == st_n.__dict__
     assert not eng.native._jobs
     eng.close()
+
+
+# every entry point of the native library on its pool, each a map of a
+# golden: "stream" the native engine's streaming loop (engine_run_se /
+# engine_run_pe), "bam" the same with -B, "events" the event route's batch
+# calls (engine_map_se_batch / engine_map_pe_batch), "align" its
+# device-align phases (engine_{se,pe}_phase{1,2})
+ENTRIES = {"stream_se": ("small", "stream"), "stream_pe": ("small_pe", "stream"),
+           "stream_bam": ("small", "bam"), "events_se": ("small", "events"),
+           "events_pe": ("small_pe", "events"),
+           "align_pe": ("small_pe", "align")}
+STREAM_BATCH = 48  # small's 500 reads in 11 batches: more than 8 in flight
+
+
+def _entry_factory(index, how, threads):
+    """A run_map factory whose engine runs the golden through `how`."""
+    import functools
+
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+
+    if how in ("stream", "bam"):
+        eng = NativeMappingEngine(index, n_threads=threads)
+        eng.run_streaming = functools.partial(eng.run_streaming,
+                                              batch_size=STREAM_BATCH)
+    else:
+        eng = _engine(index, n_threads=threads, device_stage2=False,
+                      device_align=how == "align", align_jcap=256)
+    return _factory(eng), eng
+
+
+def _stream_bam(index, threads, out_dir):
+    """small mapped to BAM by the streaming loop: (BAM bytes, mstats)."""
+    from abismal_tpu_torch.map.engine import run_map
+
+    factory, _ = _entry_factory(index, "bam", threads)
+    bam, mst = out_dir / "o.bam", out_dir / "o.mstats"
+    cl = ("map -s tests/small.mstats -o tests/small.sam -i tests/tRex1.idx "
+          "tests/small_1.fq")
+    run_map(index, golden_file("small_1.fq"), None, str(bam), str(mst), cl,
+            engine_factory=factory, threads=threads, bam=True)
+    return bam.read_bytes(), mst.read_text()
+
+
+@pytest.fixture(scope="module")
+def bam_at_one_thread(port_index, tmp_path_factory):
+    return _stream_bam(port_index, 1, tmp_path_factory.mktemp("bam1"))[0]
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_native_entry_points_at_thread_counts(tmp_path, port_index, entry,
+                                              threads, bam_at_one_thread):
+    """Each entry point gives its golden's SAM and mstats at 1 and at 8
+    pool threads; the BAM of the streaming loop is the golden SAM's
+    records and the same bytes at 8 threads as at 1."""
+    from abismal_tpu_torch.io.bam import BamWriter
+
+    name, how = ENTRIES[entry]
+    if how == "bam":
+        bam, mst = _stream_bam(port_index, threads, tmp_path)
+        want = tmp_path / "want.bam"
+        w = BamWriter(str(want))
+        w.write(_golden("small.sam"))
+        w.close()
+        assert gzip.decompress(bam) == gzip.decompress(want.read_bytes())
+        assert bam == bam_at_one_thread
+        assert mst == _golden("small.mstats")
+        return
+    factory, eng = _entry_factory(port_index, how, threads)
+    try:
+        sam, mst = _golden_map(port_index, factory, name, name != "small",
+                               False, tmp_path, threads)
+    finally:
+        if how in ("events", "align"):
+            eng.close()
+    assert sam == _golden(name + ".sam")
+    assert mst == _golden(name + ".mstats")
