@@ -5,8 +5,8 @@ of abismal_tpu/map/engine.py): the static limits of the device programs,
 the candidate-budget estimate from the index's counters, genome packing,
 the sharded index's key ranges and the merge of its shards' event
 streams, the stage-1 unit layout (prepare_units), the per-unit
-strand-code and conversion patterns, the ASCII read matrices and the
-pure-native engine factory.  Nothing here touches a torch device."""
+strand-code and conversion patterns and the pure-native engine
+factory.  Nothing here touches a torch device."""
 
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from ..constants import (
     BSFLAG_A_RICH, KEY_WEIGHT, KEY_WEIGHT_THREE, SAM_RC, WINDOW_SIZE,
 )
 from ..utils.dna import (
-    NIBBLE_TO_BIT, NIBBLE_TO_THREE_CT, NIBBLE_TO_THREE_GA, REVCOMP_TABLE,
+    NIBBLE_TO_BIT, NIBBLE_TO_THREE_CT, NIBBLE_TO_THREE_GA,
 )
 
 SLOT = 128  # max candidates checked per (offset, table); > max_candidates
@@ -280,27 +280,6 @@ def _pe_is_ga_pattern(a_rich_mode, random_pbat):
                 get_conv_is_ga(strand_code("+", not conv)),
                 get_conv_is_ga(strand_code("-", conv))]
     return np.array(pat, dtype=bool)
-
-
-def _ascii_matrices(seqs, lmax):
-    """(R, lmax) u8 ASCII matrix, its row-wise reverse complement,
-    and per-read lengths, from a list of byte strings.  Callers must
-    pre-blank oversized entries (b""); byte-level ljust joins beat
-    NumPy scatter layouts ~6x here.  REVCOMP_TABLE maps \\0 -> 'N',
-    so the reversed matrix's padding is re-zeroed from the forward
-    matrix's zero columns cheaply."""
-    R = len(seqs)
-    lens = np.fromiter((len(s) if s else 0 for s in seqs),
-                       dtype=np.int64, count=R)
-    pad = b"\x00" * lmax
-    A = np.frombuffer(
-        b"".join((s or pad).ljust(lmax, b"\x00") for s in seqs)
-        or pad, dtype=np.uint8).reshape(max(R, 1), lmax)
-    Arc = REVCOMP_TABLE[np.frombuffer(
-        b"".join((s[::-1] or pad).ljust(lmax, b"\x00") for s in seqs)
-        or pad, dtype=np.uint8).reshape(max(R, 1), lmax)]
-    Arc[A == 0] = 0
-    return A, Arc, lens
 
 
 def make_native_engine_factory(n_threads: int = 1):

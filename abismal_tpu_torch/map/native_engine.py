@@ -37,22 +37,79 @@ _SE_FIELDS = ("total_reads", "reads_mapped_unique", "reads_mapped_ambiguous",
 def _blob(items):
     """list of bytes -> (blob ascii array, int64 offsets)."""
     offs = np.zeros(len(items) + 1, dtype=np.int64)
-    for i, it in enumerate(items):
-        offs[i + 1] = offs[i] + len(it)
+    np.cumsum(np.fromiter(map(len, items), np.int64, len(items)),
+              out=offs[1:])
     blob = np.frombuffer(b"".join(items), dtype=np.uint8)
     if blob.size == 0:
         blob = np.zeros(1, dtype=np.uint8)
     return blob, offs
 
 
-def _pair_blobs(reads1, reads2):
+def seq_blob(reads):
+    """The sequences of (name, sequence) reads as one blob: (ascii u8
+    array, int64 offsets).  The device route builds it once a batch, for
+    the unit encoder (encode_units) and the finalize."""
+    return _blob([s for _, s in reads])
+
+
+def _name_blob(reads):
+    return _blob([n.encode() for n, _ in reads])
+
+
+def _pair_blobs(reads1, reads2, seqs=None):
     """The read and name blobs of both ends: (reads 1, offsets, names 1,
-    offsets, then the same of end 2)."""
-    out = ()
-    for reads in (reads1, reads2):
-        names, seqs = zip(*reads) if reads else ((), ())
-        out += _blob(list(seqs)) + _blob([n.encode() for n in names])
-    return out
+    offsets, then the same of end 2); seqs, the two ends' seq_blob where
+    the caller has them."""
+    seqs = seqs or (seq_blob(reads1), seq_blob(reads2))
+    return seqs[0] + _name_blob(reads1) + seqs[1] + _name_blob(reads2)
+
+
+def units_per(paired, random_pbat):
+    """The device units of a read (single-end) or of a pair: a unit a
+    strand and conversion the mapper tries."""
+    return (8 if random_pbat else 4) if paired else (4 if random_pbat else 2)
+
+
+def _check_pair_sizes(n1, n2):
+    if n1 != n2:
+        raise RuntimeError(
+            f"paired-end batch sizes differ. Batch 1: {n1}, "
+            f"Batch 2: {n2}. Are you sure your paired-end "
+            "inputs have the same number of reads?")
+
+
+def encode_units(lmax, seqs, a_rich_mode, random_pbat):
+    """(pnib, lens_u, per, oversized, n_rows, n_long): every read's
+    (pair's) `per` device units as packed nibble rows (lmax + 32 nibbles,
+    two a byte), their lengths, the reads (pairs) over lmax, the rows
+    written with bases and the reads (mates) over lmax, encoded by the
+    native library (encode_se_units / encode_pe_units) on the calling
+    thread.  seqs is (seq_blob(reads),) for single-end reads, an end's
+    seq_blob each for pairs; ends of different read counts raise.  The
+    rows are the JAX package's (_se_units_mat / _pe_units_mat); empty
+    reads and oversized reads (pairs) go up as zero-length rows."""
+    from ..native import get_engine_lib
+
+    paired = len(seqs) == 2
+    per = units_per(paired, random_pbat)
+    ns = [offs.shape[0] - 1 for _, offs in seqs]
+    if paired:
+        _check_pair_sizes(*ns)
+    R = ns[0]
+    pnib = np.zeros((per * max(R, 1), (lmax + 32) // 2), np.uint8)
+    # as JAX's: an empty batch's rows are one zero block, its lengths
+    # that block's for pairs and none for single-end reads
+    lens_u = np.zeros(per * (max(R, 1) if paired else R), np.int32)
+    oversized = np.zeros(R, dtype=bool)
+    counts = np.zeros(2, np.int64)
+    lib = get_engine_lib()
+    encode = lib.encode_pe_units if paired else lib.encode_se_units
+    rc = encode(*(a for (blob, offs), n in zip(seqs, ns)
+                  for a in (_ptr(blob), _ptr(offs), n)),
+                int(a_rich_mode), int(random_pbat), lmax, pnib.shape[1],
+                _ptr(pnib), _ptr(lens_u), _ptr(oversized), _ptr(counts))
+    assert rc == 0, rc
+    return pnib, lens_u, per, oversized, int(counts[0]), int(counts[1])
 
 
 def _ptr(a):
@@ -159,9 +216,8 @@ class NativeMappingEngine:
     def _call_se(self, reads, a_rich_mode, random_pbat, stats, out, events):
         tr = self.tracer
         with tr.span("pack"):
-            names, seqs = zip(*reads) if reads else ((), ())
-            rblob, roffs = _blob(list(seqs))
-            nblob, noffs = _blob([n.encode() for n in names])
+            rblob, roffs = seq_blob(reads)
+            nblob, noffs = _name_blob(reads)
             st = np.zeros(6, dtype=np.int64)
         with tr.span("native"):
             n = self.lib.engine_map_se_batch(
@@ -173,11 +229,7 @@ class NativeMappingEngine:
 
     def _call_pe(self, reads1, reads2, a_rich_mode, random_pbat, stats, out,
                  events):
-        if len(reads1) != len(reads2):
-            raise RuntimeError(
-                f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
-                f"batch 2: {len(reads2)}. Are you sure your paired-end "
-                "inputs have the same number of reads?")
+        _check_pair_sizes(len(reads1), len(reads2))
         tr = self.tracer
         with tr.span("pack"):
             (r1b, r1o, n1b, n1o, r2b, r2o, n2b,
@@ -193,19 +245,17 @@ class NativeMappingEngine:
         _add_stats(stats, st)
 
     def _call_pe_slots(self, reads1, reads2, a_rich_mode, random_pbat,
-                       stats, out, sl_pos, sl_ds, sl_cnt, mate=None):
+                       stats, out, sl_pos, sl_ds, sl_cnt, mate, seqs):
         """PE finalize from device stage-1+2 candidate slots (pipeline.py
         build_stage12pe): per-unit prescored candidate lists replace the
         event stream and the host score pass; units with cnt < 0 re-seed
-        natively (byte-identical at any fallback rate).  A job on the
+        natively (byte-identical at any fallback rate).  mate: the
+        device's mate rows, or None; seqs: the two ends' seq_blob, as the
+        dispatch encoded them.  A job on the
         finalize pool (_submit)."""
-        if len(reads1) != len(reads2):
-            raise RuntimeError(
-                f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
-                f"Batch 2: {len(reads2)}. Are you sure your paired-end "
-                "inputs have the same number of reads?")
+        _check_pair_sizes(len(reads1), len(reads2))
         with self.tracer.span("pack"):
-            blobs = _pair_blobs(reads1, reads2)
+            blobs = _pair_blobs(reads1, reads2, seqs)
             sl_pos = np.ascontiguousarray(sl_pos, dtype=np.uint32)
             sl_ds = np.ascontiguousarray(sl_ds, dtype=np.int32)
             sl_cnt = np.ascontiguousarray(sl_cnt, dtype=np.int32)
@@ -221,16 +271,16 @@ class NativeMappingEngine:
 
     # ---- device stage-2 finalize (pipeline.py build_stage12) ---------------
     def _finalize_se(self, reads, a_rich_mode, random_pbat, records, stats,
-                     out, cig_ops=None, cig_meta=None):
+                     out, seqs, cig_ops=None, cig_meta=None):
         """records: (n_reads, 4) int32 per-read device decisions; the
         native side does traceback-for-winners + SAM + stats, or a full
         exact re-map for REC_FALLBACK rows.  cig_ops/cig_meta (optional):
         device-traceback output (kernels.banded_align, K3) -- aligned rows
-        with meta n_ops >= 0 skip the host aligner entirely.  A job on the
+        with meta n_ops >= 0 skip the host aligner entirely.  seqs: the
+        reads' seq_blob, as the dispatch encoded it.  A job on the
         finalize pool (_submit)."""
         with self.tracer.span("pack"):
-            names, seqs = zip(*reads) if reads else ((), ())
-            blobs = (_blob(list(seqs)) + _blob([n.encode() for n in names]))
+            blobs = seqs + _name_blob(reads)
             records = np.ascontiguousarray(records, dtype=np.int32)
             tb_nops = 0
             if cig_ops is not None:
@@ -299,9 +349,8 @@ class NativeMappingEngine:
         """Seeds the batch and emits alignment jobs; returns (n_jobs, jobs)
         where jobs is int32 (n_jobs, 5): read, enc_sel, pos, bw, qsz.  The
         input blobs are pinned on self until _phase2_se runs."""
-        names, seqs = zip(*reads) if reads else ((), ())
-        rblob, roffs = _blob(list(seqs))
-        nblob, noffs = _blob([n.encode() for n in names])
+        rblob, roffs = seq_blob(reads)
+        nblob, noffs = _name_blob(reads)
         self._phase_refs = (rblob, roffs, nblob, noffs, events)
         with self.tracer.span("native"):
             n_jobs = self.lib.engine_se_phase1(
@@ -331,11 +380,7 @@ class NativeMappingEngine:
         """Seeds every fragment configuration of the batch and emits
         alignment jobs (read, unit_offset, pos, bw, qsz); pins the input
         blobs on self until _phase2_pe runs."""
-        if len(reads1) != len(reads2):
-            raise RuntimeError(
-                f"paired-end batch sizes differ. Batch 1: {len(reads1)}, "
-                f"Batch 2: {len(reads2)}. Are you sure your paired-end "
-                "inputs have the same number of reads?")
+        _check_pair_sizes(len(reads1), len(reads2))
         r1b, r1o, n1b, n1o, r2b, r2o, n2b, n2o = _pair_blobs(reads1, reads2)
         self._phase_refs = (r1b, r1o, n1b, n1o, r2b, r2o, n2b, n2o, events)
         with self.tracer.span("native"):
@@ -594,7 +639,8 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
         if fb is not None:
             print(f"[device stage-1 fallback units: {fb}/"
                   f"{getattr(engine, 'n_units', 0)}]", file=sys.stderr)
-        for line in trace_table(tr.summary()):
+        units = units_per(paired, random_pbat) * n_processed
+        for line in trace_table(tr.summary(), units):
             print(line, file=sys.stderr)
         print(f"[total mapping time: "
               f"{_time.monotonic() - start_time:.2f}s]", file=sys.stderr)
@@ -606,11 +652,13 @@ def run_map_pipelined(engine, index, reads_file1, reads_file2, out_path,
     return stats
 
 
-def trace_table(summary: dict) -> list[str]:
+def trace_table(summary: dict, units: int = 0) -> list[str]:
     """The -v lines of a tracer summary: each span's calls, total and self
-    seconds and its share of the map's total, then the counters, and the
+    seconds and its share of the map's total, then the counters, the
     finalize pool's engagement (1 - pool_waits / pool_jobs) where it ran
-    jobs."""
+    jobs, and the native unit encoder's (the rows it wrote with bases,
+    encoded_units, over the map's units, per a read or pair) where it
+    ran."""
     spans = summary["spans"]
     whole = max((t for p, (_, t, _s) in spans.items() if "/" not in p),
                 default=0.0) or 1.0
@@ -629,4 +677,7 @@ def trace_table(summary: dict) -> list[str]:
                      f"{c['pool_waits']} finish calls waited, engagement "
                      f"{1 - c['pool_waits'] / c['pool_jobs']:.3f}, "
                      f"{c['pool_first']} items first]")
+    if units and c.get("encoded_units"):
+        lines.append(f"[unit encoder: {c['encoded_units']} of {units} unit "
+                     f"rows, engagement {c['encoded_units'] / units:.3f}]")
     return lines

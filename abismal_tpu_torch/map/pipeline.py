@@ -48,15 +48,17 @@ from ..parallel.mesh import (
     shard_stage12pe,
 )
 from ..tracing import Tracer
-from ..utils.dna import ENCODE_A_RICH, ENCODE_T_RICH, revcomp_str
+from ..utils.dna import revcomp_str
 from .engine import MappingEngine
 from .host_units import (
-    DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, _ascii_matrices,
-    _merge_tp_streams, _pe_is_ga_pattern, _resolve_cand_budget,
-    _se_scode_pattern, _tp_key_bounds, estimate_cand_budget, ext_iters_for,
-    get_conv_is_ga, o_spec_for, pack_genome_u32, prepare_units, strand_code,
+    DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, _merge_tp_streams,
+    _pe_is_ga_pattern, _resolve_cand_budget, _se_scode_pattern,
+    _tp_key_bounds, estimate_cand_budget, ext_iters_for, get_conv_is_ga,
+    o_spec_for, pack_genome_u32, prepare_units, strand_code,
 )
-from .native_engine import NativeMappingEngine
+from .native_engine import (
+    NativeMappingEngine, encode_units, seq_blob, units_per,
+)
 from .seeds import pack_read, prep_read, process_seeds
 
 I64 = torch.int64
@@ -1063,10 +1065,12 @@ class TorchNativeEngine:
 
     tracer (tracing.Tracer, off until switched on) is the engine's one
     host tracer, shared with its runner and its native half: a batch's
-    dispatch (encode: the units, patterns and budget; then the runner's
+    dispatch (encode: the batch's sequence blob, the units the native
+    encoder writes from it, patterns and budget; then the runner's
     stage_in, replay or capture) and finish (collect: the rows' copies
     out, each after a device_wait while on; then the native half's pack,
-    native and write).
+    on the fused route with the dispatch's sequence blob, native and
+    write).
 
     The fused route's finish hands its batch to the native finalize pool
     and returns once the batches before it that are done are written (in
@@ -1169,9 +1173,7 @@ class TorchNativeEngine:
         self.chunk_marks = []
 
     def preferred_read_batch(self, paired, random_pbat):
-        per = ((8 if random_pbat else 4) if paired
-               else (4 if random_pbat else 2))
-        return max(250, self.unit_batch // per)
+        return max(250, self.unit_batch // units_per(paired, random_pbat))
 
     @property
     def n_threads(self):
@@ -1223,31 +1225,11 @@ class TorchNativeEngine:
 
     def _se_units_mat(self, reads, a_rich_mode, random_pbat):
         """(pnib, lens_u, per, oversized): every read's `per` encoded units
-        as packed nibble rows, in whole-batch NumPy (↔ JAX _se_units_mat);
-        oversized reads upload zero-length rows and fall back."""
-        per = 4 if random_pbat else 2
-        R = len(reads)
-        seqs = [s for _, s in reads]
-        oversized = np.fromiter(
-            (bool(s) and len(s) > self.lmax for s in seqs), dtype=bool,
-            count=R)
-        if oversized.any():
-            seqs = [b"" if o else s for s, o in zip(seqs, oversized)]
-        A, Arc, L = _ascii_matrices(seqs, self.lmax)
-        U = np.zeros((per * max(R, 1), self.lmax + 32), np.uint8)
-        if not random_pbat:
-            ef, er = ((ENCODE_A_RICH, ENCODE_T_RICH) if a_rich_mode
-                      else (ENCODE_T_RICH, ENCODE_A_RICH))
-            U[0::2, : self.lmax] = ef[A]
-            U[1::2, : self.lmax] = er[Arc]
-        else:
-            U[0::4, : self.lmax] = ENCODE_T_RICH[A]
-            U[1::4, : self.lmax] = ENCODE_A_RICH[A]
-            U[2::4, : self.lmax] = ENCODE_T_RICH[Arc]
-            U[3::4, : self.lmax] = ENCODE_A_RICH[Arc]
-        pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
-        lens_u = np.repeat(L, per).astype(np.int32)
-        return pnib, lens_u, per, oversized
+        as packed nibble rows, by the native encoder (encode_units; ↔ JAX
+        _se_units_mat); oversized reads upload zero-length rows and fall
+        back."""
+        return encode_units(self.lmax, (seq_blob(reads),), a_rich_mode,
+                            random_pbat)[:4]
 
     def _count_oversized(self, n):
         """n reads longer than lmax went up as zero-length rows: on the
@@ -1426,9 +1408,12 @@ class TorchNativeEngine:
         tr = self.tracer
         with tr.span("dispatch"):
             with tr.span("encode"):
-                pnib_all, lens_all, per, oversized = self._se_units_mat(
-                    reads, a_rich_mode, random_pbat)
-                self._count_oversized(int(oversized.sum()))
+                seqs = seq_blob(reads)
+                (pnib_all, lens_all, per, oversized, n_rows,
+                 n_long) = encode_units(self.lmax, (seqs,), a_rich_mode,
+                                        random_pbat)
+                tr.count("encoded_units", n_rows)
+                self._count_oversized(n_long)
                 scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
                 is_ga_pat = np.array(
                     [get_conv_is_ga(int(c)) for c in scode_pat], dtype=bool)
@@ -1438,9 +1423,7 @@ class TorchNativeEngine:
             if not self.device_stage2:
                 # every unit of a read with bases is on the native side's
                 # list
-                wanted = np.repeat(np.fromiter(
-                    (bool(s) for _, s in reads), dtype=bool,
-                    count=len(reads)), per)
+                wanted = np.repeat(np.diff(seqs[1]) > 0, per)
                 return ("events", False, (reads,), a_rich_mode, random_pbat,
                         per) + self._dispatch_events(pnib_all, lens_all,
                                                      wanted, is_ga_pat)
@@ -1477,7 +1460,7 @@ class TorchNativeEngine:
                 pending.append((start, n, rows, counts))
         self._dispatched += 1
         return (reads, a_rich_mode, random_pbat, per, pending, oversized,
-                self._dispatched)
+                seqs, self._dispatched)
 
     def finish_se(self, handle, stats, out):
         """Collects the chunks' packed rows (one copy each) and hands them
@@ -1486,7 +1469,7 @@ class TorchNativeEngine:
         with tr.span("finish"):
             if handle[0] == "events":
                 return self._finish_events(handle, stats, out)
-            reads, arm, rp, per, pending, oversized, seq = handle
+            reads, arm, rp, per, pending, oversized, seqs, seq = handle
             R = len(reads)
             W = 8 + TB_NOPS if self.device_tb else 4
             packed = np.zeros((max(R, 1), W), dtype=np.int32)
@@ -1514,7 +1497,7 @@ class TorchNativeEngine:
             self.n_units += R * per
             self.n_fallback += n_fb * per
             self.native._finalize_se(
-                reads, arm, rp, records[:R], stats, out,
+                reads, arm, rp, records[:R], stats, out, seqs,
                 cig_ops=None if cig_ops is None else cig_ops[:R],
                 cig_meta=None if cig_meta is None else cig_meta[:R])
             self._write_batches(seq)
@@ -1552,35 +1535,11 @@ class TorchNativeEngine:
 
     def _pe_units_mat(self, reads1, reads2, a_rich_mode, random_pbat):
         """(pnib, lens_u, per, oversized): every pair's `per` encoded units
-        in the JAX _pe_units_flat row order, whole-batch NumPy (↔ JAX
-        _pe_units_mat); pairs with an oversized end upload zero-length
-        rows and fall back."""
-        per = 8 if random_pbat else 4
-        R = len(reads1)
-        s1 = [s for _, s in reads1]
-        s2 = [s for _, s in reads2]
-        oversized = np.fromiter(
-            ((bool(a) and len(a) > self.lmax)
-             or (bool(b) and len(b) > self.lmax)
-             for a, b in zip(s1, s2)), dtype=bool, count=R)
-        if oversized.any():
-            s1 = [b"" if o else s for s, o in zip(s1, oversized)]
-            s2 = [b"" if o else s for s, o in zip(s2, oversized)]
-        A1, Arc1, L1 = _ascii_matrices(s1, self.lmax)
-        A2, Arc2, L2 = _ascii_matrices(s2, self.lmax)
-        U = np.zeros((per * max(R, 1), self.lmax + 32), np.uint8)
-        lens_u = np.zeros(per * max(R, 1), np.int32)
-        convs = [a_rich_mode] if not random_pbat else [False, True]
-        for ci, conv in enumerate(convs):
-            e1, e2 = ((ENCODE_A_RICH, ENCODE_T_RICH) if conv
-                      else (ENCODE_T_RICH, ENCODE_A_RICH))
-            o = 4 * ci
-            for u, (enc, A, L) in enumerate(((e1, A1, L1), (e1, Arc2, L2),
-                                             (e2, A2, L2), (e2, Arc1, L1))):
-                U[o + u :: per, : self.lmax] = enc[A]
-                lens_u[o + u :: per] = L
-        pnib = U[:, 0::2] | (U[:, 1::2] << np.uint8(4))
-        return pnib, lens_u, per, oversized
+        in the JAX _pe_units_flat row order, by the native encoder
+        (encode_units; ↔ JAX _pe_units_mat); pairs with an oversized end
+        upload zero-length rows and fall back."""
+        return encode_units(self.lmax, (seq_blob(reads1), seq_blob(reads2)),
+                            a_rich_mode, random_pbat)[:4]
 
     @property
     def n_device_mated(self):
@@ -1592,12 +1551,12 @@ class TorchNativeEngine:
         tr = self.tracer
         with tr.span("dispatch"):
             with tr.span("encode"):
-                pnib_all, lens_all, per, oversized = self._pe_units_mat(
-                    reads1, reads2, a_rich_mode, random_pbat)
-                if oversized.any():
-                    self._count_oversized(sum(
-                        len(s) > self.lmax for r in (reads1, reads2)
-                        for _, s in r))
+                seqs = (seq_blob(reads1), seq_blob(reads2))
+                (pnib_all, lens_all, per, oversized, n_rows,
+                 n_long) = encode_units(self.lmax, seqs, a_rich_mode,
+                                        random_pbat)
+                tr.count("encoded_units", n_rows)
+                self._count_oversized(n_long)
                 is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
                 if self.device_stage2:
                     prog = self._stage12pe_prog(per, self._budget_for(
@@ -1605,8 +1564,7 @@ class TorchNativeEngine:
             if not self.device_stage2:
                 # units 0 and 3 of an orientation block carry end 1, 1 and
                 # 2 end 2 (the JAX _pe_units_flat order)
-                has = [np.fromiter((bool(s) for _, s in r), dtype=bool,
-                                   count=len(r)) for r in (reads1, reads2)]
+                has = [np.diff(offs) > 0 for _, offs in seqs]
                 end2 = np.tile([False, True, True, False], per // 4)
                 wanted = np.where(end2[None, :], has[1][:, None],
                                   has[0][:, None]).reshape(-1)
@@ -1645,7 +1603,7 @@ class TorchNativeEngine:
                 pending.append((start, nu, rows))
         self._dispatched += 1
         return (reads1, reads2, a_rich_mode, random_pbat, per, pending,
-                oversized, self._dispatched)
+                oversized, seqs, self._dispatched)
 
     def finish_pe(self, handle, stats, out):
         """Collects the chunks' packed slot rows (one copy each) and hands
@@ -1654,7 +1612,8 @@ class TorchNativeEngine:
         with tr.span("finish"):
             if handle[0] == "events":
                 return self._finish_events(handle, stats, out)
-            reads1, reads2, arm, rp, per, pending, oversized, seq = handle
+            reads1, reads2, arm, rp, per, pending, oversized, seqs, seq = (
+                handle)
             n_pairs = len(reads1)
             n_units = per * n_pairs
             K = 32
@@ -1675,7 +1634,8 @@ class TorchNativeEngine:
             self.n_units += n_units
             self.n_fallback += int((cnt_all < 0).sum())
             self.native._call_pe_slots(reads1, reads2, arm, rp, stats, out,
-                                       pos_all, ds_all, cnt_all, mate_all)
+                                       pos_all, ds_all, cnt_all, mate_all,
+                                       seqs)
             self._write_batches(seq)
         return n_pairs
 

@@ -253,6 +253,16 @@ def get_engine_lib() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [ctypes.c_void_p] * 2
         lib.engine_out_ptr.restype = ctypes.c_void_p
         lib.engine_out_ptr.argtypes = [ctypes.c_void_p]
+        # the device's unit rows, on the calling thread: 0, or -1 where
+        # the two ends' read counts differ
+        _end = [ctypes.c_void_p] * 2 + [ctypes.c_int64]  # blob, offs, n
+        _enc = ([ctypes.c_int, ctypes.c_int]  # modes
+                + [ctypes.c_int64] * 2  # lmax, row stride
+                + [ctypes.c_void_p] * 4)  # pnib, lens, oversized, counts
+        lib.encode_se_units.restype = ctypes.c_int64
+        lib.encode_se_units.argtypes = _end + _enc
+        lib.encode_pe_units.restype = ctypes.c_int64
+        lib.encode_pe_units.argtypes = _end * 2 + _enc
 
         lib.engine_se_phase1.restype = ctypes.c_int64
         lib.engine_se_phase1.argtypes = (

@@ -2777,6 +2777,137 @@ void engine_job_release(void *eng, void *job) {
   pool_release(*((Engine *)eng)->pool, (PoolJob *)job);
 }
 
+// ---------------------------------------------------------------------------
+// the device programs' unit rows (native_engine.py encode_units): a batch's
+// reads, one ASCII blob with n + 1 offsets (an end's each for pairs),
+// encoded into the upload format, two 4-bit bases a byte, low nibble first,
+// into the caller's zeroed pnib (per rows a read or pair, `stride` bytes
+// a row) and lens (per a read or pair).  Rows follow the unit-id
+// enumeration of the JAX package's engine_prep_se_units /
+// engine_prep_pe_units; empty reads and oversized reads (pairs) keep
+// zero-length rows, and oversized ones set their `oversized` byte.  counts
+// gets the rows written with bases (the units the card maps) and the reads
+// (mates) longer than lmax.  Returns 0, or -1 where the two ends' read
+// counts differ (nothing is written).  No engine, no pool: the work runs on
+// the calling thread (the dispatching one), where a pool job would queue
+// behind the finalize's.
+// ---------------------------------------------------------------------------
+namespace {
+
+// encode_read's tables, [a_rich][ascii], and the same composed with
+// revcomp_ascii's complement: a row is read forward or backward through
+// one of them, in one pass
+struct UnitTables {
+  uint8_t fwd[2][256], rc[2][256];
+  UnitTables() {
+    for (int c = 0; c < 256; ++c) {
+      fwd[0][c] = T.enc_t[c];
+      fwd[1][c] = T.enc_a[c];
+      rc[0][c] = T.enc_t[T.rc[c]];
+      rc[1][c] = T.enc_a[T.rc[c]];
+    }
+  }
+};
+const UnitTables UT;
+
+// the row of len bases of ascii, encoded A-rich or T-rich, forward or
+// reverse-complemented: encode_read(ascii) or encode_read(revcomp_ascii(
+// ascii)) packed into the zeroed row; returns len
+inline int32_t pack_unit_row(const uint8_t *ascii, int len, bool a_rich,
+                             bool rc, uint8_t *row) {
+  if (!rc) {
+    const uint8_t *t = UT.fwd[a_rich];
+    for (int i = 0; i + 1 < len; i += 2)
+      row[i >> 1] = (uint8_t)(t[ascii[i]] | (t[ascii[i + 1]] << 4));
+    if (len & 1)
+      row[len >> 1] = t[ascii[len - 1]];
+  }
+  else {
+    const uint8_t *t = UT.rc[a_rich];
+    for (int i = 0; i + 1 < len; i += 2)
+      row[i >> 1] =
+        (uint8_t)(t[ascii[len - 1 - i]] | (t[ascii[len - 2 - i]] << 4));
+    if (len & 1)
+      row[len >> 1] = t[ascii[0]];
+  }
+  return len;
+}
+
+}  // namespace
+
+int64_t encode_se_units(const uint8_t *blob, const int64_t *offs,
+                        int64_t n_reads, int a_rich_mode, int random_pbat,
+                        int64_t lmax, int64_t stride, uint8_t *pnib,
+                        int32_t *lens, uint8_t *oversized, int64_t *counts) {
+  const int per = random_pbat ? 4 : 2;
+  const bool arm = a_rich_mode != 0;
+  int64_t n_rows = 0, n_long = 0;
+  for (int64_t ri = 0; ri < n_reads; ++ri) {
+    const int64_t n = offs[ri + 1] - offs[ri];
+    if (n > lmax) {
+      oversized[ri] = 1;
+      ++n_long;
+      continue;
+    }
+    const uint8_t *r = blob + offs[ri];
+    const int len = (int)n;
+    uint8_t *row = pnib + per * ri * stride;
+    int32_t *l = lens + per * ri;
+    if (!random_pbat) {
+      l[0] = pack_unit_row(r, len, arm, false, row);
+      l[1] = pack_unit_row(r, len, !arm, true, row + stride);
+    }
+    else {
+      l[0] = pack_unit_row(r, len, false, false, row);
+      l[1] = pack_unit_row(r, len, true, false, row + stride);
+      l[2] = pack_unit_row(r, len, false, true, row + 2 * stride);
+      l[3] = pack_unit_row(r, len, true, true, row + 3 * stride);
+    }
+    n_rows += len > 0 ? per : 0;
+  }
+  counts[0] = n_rows;
+  counts[1] = n_long;
+  return 0;
+}
+
+int64_t encode_pe_units(const uint8_t *blob1, const int64_t *offs1,
+                        int64_t n_pairs, const uint8_t *blob2,
+                        const int64_t *offs2, int64_t n_pairs2,
+                        int a_rich_mode, int random_pbat, int64_t lmax,
+                        int64_t stride, uint8_t *pnib, int32_t *lens,
+                        uint8_t *oversized, int64_t *counts) {
+  if (n_pairs2 != n_pairs)
+    return -1;
+  const int per = random_pbat ? 8 : 4;
+  int64_t n_rows = 0, n_long = 0;
+  for (int64_t ri = 0; ri < n_pairs; ++ri) {
+    const int64_t n1 = offs1[ri + 1] - offs1[ri];
+    const int64_t n2 = offs2[ri + 1] - offs2[ri];
+    if (n1 > lmax || n2 > lmax) {
+      oversized[ri] = 1;
+      n_long += (n1 > lmax) + (n2 > lmax);
+      continue;
+    }
+    const uint8_t *r1 = blob1 + offs1[ri], *r2 = blob2 + offs2[ri];
+    const int l1 = (int)n1, l2 = (int)n2;
+    uint8_t *row = pnib + per * ri * stride;
+    int32_t *l = lens + per * ri;
+    // one block of 4 units a conversion: end 1, end 2's reverse
+    // complement, end 2 and end 1's reverse complement
+    for (int c = 0; c < per / 4; ++c, row += 4 * stride, l += 4) {
+      const bool conv = random_pbat ? c != 0 : a_rich_mode != 0;
+      l[0] = pack_unit_row(r1, l1, conv, false, row);
+      l[1] = pack_unit_row(r2, l2, conv, true, row + stride);
+      l[2] = pack_unit_row(r2, l2, !conv, false, row + 2 * stride);
+      l[3] = pack_unit_row(r1, l1, !conv, true, row + 3 * stride);
+    }
+    // units 0 and 3 of a block carry end 1, units 1 and 2 end 2
+    n_rows += per / 2 * ((l1 > 0) + (l2 > 0));
+  }
+  counts[0] = n_rows;
+  counts[1] = n_long;
+  return 0;
+}
 
 // ---------------------------------------------------------------------------
 // two-phase SE mapping for device-side batched alignment: phase 1 seeds and

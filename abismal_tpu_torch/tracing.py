@@ -29,7 +29,10 @@ handed to the native finalize pool), pool_waits (finish calls that
 blocked on the pool, in finish/native_wait: 1 - pool_waits / pool_jobs
 is the share of batches whose finalize the batch loop did not wait for),
 pool_first (items the card handed back, which the pool claims first:
-SE reads of status 3, PE pairs with a unit of cnt < 0), and the native
+SE reads of status 3, PE pairs with a unit of cnt < 0), encoded_units
+(the unit rows the native encoder wrote with bases in dispatch/encode:
+per a read, and per / 2 a mate with bases, of the reads and pairs within
+lmax; empty and oversized ones go up as zero-length rows), and the native
 library's worker nanoseconds in seed, align and format (engine_stage_ns:
 the SE finalize, and the PE slot finalize's seeding or slot fill, pair
 and single-end alignments, and SAM text).
@@ -49,7 +52,8 @@ from collections import defaultdict
 import numpy as np
 
 COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures",
-            "oversized", "pool_jobs", "pool_waits", "pool_first")
+            "oversized", "pool_jobs", "pool_waits", "pool_first",
+            "encoded_units")
 NATIVE = ("seed", "align", "format")  # engine_stage_ns slots 0-2
 
 

@@ -101,12 +101,6 @@ def _helper_results(pkg, index):
     out["_resolve_cand_budget"] = [
         helpers._resolve_cand_budget(None, 10 ** 8, 3 * 10 ** 8, 128),
         helpers._resolve_cand_budget(96, 1, 1, 128)]
-    seqs = [bytes(rng.choice(list(b"ACGTN"), int(n)).astype(np.uint8))
-            for n in rng.integers(0, 129, 40)]
-    seqs[3] = b""
-    A, Arc, lens = statics._ascii_matrices(seqs, 128)
-    out["_ascii_matrices/A"], out["_ascii_matrices/Arc"] = A, Arc
-    out["_ascii_matrices/lens"] = lens
     for arm in (False, True):
         for rp in (False, True):
             out[f"scode/{arm}/{rp}"] = statics._se_scode_pattern(arm, rp)
@@ -120,9 +114,9 @@ def _helper_results(pkg, index):
 
 def test_numpy_helpers_agree(port_index):
     """win_start, pack_genome_u32, o_spec_for, ext_iters_for,
-    estimate_cand_budget, _resolve_cand_budget, _ascii_matrices, the
-    strand-code and conversion patterns, get_conv_is_ga and prepare_units:
-    equal results through both packages."""
+    estimate_cand_budget, _resolve_cand_budget, the strand-code and
+    conversion patterns, get_conv_is_ga and prepare_units: equal results
+    through both packages."""
     import importlib
 
     def package(name, ref):

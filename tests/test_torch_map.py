@@ -225,6 +225,24 @@ def test_golden_pe_parity(tmp_path, port_index, prefix, pbat):
     assert mst.read_text() == _golden(prefix + ".mstats")
 
 
+def test_pe_mate_file_cut_short(tmp_path, port_index):
+    """A mate file with fewer reads than its end-1 file gives a last batch
+    whose ends differ in size: the map raises the paired-end message
+    before that batch's units are encoded, as the native engine does."""
+    from abismal_tpu_torch.map.engine import run_map
+
+    with open(golden_file("small_pe_2.fq"), "rb") as f:
+        lines = f.readlines()
+    fq2 = tmp_path / "cut_2.fq"
+    fq2.write_bytes(b"".join(lines[: len(lines) - 4 * 7]))
+    cl = ("map -o tests/small_pe.sam -i tests/tRex1.idx tests/small_pe_1.fq "
+          "tests/cut_2.fq")
+    with pytest.raises(RuntimeError, match="same number of reads"):
+        run_map(port_index, golden_file("small_pe_1.fq"), str(fq2),
+                str(tmp_path / "out.sam"), None, cl,
+                engine_factory=_factory(), threads=2)
+
+
 @pytest.mark.parametrize("prefix,random_pbat", [
     ("small_pe", False),
     ("small_rpbat_pe", True),

@@ -7,7 +7,9 @@ torch.profiler the spans are abismal:<name> ranges, nested as they were
 opened; -v prints the tracer's table; the tracer switches the native
 library's worker timers on and off with itself, and the PE slot finalize
 reports its workers' seconds on them; reads longer than lmax are
-counted (oversized) and named on standard error at the end of a map."""
+counted (oversized) and named on standard error at the end of a map;
+the native unit encoder's rows are counted (encoded_units) and the
+finalize reuses the sequence blob the dispatch encoded from."""
 
 import gzip
 import json
@@ -162,6 +164,60 @@ def test_pool_first_counts_the_fallbacks(tmp_path, port_index, engine,
     assert c["pool_first"] == sum(want) > 0
 
 
+@pytest.mark.parametrize("name,paired,pbat", GOLDENS)
+def test_units_encoded_natively_from_one_blob(tmp_path, port_index, engine,
+                                              monkeypatch, name, paired,
+                                              pbat):
+    """A fused map counts the unit rows the native encoder wrote with bases
+    in encoded_units: per a read, per / 2 a mate, with bases (the loader
+    blanks the reads it skips; none is over lmax here), and each finalize
+    job holds the sequence blob(s) its dispatch encoded from: the
+    sequences are joined once a batch, in dispatch/encode."""
+    from abismal_tpu_torch.map import native_engine, pipeline
+
+    fac, eng = engine
+    nat = eng.native
+    made, held = [], []
+    seq_blob, submit = native_engine.seq_blob, nat._submit
+
+    def dispatch_blob(reads):
+        made.append(seq_blob(reads))
+        return made[-1]
+
+    def finalize_blob(reads):
+        raise AssertionError("the finalize joined the sequences again")
+
+    def spy(fn, args, refs, *a):
+        held.append(refs[0])
+        return submit(fn, args, refs, *a)
+
+    monkeypatch.setattr(pipeline, "seq_blob", dispatch_blob)
+    monkeypatch.setattr(native_engine, "seq_blob", finalize_blob)
+    monkeypatch.setattr(nat, "_submit", spy)
+    eng.tracer.reset()
+    eng.tracer.on = True
+    try:
+        sam, n_reads = _map(port_index, fac, name, paired, pbat,
+                            tmp_path / "o.sam")
+    finally:
+        eng.tracer.on = False
+    assert sam == _golden(name + ".sam")
+    c = eng.tracer.summary()["counters"]
+    per, items = (4, n_reads // 2) if paired else (2, n_reads)
+    with_bases = sum(int((np.diff(offs) > 0).sum()) for _, offs in made)
+    assert c["encoded_units"] == per // (1 + paired) * with_bases
+    assert 0 < c["encoded_units"] < per * items
+    assert len(held) == c["batches"] >= 2
+    assert len(made) == c["batches"] * (2 if paired else 1)
+    for k, blobs in enumerate(held):
+        if paired:
+            assert blobs[0] is made[2 * k][0] and blobs[1] is made[2 * k][1]
+            assert (blobs[4] is made[2 * k + 1][0]
+                    and blobs[5] is made[2 * k + 1][1])
+        else:
+            assert blobs[0] is made[k][0] and blobs[1] is made[k][1]
+
+
 def test_event_route_same_bytes(tmp_path, port_index):
     """The event route (build_stage1's events replayed natively) has the
     same span names: finish/collect is the wait for its collector
@@ -228,6 +284,8 @@ def test_verbose_prints_the_table(tmp_path, port_index, engine, capsys):
                  "map/finish/native", "map/finish/write"):
         assert f"[{path} " in err, path
     assert "[counters: reads 500, batches 2," in err
+    # 40 of the 500 reads are blanked by the loader: no rows with bases
+    assert "[unit encoder: 920 of 1000 unit rows, engagement 0.920]" in err
 
 
 def test_native_timers_follow_the_tracer(tmp_path, port_index, engine):
