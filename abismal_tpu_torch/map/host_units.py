@@ -270,16 +270,23 @@ def _se_scode_pattern(a_rich_mode, random_pbat):
                     dtype=np.int32)
 
 
-def _pe_is_ga_pattern(a_rich_mode, random_pbat):
-    """Per-unit conversion (G->A table?) flags of a pair's units."""
+def _pe_scode_pattern(a_rich_mode, random_pbat):
+    """Per-unit strand codes of a pair's units: an orientation block of
+    end 1 forward, end 2 reverse, end 2 forward, end 1 reverse a
+    conversion of end 1 (both under random PBAT)."""
     convs = [a_rich_mode] if not random_pbat else [False, True]
     pat = []
     for conv in convs:
-        pat += [get_conv_is_ga(strand_code("+", conv)),
-                get_conv_is_ga(strand_code("-", not conv)),
-                get_conv_is_ga(strand_code("+", not conv)),
-                get_conv_is_ga(strand_code("-", conv))]
-    return np.array(pat, dtype=bool)
+        pat += [strand_code("+", conv), strand_code("-", not conv),
+                strand_code("+", not conv), strand_code("-", conv)]
+    return np.array(pat, dtype=np.int32)
+
+
+def _pe_is_ga_pattern(a_rich_mode, random_pbat):
+    """Per-unit conversion (G->A table?) flags of a pair's units."""
+    return np.array([get_conv_is_ga(int(c)) for c in
+                     _pe_scode_pattern(a_rich_mode, random_pbat)],
+                    dtype=bool)
 
 
 def make_native_engine_factory(n_threads: int = 1):

@@ -658,7 +658,9 @@ def trace_table(summary: dict, units: int = 0) -> list[str]:
     finalize pool's engagement (1 - pool_waits / pool_jobs) where it ran
     jobs, and the native unit encoder's (the rows it wrote with bases,
     encoded_units, over the map's units, per a read or pair) where it
-    ran."""
+    ran, with the conversions: the A-rich share of those rows
+    (a_rich_units) and, where the fused single-end route counted winners,
+    theirs (cv_a_winners over cv_a_winners + cv_t_winners)."""
     spans = summary["spans"]
     whole = max((t for p, (_, t, _s) in spans.items() if "/" not in p),
                 default=0.0) or 1.0
@@ -680,4 +682,13 @@ def trace_table(summary: dict, units: int = 0) -> list[str]:
     if units and c.get("encoded_units"):
         lines.append(f"[unit encoder: {c['encoded_units']} of {units} unit "
                      f"rows, engagement {c['encoded_units'] / units:.3f}]")
+    if c.get("encoded_units"):
+        line = (f"[conversions: {c['a_rich_units']} of {c['encoded_units']} "
+                f"unit rows A-rich "
+                f"({c['a_rich_units'] / c['encoded_units']:.3f})")
+        cv_a, cv_t = c["cv_a_winners"], c["cv_t_winners"]
+        if cv_a + cv_t:
+            line += (f"; winners CV:A {cv_a}, CV:T {cv_t} "
+                     f"(CV:A {cv_a / (cv_a + cv_t):.3f})")
+        lines.append(line + "]")
     return lines

@@ -52,7 +52,7 @@ from ..utils.dna import revcomp_str
 from .engine import MappingEngine
 from .host_units import (
     DEVICE_MIN_LEN, HASH3_MOD, REC_FALLBACK, SLOT, TB_NOPS, _merge_tp_streams,
-    _pe_is_ga_pattern, _resolve_cand_budget, _se_scode_pattern,
+    _pe_scode_pattern, _resolve_cand_budget, _se_scode_pattern,
     _tp_key_bounds, estimate_cand_budget, ext_iters_for, get_conv_is_ga,
     o_spec_for, pack_genome_u32, prepare_units, strand_code,
 )
@@ -546,6 +546,13 @@ def build_stage1(lmax: int, max_candidates: int, n_index2: int,
 
     _stage1_memo[key] = (stage1, o_spec)
     return stage1, o_spec
+
+
+def _a_rich_rows(lens, scode_pat) -> int:
+    """The unit rows with bases (lens > 0; a read's or pair's units in
+    turn) whose strand code in scode_pat carries the A-rich flag."""
+    a_rich = (np.asarray(scode_pat) & F_A_RICH) != 0
+    return int((lens.reshape(-1, len(a_rich))[:, a_rich] > 0).sum())
 
 
 def _fill_job_rows(n: int, dev) -> torch.Tensor:
@@ -1415,6 +1422,9 @@ class TorchNativeEngine:
                 tr.count("encoded_units", n_rows)
                 self._count_oversized(n_long)
                 scode_pat = _se_scode_pattern(a_rich_mode, random_pbat)
+                if tr.on:
+                    tr.count("a_rich_units", _a_rich_rows(lens_all,
+                                                          scode_pat))
                 is_ga_pat = np.array(
                     [get_conv_is_ga(int(c)) for c in scode_pat], dtype=bool)
                 if self.device_stage2:
@@ -1494,6 +1504,12 @@ class TorchNativeEngine:
                 records[idx] = np.array([REC_FALLBACK, 0, 0, 0],
                                         dtype=np.int32)
             n_fb = int(((records[:R, 0] & 7) == REC_FALLBACK).sum())
+            if tr.on:  # the winners' conversions: status exact or aligned
+                won = records[:R, 0]
+                hit = ((won & 7) == 1) | ((won & 7) == 2)
+                a_rich = ((won >> 3) & F_A_RICH) != 0
+                tr.count("cv_a_winners", int((hit & a_rich).sum()))
+                tr.count("cv_t_winners", int((hit & ~a_rich).sum()))
             self.n_units += R * per
             self.n_fallback += n_fb * per
             self.native._finalize_se(
@@ -1557,7 +1573,12 @@ class TorchNativeEngine:
                                         random_pbat)
                 tr.count("encoded_units", n_rows)
                 self._count_oversized(n_long)
-                is_ga_pat = _pe_is_ga_pattern(a_rich_mode, random_pbat)
+                scode_pat = _pe_scode_pattern(a_rich_mode, random_pbat)
+                if tr.on:
+                    tr.count("a_rich_units", _a_rich_rows(lens_all,
+                                                          scode_pat))
+                is_ga_pat = np.array(
+                    [get_conv_is_ga(int(c)) for c in scode_pat], dtype=bool)
                 if self.device_stage2:
                     prog = self._stage12pe_prog(per, self._budget_for(
                         (pnib_all, lens_all), is_ga_pat, per))

@@ -32,7 +32,12 @@ pool_first (items the card handed back, which the pool claims first:
 SE reads of status 3, PE pairs with a unit of cnt < 0), encoded_units
 (the unit rows the native encoder wrote with bases in dispatch/encode:
 per a read, and per / 2 a mate with bases, of the reads and pairs within
-lmax; empty and oversized ones go up as zero-length rows), and the native
+lmax; empty and oversized ones go up as zero-length rows), a_rich_units
+(of those rows, the ones whose unit's strand code carries the A-rich
+flag: 0 for directional single-end reads, half under random PBAT and of
+a pair's units), cv_a_winners and cv_t_winners (the fused single-end
+route's records of status exact or aligned, ambiguous ones too, whose
+winning strand code is A-rich, CV:A, or T-rich, CV:T), and the native
 library's worker nanoseconds in seed, align and format (engine_stage_ns:
 the SE finalize, and the PE slot finalize's seeding or slot fill, pair
 and single-end alignments, and SAM text).
@@ -53,7 +58,7 @@ import numpy as np
 
 COUNTERS = ("reads", "batches", "read_bytes", "chunks", "captures",
             "oversized", "pool_jobs", "pool_waits", "pool_first",
-            "encoded_units")
+            "encoded_units", "a_rich_units", "cv_a_winners", "cv_t_winners")
 NATIVE = ("seed", "align", "format")  # engine_stage_ns slots 0-2
 
 

@@ -234,3 +234,68 @@ def test_card_pe_goldens_at_lmax_160(tmp_path, trex1, prefix, pbat):
     eng = _map_golden(tmp_path, trex1, prefix, fac, pbat=pbat)
     assert eng.lmax == 160 and eng.n_oversized == 0
     assert popcount_compare.launches > k0
+
+
+def _rpbat_reads(seq, n, rng, length=150):
+    """n random-PBAT reads of `length` bases from seq (str): either
+    strand, 1% substitutions, then each read T-rich (C->T at 98%) or
+    A-rich (G->A) with equal chance."""
+    import numpy as np
+
+    comp = str.maketrans("ACGT", "TGCA")
+    out = []
+    for i in range(n):
+        p = int(rng.integers(0, len(seq) - length))
+        s = seq[p : p + length]
+        if rng.random() < 0.5:
+            s = s.translate(comp)[::-1]
+        s = list(s)
+        for k in np.flatnonzero(rng.random(length) < 0.01):
+            s[k] = "ACGT"[("ACGT".index(s[k]) + 1) % 4]
+        frm, to = ("C", "T") if rng.random() < 0.5 else ("G", "A")
+        conv = rng.random(length) < 0.98
+        s = "".join(to if c == frm and k else c for c, k in zip(s, conv))
+        out.append((f"r{i}", s.encode()))
+    return out
+
+
+def test_card_rpbat_se_150bp_at_lmax_160(tmp_path):
+    """Random-PBAT single-end 150 bp reads of a random 2 Mb genome through
+    the graphed fused SE program at lmax 160 (4 units a read, K3 on
+    160-nibble rows): the native engine's SAM and stats byte for byte,
+    CV:A and CV:T winners both written, no read over lmax."""
+    import io
+
+    import numpy as np
+
+    from abismal_tpu_torch.index.build import create_index
+    from abismal_tpu_torch.kernels.banded_align import banded_trace_packed
+    from abismal_tpu_torch.map import pipeline
+    from abismal_tpu_torch.map.native_engine import NativeMappingEngine
+    from abismal_tpu_torch.map.stats import SEStats
+
+    rng = np.random.default_rng(29)
+    seq = "".join(rng.choice(list("ACGT"), size=2_000_000))
+    fa = tmp_path / "g.fa"
+    fa.write_text(">chr1\n" + "\n".join(seq[i : i + 80] for i in
+                                         range(0, len(seq), 80)) + "\n")
+    index = create_index(str(fa))
+    rd = _rpbat_reads(seq, 3000, rng)
+    eng = pipeline.TorchNativeEngine(index, lmax=160, n_threads=2,
+                                     device="cuda")
+    k0 = banded_trace_packed.launches
+    outs = []
+    for e in (eng, NativeMappingEngine(index, n_threads=2)):
+        out, st = io.StringIO(), SEStats()
+        for b in range(0, len(rd), 1000):
+            e.map_se_reads(rd[b : b + 1000], False, True, st, out)
+        outs.append((out.getvalue(), st.tostring("stats")))
+    eng.close()
+    assert outs[0] == outs[1]
+    sam = outs[0][0]
+    assert sam.count("\tCV:A:A") > 1000 and sam.count("\tCV:A:T") > 1000
+    assert eng.n_units == 4 * len(rd) and eng.n_oversized == 0
+    assert sum(s["replays"] for s in eng.graphs.stats()) > 0
+    assert banded_trace_packed.launches > k0
+    del eng
+    gc.collect()
